@@ -1,0 +1,63 @@
+"""Symmetric INT8 post-training quantization of the LM's linears.
+
+Fisher sensitivity and structural pruning are not ported yet; artifacts
+pruned by the JAX package load through ``repro_torch.weights``."""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.compress.qtypes import QuantizedLinear
+from repro_torch.kernels.ref import ieee_div
+
+EPS = 1e-8          # amax floor: all-zero slices get scale EPS/qmax, q == 0
+
+QUANT_LINEAR_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down",
+                     "in_proj", "out_proj", "frontend")
+
+
+def symmetric_quantize(w: torch.Tensor, bits: int = 8,
+                       dims: Optional[Tuple[int, ...]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q = clip(round(w/s), ±qmax), s = max(amax, EPS)/qmax in f32.
+
+    ``dims``: reduction dims for amax (None = per-tensor). Returns (q float,
+    scale with ``dims`` kept as size-1 dims). ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so the codes equal the reference's."""
+    qmax = float(2 ** (bits - 1) - 1)
+    wf = w.float()
+    dims = tuple(range(wf.ndim)) if dims is None else dims
+    amax = wf.abs().amax(dim=dims, keepdim=True)
+    scale = ieee_div(torch.clamp_min(amax, EPS), qmax)
+    q = torch.clamp(torch.round(wf / scale), -qmax, qmax)
+    return q, scale
+
+
+def quantize_linear(p: Any, bits: int = 8) -> QuantizedLinear:
+    """{"w": (..., in, out)} (or a bare tensor) -> QuantizedLinear, with one
+    scale per output channel within each leading index."""
+    w = p["w"] if isinstance(p, dict) else p
+    q, scale = symmetric_quantize(w, bits, dims=(w.ndim - 2,))
+    return QuantizedLinear(w_q=q.to(torch.int8),
+                           scale=scale.squeeze(w.ndim - 2).float(), bits=bits)
+
+
+def quantize_lm_params(params: Any, bits: int = 8,
+                       skip: Tuple[str, ...] = ("router", "dt_proj", "x_proj"),
+                       ) -> Any:
+    """Walk the LM param tree and replace quantizable linears with
+    ``QuantizedLinear``. Embeddings and norms stay high-precision."""
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            if ("w" in tree and isinstance(tree["w"], torch.Tensor)
+                    and tree["w"].ndim >= 2
+                    and path and path[-1] in QUANT_LINEAR_KEYS
+                    and not any(s in path for s in skip)):
+                return quantize_linear(tree, bits)
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, path + (i,))
+                              for i, v in enumerate(tree))
+        return tree
+    return walk(params)

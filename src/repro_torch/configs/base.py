@@ -1,0 +1,38 @@
+"""Model configuration: the port's own copy of the fields the serving path
+reads from the JAX package's ``ModelConfig``."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    use_bias: bool = False
+    norm_eps: float = 1e-5
+    block_pattern: Tuple[str, ...] = ()   # () -> all "attn"
+    max_seq_len: int = 32_768
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        if self.block_pattern:
+            if len(self.block_pattern) != self.n_layers:
+                raise ValueError("block_pattern length != n_layers")
+            return self.block_pattern
+        return ("attn",) * self.n_layers

@@ -1,0 +1,150 @@
+"""Builds the hand-written CUDA kernels and binds them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exports plain C functions that take device pointers,
+ints and the CUDA stream, launch one kernel, and return
+``cudaGetLastError()``. ``nvcc`` compiles each source into its own shared
+library under ``build/repro_torch/`` at the repo root (``.gitignore`` lists
+``build/``), at first use, keyed by a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+``build`` starts one ``nvcc`` per missing library, all at once.
+
+No module of the port imports this at load time for a CUDA reason: nothing
+here runs until a kernel is launched on a CUDA tensor."""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional, Sequence
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+
+
+def sources() -> Sequence[str]:
+    """Names of every kernel source (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named sources (default: all) that are not built yet, one
+    ``nvcc`` each, in parallel. Returns seconds spent per library built;
+    raises with the compiler's output if any build fails."""
+    names = list(sources() if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.monotonic()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    took, failed = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n}.cu (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+        took[n] = time.monotonic() - t0
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+class Kernel:
+    """One exported C launcher of one source, with its launch count.
+
+    ``launches`` is a plain integer that ``launch`` raises by one each time
+    the kernel is launched, and nowhere else; a caller may reset it."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    def load(self):
+        with _lock:
+            if self._fn is None:
+                build([self.source])
+                lib = ctypes.CDLL(str(library_path(self.source)))
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                err = getattr(lib, "error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args, stream: int) -> None:
+        code = self.load()(*args, stream)
+        if code != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{code} ({self._err(code).decode()})")
+        self.launches += 1
+
+
+# ------------------------------------------------------------ wrapper checks
+def runs_plain(t) -> bool:
+    """Dispatch by device: True for a CPU tensor (the plain version runs),
+    False for a CUDA tensor (the kernel launches). Any other device raises:
+    there is no quiet fallback."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise RuntimeError(f"no kernel for tensors on {t.device}")
+
+
+def check(name: str, t, dtype, ndim: int, device) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of rank ``ndim`` on
+    ``device``."""
+    if t.dtype != dtype or t.dim() != ndim or t.device != device:
+        raise ValueError(f"{name}: expected a {ndim}-d {dtype} tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def check_int32(name: str, *sizes: int) -> None:
+    for s in sizes:
+        if s >= 2 ** 31:
+            raise ValueError(f"{name}: size {s} does not fit the kernel's "
+                             f"int arguments")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

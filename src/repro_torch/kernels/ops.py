@@ -1,0 +1,84 @@
+"""Public ops: shape plumbing, then dispatch by device.
+
+Each op looks at its input tensor: a CPU tensor goes to the plain PyTorch
+version, a CUDA tensor launches the hand-written kernel (or raises). There is
+no switch and no fallback. This module owns the cache-dict unpacking and the
+static visible-window slice of the attention ops."""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels.decode_attention import (
+    decode_attention as _decode_attention)
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
+from repro_torch.kernels.prefill_attention import (
+    prefill_attention as _prefill_attention)
+from repro_torch.kernels.quantize import quantize_rowwise as _quantize_rowwise
+
+Start = Union[int, torch.Tensor]
+
+
+def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., K) float -> ((..., K) int8, (...,) f32 scale)."""
+    shp = x.shape
+    q, s = _quantize_rowwise(x.reshape(-1, shp[-1]).contiguous())
+    return q.reshape(shp), s.reshape(shp[:-1])
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W8A8 matmul: x (..., K) float (quantized per row here) or int8 with
+    ``x_scale``; w_q (K, N) int8 -> (..., N) bf16."""
+    shp = x.shape
+    x2 = x.reshape(-1, shp[-1]).contiguous()
+    if x2.dtype != torch.int8:
+        x_q, x_scale = _quantize_rowwise(x2)
+    else:
+        x_q, x_scale = x2, x_scale.reshape(-1).contiguous()
+    out = _int8_matmul(x_q, w_q, x_scale, w_scale)
+    return out.reshape(*shp[:-1], w_q.shape[1])
+
+
+# ------------------------------------------------------------- KV-cache attn
+def _cache_window(cache: dict, window: Optional[int]):
+    """(k, v, k_s, v_s) views of a (possibly INT8) KV-cache dict, restricted
+    to the first ``window`` positions. The slice is a view: no copy, and the
+    kernels take its batch stride. Positions past the window would mask to
+    exact zeros, so the windowed attend equals the full one."""
+    if "k_q" in cache:
+        k, v, k_s, v_s = cache["k_q"], cache["v_q"], cache["k_s"], cache["v_s"]
+    else:
+        k, v, k_s, v_s = cache["k"], cache["v"], None, None
+    if window is not None and window < k.shape[1]:
+        sl = lambda t: None if t is None else t[:, :window]
+        k, v, k_s, v_s = sl(k), sl(v), sl(k_s), sl(v_s)
+    return k, v, k_s, v_s
+
+
+def _start_vector(start: Start, b: int, device) -> torch.Tensor:
+    """Scalar or (B,) start positions -> a contiguous (B,) int32 tensor."""
+    if isinstance(start, torch.Tensor):
+        start = start.to(device=device, dtype=torch.int32)
+        return start.expand(b).contiguous()
+    return torch.full((b,), int(start), dtype=torch.int32, device=device)
+
+
+def prefill_attention(q: torch.Tensor, cache: dict, start: Start,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Chunked-prefill attend: q (B, Sq, Hq, hd) at absolute positions
+    start..start+Sq-1 against a cache holding [0, start+Sq); ``window >=
+    start + Sq`` for every consumed row. Sq == 1 (a prompt's tail chunk)
+    stays here, so a tail chunk and a whole-prompt prefill share numerics."""
+    start = _start_vector(start, q.shape[0], q.device)
+    return _prefill_attention(q, *_cache_window(cache, window), start)
+
+
+def decode_attention(q: torch.Tensor, cache: dict, start: Start,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Decode attend: q (B, 1, Hq, hd) at per-slot positions ``start`` ->
+    (B, 1, Hq, hd)."""
+    start = _start_vector(start, q.shape[0], q.device)
+    return _decode_attention(q[:, 0], *_cache_window(cache, window),
+                             start)[:, None]

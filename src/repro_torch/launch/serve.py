@@ -1,0 +1,170 @@
+"""Serving launcher: a fresh or PTQ-quantized model, or a saved artifact,
+through the lockstep loop or the continuous-batching engine.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --engine --verify
+  python -m repro_torch.launch.serve --engine --hqp --verify   # on the card
+
+``--hqp`` here is post-training INT8 quantization of the linears plus the
+INT8 KV cache (``--prune-steps 0``); Fisher-guided pruning is ROADMAP A7.
+``--load-artifact`` serves an artifact the JAX package saved (pruned ones
+included) with the INT8 KV cache."""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.compress.quantize import quantize_lm_params
+from repro_torch.models import lm
+from repro_torch.serving import (Engine, Request, SchedulerConfig,
+                                 serial_decode, summarize_results)
+from repro_torch.serving import sampling as smp
+from repro_torch.weights import load_artifact
+
+N_REQUESTS = 4
+
+
+def synth_requests(cfg, n: int, prompt_len: int, max_new_tokens: int,
+                   gap_s: float = 0.02, seed: int = 0):
+    """Staggered synthetic load: varying prompt lengths so chunked prefill
+    interleaves with decode of earlier requests."""
+    rng = np.random.RandomState(seed)
+    lens = [max(4, prompt_len + (i * 7) % 11 - 5) for i in range(n)]
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, n_tok).tolist(),
+                    max_new_tokens=max_new_tokens) for n_tok in lens]
+    return reqs, [i * gap_s for i in range(n)]
+
+
+def acquire_params(args, cfg, device, log=print):
+    """(params, quantized_kv): a loaded artifact, a PTQ'd fresh init
+    (``--hqp``), or a fresh bf16 init."""
+    if args.load_artifact:
+        params, manifest = load_artifact(args.load_artifact, device=device)
+        if manifest["arch"] != cfg.name:
+            raise SystemExit(
+                f"artifact was built for {manifest['arch']!r}, requested "
+                f"config is {cfg.name!r} — pass the matching --arch/--smoke")
+        log(f"[serve] loaded artifact {args.load_artifact} "
+            f"({manifest['track']}, θ={manifest['theta']:.1%})")
+        return params, True
+    params = lm.init_params(cfg, seed=0, device=device)
+    if args.hqp:
+        if args.prune_steps:
+            raise NotImplementedError(
+                "--prune-steps > 0 needs Fisher sensitivity and conditional "
+                "pruning, not ported yet (ROADMAP A7); use --prune-steps 0 "
+                "or serve an artifact built by the JAX package")
+        params = quantize_lm_params(params)
+        log("[serve] PTQ: INT8 linears, INT8 KV cache")
+        return params, True
+    return params, False
+
+
+def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
+    reqs, arrivals = synth_requests(cfg, N_REQUESTS, args.prompt_len,
+                                    args.tokens)
+    need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    if need > args.max_seq:
+        raise SystemExit(f"requests need max-seq >= {need}, "
+                         f"got {args.max_seq}")
+    eng = Engine(params, cfg, n_slots=args.engine_slots, max_seq=args.max_seq,
+                 sched=SchedulerConfig(prefill_chunk=args.prefill_chunk,
+                                       decode_steps=args.decode_steps),
+                 quantized_kv=quantized_kv, device=device)
+    t0 = time.monotonic()
+    results = eng.run(reqs, arrivals_s=arrivals)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.monotonic() - t0
+    stats = {**summarize_results(results, wall), **eng.stats}
+    log(f"[engine] {stats['n_requests']} requests in {wall * 1000:.0f}ms on "
+        f"{device}: {stats['tokens_per_s']:.1f} tok/s, latency p50/p95 "
+        f"{stats['latency_p50_ms']:.0f}/{stats['latency_p95_ms']:.0f}ms, "
+        f"ttft p50/p95 {stats['ttft_p50_ms']:.0f}/"
+        f"{stats['ttft_p95_ms']:.0f}ms ({eng.stats['device_steps']} device "
+        f"decode steps / {eng.stats['host_syncs']} host syncs)")
+    verify = args.verify if args.verify is not None else args.smoke
+    if verify:
+        bad = [i for i, res in sorted(results.items())
+               if res.tokens != serial_decode(
+                   params, cfg, reqs[i].prompt, reqs[i].max_new_tokens,
+                   max_seq=args.max_seq, eos_id=reqs[i].eos_id,
+                   quantized_kv=quantized_kv, device=device)]
+        if bad:
+            raise SystemExit(f"[engine] VERIFY FAILED: requests {bad} differ "
+                             f"from serial single-request decode")
+        log(f"[engine] verify: all {len(results)} outputs token-identical "
+            f"to serial decode")
+    return results, stats
+
+
+def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print):
+    """One batch of equal-length prompts: prefill, then greedy decode."""
+    state = lm.init_decode_state(cfg, N_REQUESTS, args.max_seq,
+                                 params=params, quantized_kv=quantized_kv,
+                                 device=device)
+    rng = np.random.RandomState(0)
+    prompts = torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (N_REQUESTS, args.prompt_len)), device=device)
+    logits, state = lm.decode_step(params, cfg, state, prompts,
+                                   route="prefill")
+    tok = smp.greedy(logits[:, -1]).long()[:, None]
+    outputs = [tok]
+    t0 = time.monotonic()
+    for _ in range(args.tokens - 1):
+        logits, state = lm.decode_step(params, cfg, state, tok,
+                                       route="decode")
+        tok = smp.greedy(logits[:, -1]).long()[:, None]
+        outputs.append(tok)
+    out = torch.cat(outputs, dim=1).cpu().numpy()
+    t_decode = time.monotonic() - t0
+    log(f"[serve] decode {args.tokens - 1} steps on {device}: "
+        f"{N_REQUESTS * (args.tokens - 1) / max(t_decode, 1e-9):.1f} tok/s")
+    log(f"[serve] sample continuation (req 0): {out[0][:16]}")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "versions of the kernels)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--hqp", action="store_true",
+                    help="INT8 PTQ of the linears + INT8 KV cache")
+    ap.add_argument("--prune-steps", type=int, default=0,
+                    help="only 0 is supported (pruning is ROADMAP A7)")
+    ap.add_argument("--load-artifact", default=None,
+                    help="serve an artifact saved by the JAX package")
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine instead of the "
+                         "single-batch lockstep loop")
+    ap.add_argument("--engine-slots", type=int, default=4)
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--decode-steps", type=int, default=4,
+                    help="batched decode steps per host sync")
+    ap.add_argument("--verify", action="store_true", default=None,
+                    help="check engine outputs == serial decode "
+                         "(default: on under --smoke)")
+    args = ap.parse_args(argv)
+    if args.hqp and args.load_artifact:
+        ap.error("--hqp builds an artifact; --load-artifact loads one — "
+                 "pick one")
+    device = resolve_device(args.device)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    params, quantized_kv = acquire_params(args, cfg, device)
+    if args.engine:
+        return run_engine(params, cfg, args, quantized_kv, device)[1]
+    return run_lockstep(params, cfg, args, quantized_kv, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,142 @@
+"""Shared building blocks: norms, rotary embeddings, (possibly quantized)
+dense, embed/unembed, SwiGLU.
+
+A linear's params are either ``{"w": (in, out) bf16}`` or a
+``QuantizedLinear``; ``dense`` dispatches on the type, so the same model code
+serves the FP model and the INT8 artifact.
+
+Batch invariance. The serving engine must give the same bits as serial
+decode, so a row's result may not depend on how many rows share the call.
+Elementwise ops and the INT8 kernels have that property by construction.
+Two kinds of op do not on the card: PyTorch's CUDA reductions pick their
+thread split, and so their summation order, from the number of rows, and
+cuBLAS may pick another algorithm for another M. So the norms sum squares
+with ``row_sum`` (a fixed pairwise tree of elementwise adds), and the bf16
+products (``unembed`` and the FP ``dense``) go through ``matmul_rows``, one
+row at a time."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.compress.qtypes import (QuantizedLinear, linear_kernel,
+                                         out_features)
+from repro_torch.kernels import ops
+
+# re-exported for model code that types against the layers namespace
+__all__ = ["QuantizedLinear", "linear_kernel", "out_features"]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------- init utils
+def he_init(gen: torch.Generator, shape, dtype=torch.float32
+            ) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * (2.0 / shape[0]) ** 0.5).to(dtype)
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=COMPUTE_DTYPE) -> dict:
+    return {"w": he_init(gen, (d_in, d_out), dtype)}
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=COMPUTE_DTYPE) -> dict:
+    return {"table": (torch.randn((vocab, d), generator=gen,
+                                  device=gen.device) * 0.02).to(dtype)}
+
+
+def rmsnorm_init(d: int, device) -> dict:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------- batch invariance
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (keepdim) in a fixed pairwise order: the
+    order of every add is the same for every row, on every device, whatever
+    the number of rows. Zero padding to a power of two adds exact zeros."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x
+
+
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) @ (K, N) in the dtype of the inputs, one row at a time, so
+    each row's bits are those of a one-row product whatever the batch."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = torch.cat([x2[i:i + 1] @ w for i in range(x2.shape[0])])
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# ---------------------------------------------------------------- dense
+def dense(x: torch.Tensor, p) -> torch.Tensor:
+    """FP weight dict, or a ``QuantizedLinear`` (W8A8: the activations are
+    quantized per row and the dequant runs in the matmul epilogue)."""
+    if isinstance(p, QuantizedLinear):
+        return ops.int8_matmul(x, p.w_q, p.scale)
+    return matmul_rows(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE))
+
+
+# ---------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = row_sum(xf * xf) / xf.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * p["g"]).to(COMPUTE_DTYPE)
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head qk-norm (qwen3 style), no learned scale."""
+    xf = x.float()
+    var = row_sum(xf * xf) / xf.shape[-1]
+    return (xf * torch.rsqrt(var + eps)).to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------- rotary
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) int. Computed in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------- embedding
+def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens].to(COMPUTE_DTYPE)
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in f32 (from the bf16 product, as the reference)."""
+    return matmul_rows(x.to(COMPUTE_DTYPE),
+                       p["table"].to(COMPUTE_DTYPE).t()).float()
+
+
+# ---------------------------------------------------------------- MLP (SwiGLU)
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+    return {"gate": linear_init(gen, d_model, d_ff),
+            "up": linear_init(gen, d_model, d_ff),
+            "down": linear_init(gen, d_ff, d_model)}
+
+
+def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU in bf16: silu(a) = a * (1 / (1 + exp(-a))), rounded to bf16
+    after every op, as the reference's compiled program computes it."""
+    a = dense(x, p["gate"])
+    silu = a * (1.0 / (1.0 + torch.exp(-a)))
+    return dense(silu * dense(x, p["up"]), p["down"])

@@ -1,0 +1,124 @@
+"""Decoder LM for the all-``attn`` pattern (the dense GQA family).
+
+Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
+"final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
+JAX package stacks the layers and scans them; here ``blocks`` is a list and
+the forward pass is a Python loop over it."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+VOCAB_PAD = 256
+
+
+def padded_vocab(cfg) -> int:
+    """Vocab rounded up to a multiple of 256; the padding logits are
+    masked to -1e30, so the distribution over real tokens is unchanged."""
+    return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+
+def _check_pattern(cfg) -> None:
+    if any(kind != "attn" for kind in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: only the all-attn pattern is ported so far")
+
+
+# ------------------------------------------------------------------ init
+def _block_init(gen: torch.Generator, cfg) -> dict:
+    return {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
+            "attn": A.attention_init(gen, cfg),
+            "norm2": L.rmsnorm_init(cfg.d_model, gen.device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff)}
+
+
+def init_params(cfg, seed: int = 0, device=None) -> dict:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on the
+    target device (they differ from the JAX package's for the same seed;
+    tests carry weights across with ``repro_torch.weights``)."""
+    _check_pattern(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v_pad = padded_vocab(cfg)
+    params: Dict[str, Any] = {"embed": L.embed_init(gen, v_pad, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.embed_init(gen, v_pad, cfg.d_model)
+    params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+    return params
+
+
+def params_device(params: dict) -> torch.device:
+    return params["embed"]["table"].device
+
+
+# ------------------------------------------------------------------ logits
+def unembed_params(params: dict, cfg) -> dict:
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
+    logits = L.unembed(unembed_params(params, cfg), hidden)
+    v_pad = logits.shape[-1]
+    if v_pad == cfg.vocab_size:
+        return logits
+    mask = torch.arange(v_pad, device=logits.device) < cfg.vocab_size
+    return torch.where(mask, logits, torch.tensor(-1e30, device=logits.device))
+
+
+# ------------------------------------------------------------------ decode
+def init_decode_state(cfg, batch: int, max_seq: int,
+                      params: Optional[dict] = None,
+                      per_slot_pos: bool = False, quantized_kv: bool = False,
+                      device=None) -> dict:
+    """Per-layer KV caches plus the current length.
+
+    ``pos`` is an int (the whole batch at one position: the serial path) or,
+    with ``per_slot_pos``, a (batch,) int32 tensor (the engine's slots).
+    With ``params`` the KV widths derive from the param shapes, so
+    HQP-compacted artifacts size their own caches."""
+    _check_pattern(cfg)
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    caches = []
+    for i in range(cfg.n_layers):
+        n_kv = (L.out_features(params["blocks"][i]["attn"]["wk"]) // hd
+                if params is not None else cfg.n_kv_heads)
+        caches.append(A.init_kv_cache(batch, max_seq, n_kv, hd, quantized_kv,
+                                      dev))
+    pos = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+           if per_slot_pos else 0)
+    return {"caches": caches, "pos": pos}
+
+
+def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
+                window: Optional[int] = None, route: Optional[str] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens (B, S_new) at positions ``state["pos"]`` onward (an int, or a
+    (B,) tensor of per-row positions). Writes the new K/V into the caches in
+    place and returns (logits (B, 1, V_pad) f32 of the LAST position, the
+    state with ``pos`` advanced by S_new).
+
+    Only the last position's logits are computed: every caller (engine
+    prefill and decode, serial decode) reads only those, and the unembed is
+    the largest product of the step. ``window`` and ``route`` are as in
+    ``attention.attention_forward``."""
+    x = L.embed_lookup(params["embed"], tokens)
+    b, s, _ = x.shape
+    cur: Union[int, torch.Tensor] = state["pos"]
+    steps = torch.arange(s, device=x.device)
+    positions = (cur[:, None] + steps[None, :] if isinstance(cur, torch.Tensor)
+                 else (cur + steps)[None, :].expand(b, s))
+    for p, cache in zip(params["blocks"], state["caches"]):
+        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
+        x = x + A.attention_forward(p["attn"], cfg, h, positions, cache, cur,
+                                    window, route)
+        x = x + L.mlp(L.rmsnorm(x, p["norm2"], cfg.norm_eps), p["mlp"])
+    x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, cfg, x), {"caches": state["caches"],
+                                       "pos": cur + s}

@@ -1,0 +1,374 @@
+"""Continuous-batching serving engine over (possibly HQP-quantized) params.
+
+The ``Engine`` owns ``n_slots`` concurrent requests. Requests are admitted
+into free slots on arrival, prefilled in chunks interleaved with batched
+decode (``serving.scheduler`` owns the policy), and evicted on EOS or
+length, freeing the slot for the next waiting request. The contiguous pool,
+greedy decoding, no speculation.
+
+Each decode dispatch runs ``decode_steps`` greedy steps on the device with
+no host round trip between them: argmax, token feedback and the per-slot
+EOS/length stop flags stay on the device, and one host sync at the end
+harvests the emitted tokens (``stats["host_syncs"]`` against
+``stats["device_steps"]``).
+
+Token-identity contract: engine outputs equal serial single-request decode
+token for token, because (a) every op is row-independent (``layers`` keeps
+the norms and bf16 products batch-invariant; the INT8 and attention kernels
+are row-independent by design); (b) chunked prefill and decode attend the
+cache through the same ops as the serial path, whose causal limits are
+absolute positions, so chunk boundaries and window buckets leave every row's
+bits unchanged; (c) rows that are not live in a dispatch never advance
+``pos``, and whatever they write sits at or past their own position, where
+it stays masked until a real write replaces it.
+
+A fault in a step propagates to the caller: request-scoped fault isolation
+comes with the service plane (ROADMAP), and catching every exception here
+would hide a kernel that fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+from repro_torch.serving import sampling as smp
+from repro_torch.serving import state_pool as sp
+from repro_torch.serving.scheduler import (DECODE, PREFILL, Scheduler,
+                                           SchedulerConfig)
+
+FREE = "free"
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (token ids in, token ids out; greedy).
+
+    ``uid`` is engine-assigned at submit() (the return value)."""
+    prompt: Sequence[int]
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    uid: Optional[int] = None
+
+
+@dataclasses.dataclass
+class RequestResult:
+    uid: int
+    prompt_len: int
+    tokens: List[int]                 # generated ids (EOS included if hit)
+    finish_reason: str                # "eos" | "length"
+    t_submit: float
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_finish: float = 0.0
+
+    @property
+    def ttft_s(self) -> float:
+        return self.t_first_token - self.t_submit
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_finish - self.t_submit
+
+
+@dataclasses.dataclass
+class _Slot:
+    idx: int
+    stage: str = FREE                 # free | prefill | decode
+    prompt: Optional[np.ndarray] = None
+    prefill_done: int = 0
+    last_token: int = 0
+    result: Optional[RequestResult] = None
+    eos_id: Optional[int] = None
+    max_new_tokens: int = 0
+
+
+class Engine:
+    """Continuous-batching engine serving a (possibly HQP-quantized) LM.
+
+    ``params`` must lie on ``device`` (default: the card). ``quantized_kv``
+    selects the INT8 KV cache (HQP serving)."""
+
+    def __init__(self, params: Any, cfg, n_slots: int = 4,
+                 max_seq: int = 128, sched: Optional[SchedulerConfig] = None,
+                 quantized_kv: bool = False, device=None):
+        self.device = resolve_device(device)
+        if lm.params_device(params) != self.device:
+            raise ValueError(f"params lie on {lm.params_device(params)}, "
+                             f"the engine runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.scheduler = Scheduler(sched)
+        self.pool = sp.init_pool(cfg, n_slots, max_seq, params=params,
+                                 quantized_kv=quantized_kv,
+                                 device=self.device)
+        kv_bytes = sum(leaf.numel() * leaf.element_size()
+                       for entry in self.pool["caches"]
+                       for leaf in entry.values())
+        self.slots = [_Slot(i) for i in range(n_slots)]
+        self.waiting: List[Request] = []
+        self._uid = itertools.count()
+        self.ticks = 0
+        self.clock = time.monotonic
+        self.stats = {"prefill_ticks": 0, "decode_ticks": 0,
+                      "decode_slot_steps": 0, "prefill_tokens": 0,
+                      "host_syncs": 0, "device_steps": 0,
+                      "kv_bytes": kv_bytes}
+
+    # ------------------------------------------------------------- lifecycle
+    def submit(self, request: Request) -> int:
+        prompt = np.asarray(request.prompt, np.int64)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError("prompt must be a non-empty 1-D token list")
+        if request.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1 (the first token "
+                             "falls out of prefill unconditionally)")
+        if prompt.size + request.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({request.max_new_tokens}) exceeds max_seq={self.max_seq}")
+        uid = next(self._uid)
+        req = dataclasses.replace(request, uid=uid, prompt=prompt)
+        req._t_submit = self.clock()       # type: ignore[attr-defined]
+        self.waiting.append(req)
+        return uid
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(s.stage != FREE for s in self.slots)
+
+    def _admit(self) -> None:
+        for slot in self.slots:
+            if not self.waiting:
+                return
+            if slot.stage != FREE:
+                continue
+            req = self.waiting.pop(0)
+            sp.reset_slot(self.pool, slot.idx)
+            slot.stage = PREFILL
+            slot.prompt = req.prompt
+            slot.prefill_done = 0
+            slot.eos_id = req.eos_id
+            slot.max_new_tokens = req.max_new_tokens
+            slot.result = RequestResult(
+                uid=req.uid, prompt_len=int(req.prompt.size), tokens=[],
+                finish_reason="", t_submit=req._t_submit,
+                t_admit=self.clock())
+
+    def _emit(self, slot: _Slot, tok: int,
+              finished: List[RequestResult]) -> None:
+        res = slot.result
+        if not res.tokens:
+            res.t_first_token = self.clock()
+        res.tokens.append(tok)
+        done_eos = slot.eos_id is not None and tok == slot.eos_id
+        done_len = len(res.tokens) >= slot.max_new_tokens
+        if done_eos or done_len:
+            res.finish_reason = "eos" if done_eos else "length"
+            res.t_finish = self.clock()
+            finished.append(res)
+            slot.stage = FREE          # eviction: slot reusable next tick
+            slot.result = None
+            slot.prompt = None
+        else:
+            slot.last_token = tok
+            slot.stage = DECODE
+
+    def _slot_pos(self, slot: _Slot) -> int:
+        """Cache position the slot's next decode step writes at: the whole
+        prompt plus every emitted token except the newest."""
+        return int(slot.prompt.size) + len(slot.result.tokens) - 1
+
+    # ------------------------------------------------------------------ step
+    def step(self) -> List[RequestResult]:
+        """One engine tick: admit, then run one scheduler action (a decode
+        action runs ``decode_steps`` device steps). Returns the requests that
+        finished this tick."""
+        self._admit()
+        prefilling = [s.idx for s in self.slots if s.stage == PREFILL]
+        decoding = [s.idx for s in self.slots if s.stage == DECODE]
+        action = self.scheduler.next_action(prefilling, decoding)
+        finished: List[RequestResult] = []
+        if action.kind == PREFILL:
+            self._prefill(self.slots[action.slot], finished)
+        elif action.kind == DECODE:
+            self._decode(action.slots, finished)
+        self.ticks += 1
+        return finished
+
+    def _prefill(self, slot: _Slot, finished: List[RequestResult]) -> None:
+        lo, hi = self.scheduler.chunk_bounds(slot.prompt.size,
+                                             slot.prefill_done)
+        chunk = torch.as_tensor(slot.prompt[None, lo:hi], device=self.device)
+        window = self.scheduler.visible_window(hi, self.max_seq)
+        st = sp.gather_slot(self.pool, slot.idx, lo)
+        # route="prefill" for every chunk, the 1-token tail included: the
+        # same op serial whole-prompt prefill takes, so the bits agree
+        logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
+                                     window=window, route="prefill")
+        sp.scatter_slot(self.pool, slot.idx, new)
+        slot.prefill_done = hi
+        self.stats["prefill_ticks"] += 1
+        self.stats["prefill_tokens"] += hi - lo
+        if hi == slot.prompt.size:
+            tok = int(smp.greedy(logits[0, -1]))
+            self.stats["host_syncs"] += 1
+            self._emit(slot, tok, finished)
+
+    def _decode(self, slot_ids: Sequence[int],
+                finished: List[RequestResult]) -> None:
+        k_steps = self.scheduler.cfg.decode_steps
+        n = self.n_slots
+        tokens = np.zeros((n, 1), np.int64)
+        active = np.zeros((n,), bool)
+        eos = np.full((n,), -1, np.int64)
+        budget = np.ones((n,), np.int64)
+        for i in slot_ids:
+            slot = self.slots[i]
+            tokens[i, 0] = slot.last_token
+            active[i] = True
+            if slot.eos_id is not None:
+                eos[i] = slot.eos_id
+            budget[i] = slot.max_new_tokens - len(slot.result.tokens)
+        # the deepest live slot after k_steps attends positions
+        # <= max(pos) + k_steps - 1  ->  window covers max(pos) + k_steps
+        needed = max(self._slot_pos(self.slots[i]) for i in slot_ids) + k_steps
+        window = self.scheduler.visible_window(needed, self.max_seq)
+        toks, emitted = self._decode_steps(
+            *(torch.as_tensor(a, device=self.device)
+              for a in (tokens, active, eos, budget)), k_steps, window)
+        self.stats["host_syncs"] += 1
+        self.stats["device_steps"] += k_steps
+        for t in range(k_steps):
+            for i in slot_ids:
+                if emitted[t, i]:
+                    self._emit(self.slots[i], int(toks[t, i]), finished)
+        self.stats["decode_ticks"] += 1
+        self.stats["decode_slot_steps"] += int(emitted.sum())
+
+    def _decode_steps(self, tok, live, eos, left, k_steps: int, window: int):
+        """``k_steps`` greedy steps over every slot, on the device. tok
+        (B, 1) = each live slot's last token; live (B,) bool; eos (B,) (-1 =
+        none); left (B,) = tokens each slot may still emit. Slots that hit
+        EOS or their budget freeze for the remaining steps. Returns host
+        arrays (toks (K, B), emitted (K, B) bool) after one sync."""
+        pool = self.pool
+        toks, emitted = [], []
+        for _ in range(k_steps):
+            logits, new = lm.decode_step(self.params, self.cfg, pool, tok,
+                                         window=window, route="decode")
+            nxt = smp.greedy(logits[:, -1]).long()
+            pool["pos"] = torch.where(live, new["pos"], pool["pos"])
+            left = torch.where(live, left - 1, left)
+            stop = ((eos >= 0) & (nxt == eos)) | (left <= 0)
+            toks.append(torch.where(live, nxt, 0))
+            emitted.append(live)
+            tok = torch.where(live, nxt, tok[:, 0])[:, None]
+            live = live & ~stop
+        out = torch.stack([torch.stack(toks),
+                           torch.stack(emitted).long()]).cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+    # ------------------------------------------------------------------- run
+    def run(self, requests: Sequence[Request],
+            arrivals_s: Optional[Sequence[float]] = None,
+            arrival_ticks: Optional[Sequence[int]] = None,
+            ) -> Dict[int, RequestResult]:
+        """Drive the requests to completion; returns results keyed by the
+        request's INDEX in ``requests``.
+
+        ``arrivals_s``: wall-clock offsets (trace replay); ``arrival_ticks``:
+        engine-tick offsets (tests). With neither, everything is submitted
+        up front."""
+        if arrivals_s is not None and arrival_ticks is not None:
+            raise ValueError("pass at most one of arrivals_s/arrival_ticks")
+        if self.has_work:
+            raise RuntimeError("run() requires an idle engine")
+        offsets = (arrivals_s if arrivals_s is not None else arrival_ticks
+                   if arrival_ticks is not None else [0] * len(requests))
+        pending = sorted(zip(offsets, range(len(requests))),
+                         key=lambda p: p[0])
+        by_wall = arrivals_s is not None
+        t0 = self.clock()
+        tick0 = self.ticks
+        uid_to_index: Dict[int, int] = {}
+        results: Dict[int, RequestResult] = {}
+        while pending or self.has_work:
+            now = (self.clock() - t0) if by_wall else self.ticks - tick0
+            while pending and pending[0][0] <= now:
+                _, i = pending.pop(0)
+                uid_to_index[self.submit(requests[i])] = i
+            if self.has_work:
+                for res in self.step():
+                    results[uid_to_index[res.uid]] = res
+            elif pending:
+                if by_wall:
+                    time.sleep(max(0.0, pending[0][0] - now))
+                else:
+                    self.ticks += 1     # idle tick until the next arrival
+        return results
+
+
+# ------------------------------------------------------------------- stats
+def summarize_results(results: Dict[int, RequestResult],
+                      wall_s: float) -> Dict[str, Any]:
+    """Throughput and nearest-rank latency/TTFT percentiles over a finished
+    result set."""
+    if not results:
+        return {"n_requests": 0, "out_tokens": 0, "tokens_per_s": 0.0,
+                "latency_p50_ms": 0.0, "latency_p95_ms": 0.0,
+                "ttft_p50_ms": 0.0, "ttft_p95_ms": 0.0}
+    lat = sorted(r.latency_s for r in results.values())
+    ttft = sorted(r.ttft_s for r in results.values())
+
+    def pct(xs, q):
+        return xs[max(0, -(-int(q * len(xs)) // 100) - 1)]
+
+    out_tokens = sum(len(r.tokens) for r in results.values())
+    return {
+        "n_requests": len(results),
+        "out_tokens": out_tokens,
+        "tokens_per_s": out_tokens / max(wall_s, 1e-9),
+        "latency_p50_ms": pct(lat, 50) * 1e3,
+        "latency_p95_ms": pct(lat, 95) * 1e3,
+        "ttft_p50_ms": pct(ttft, 50) * 1e3,
+        "ttft_p95_ms": pct(ttft, 95) * 1e3,
+    }
+
+
+# ---------------------------------------------------------------- reference
+def serial_decode(params, cfg, prompt: Sequence[int], max_new_tokens: int,
+                  max_seq: int = 128, eos_id: Optional[int] = None,
+                  quantized_kv: bool = False, device=None) -> List[int]:
+    """The serial single-request path the engine must match token for
+    token: whole-prompt prefill (the prefill route, whatever the prompt's
+    length), then one decode step per token, greedy. ``params`` must lie on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    if lm.params_device(params) != dev:
+        raise ValueError(f"params lie on {lm.params_device(params)}, "
+                         f"serial_decode runs on {dev}")
+    prompt = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)
+    state = lm.init_decode_state(cfg, 1, max_seq, params=params,
+                                 quantized_kv=quantized_kv, device=dev)
+    logits, state = lm.decode_step(params, cfg, state, prompt[None],
+                                   route="prefill")
+    out: List[int] = []
+    tok = int(smp.greedy(logits[0, -1]))
+    while True:
+        out.append(tok)
+        if tok == eos_id or len(out) >= max_new_tokens:
+            return out
+        logits, state = lm.decode_step(
+            params, cfg, state,
+            torch.full((1, 1), tok, dtype=torch.long, device=dev),
+            route="decode")
+        tok = int(smp.greedy(logits[0, -1]))

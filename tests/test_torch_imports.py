@@ -1,0 +1,53 @@
+"""The port stands alone: nothing under ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the JAX package, and the
+port imports in a process where ``import jax`` fails."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "import repro_torch.models.lm, repro_torch.serving.engine\n"
+        "import repro_torch.launch.serve, repro_torch.weights\n"
+        "import repro_torch.kernels.ops\n"
+        "assert 'triton' not in sys.modules\n")
+    env_path = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,209 @@
+"""The port's four kernel ops on the CPU (their plain PyTorch versions),
+held against the JAX package on the same numpy inputs: its xla oracles
+(``repro.kernels.ref``) and its Pallas kernels in interpret mode.
+
+Tolerances:
+  * quantize and the int8 GEMM equal the oracle exactly (codes, scales, and
+    the bf16 output bits);
+  * quantize vs its Pallas kernel: under ``jit`` XLA rewrites the division
+    of amax by the constant 127 into a multiply by fl(1/127), so a jitted
+    scale can sit one f32 ulp from the true quotient that the eager oracle
+    and the port compute (the all-zero row: 7.874016e-11 vs 7.874015e-11);
+    scales within one ulp, codes within one;
+  * the int8 GEMM's Pallas kernel evaluates its epilogue as acc*(xs*ws), the
+    oracle's order is (acc*xs)*ws: one bf16 ulp (rtol 2^-8);
+  * attention vs the oracle: the same staging, sums in another order and
+    another exp — one bf16 ulp of outputs of magnitude <~ 4 (atol 1.6e-2,
+    rtol 2^-7);
+  * attention vs the Pallas kernels (online softmax, p kept in f32): the
+    repo's own tolerance for them, rtol 3e-2 and atol 3e-2.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import decode_attention as jdec  # noqa: E402
+from repro.kernels import int8_matmul as jmm  # noqa: E402
+from repro.kernels import prefill_attention as jpre  # noqa: E402
+from repro.kernels import quantize as jquant  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.int8_matmul import int8_matmul  # noqa: E402
+from repro_torch.kernels.quantize import quantize_rowwise  # noqa: E402
+
+ATTN_REF = dict(rtol=2 ** -7, atol=1.6e-2)
+ATTN_PALLAS = dict(rtol=3e-2, atol=3e-2)
+
+
+def _bf16(a):
+    """One f32 numpy array -> the same bf16 values in both frameworks."""
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a).astype(jnp.bfloat16), torch.from_numpy(a).to(
+        torch.bfloat16)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# ------------------------------------------------------------------ quantize
+@pytest.mark.parametrize("m,k", [(8, 64), (33, 100), (1, 256), (4, 1024)])
+def test_quantize_equals_oracle_and_pallas(m, k):
+    x = np.random.RandomState(m * 7 + k).randn(m, k) * 3
+    x[m // 2] = 0.0                                   # an all-zero row
+    xj, xt = _bf16(x)
+    q, s = quantize_rowwise(xt)
+    qj, sj = jref.quantize_ref(xj, axis=-1)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    assert not q[m // 2].any()
+    qp, sp = jquant.quantize_rowwise_pallas(xj, interpret=True)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=2 ** -23,
+                               atol=0)
+    assert np.abs(q.numpy().astype(int) - np.asarray(qp, int)).max() <= 1
+
+
+# ------------------------------------------------------------------ int8 GEMM
+@pytest.mark.parametrize("m,k,n", [(1, 96, 48), (4, 64, 128), (13, 130, 65),
+                                   (37, 100, 257)])
+def test_int8_matmul_equals_oracle(m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    xq = rng.randint(-127, 128, (m, k)).astype(np.int8)
+    wq = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    xs = (rng.rand(m) * 0.05 + 1e-3).astype(np.float32)
+    ws = (rng.rand(n) * 0.05 + 1e-3).astype(np.float32)
+    out = int8_matmul(*(torch.from_numpy(a) for a in (xq, wq, xs, ws)))
+    want = jref.int8_matmul_ref(jnp.asarray(xq), jnp.asarray(wq),
+                                jnp.asarray(ws), jnp.asarray(xs))
+    np.testing.assert_array_equal(_f32(out), _f32(want))
+    pallas = jmm.int8_matmul_pallas(jnp.asarray(xq), jnp.asarray(wq),
+                                    jnp.asarray(xs), jnp.asarray(ws), bm=32,
+                                    bn=32, bk=32, interpret=True)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), rtol=2 ** -8, atol=0)
+
+
+def test_int8_matmul_epilogue_order_at_scale():
+    """(acc*xs)*ws and acc*(xs*ws) round to the same bf16 almost always;
+    262k outputs are enough for this seed to tell them apart."""
+    rng = np.random.RandomState(0)
+    xq = rng.randint(-127, 128, (256, 96)).astype(np.int8)
+    wq = rng.randint(-127, 128, (96, 1024)).astype(np.int8)
+    xs = (rng.rand(256) * 0.05 + 1e-3).astype(np.float32)
+    ws = (rng.rand(1024) * 0.05 + 1e-3).astype(np.float32)
+    out = int8_matmul(*(torch.from_numpy(a) for a in (xq, wq, xs, ws)))
+    want = jref.int8_matmul_ref(jnp.asarray(xq), jnp.asarray(wq),
+                                jnp.asarray(ws), jnp.asarray(xs))
+    np.testing.assert_array_equal(_f32(out), _f32(want))
+
+
+def test_ops_int8_matmul_quantizes_activations():
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 3, 40)
+    w = rng.randn(40, 24).astype(np.float32)
+    wq, wsc = jref.quantize_ref(jnp.asarray(w), axis=0)
+    xj, xt = _bf16(x)
+    out = ops.int8_matmul(xt, torch.tensor(np.asarray(wq)),
+                          torch.tensor(np.asarray(wsc)))
+    want = jops.int8_matmul(xj, wq, wsc)
+    assert out.shape == (2, 3, 24)
+    np.testing.assert_array_equal(_f32(out), _f32(want))
+
+
+# ------------------------------------------------------------------ attention
+B, HQ, HKV, HD = 3, 8, 4, 32
+
+
+def _cache(seed, w, quantized):
+    rng = np.random.RandomState(seed)
+    if quantized:
+        kq = rng.randint(-127, 128, (B, w, HKV, HD)).astype(np.int8)
+        vq = rng.randint(-127, 128, (B, w, HKV, HD)).astype(np.int8)
+        ks = (rng.rand(B, w, HKV) * 0.02 + 0.005).astype(np.float32)
+        vs = (rng.rand(B, w, HKV) * 0.02 + 0.005).astype(np.float32)
+        arrays = {"k_q": kq, "v_q": vq, "k_s": ks, "v_s": vs}
+        return ({k: jnp.asarray(a) for k, a in arrays.items()},
+                {k: torch.from_numpy(a) for k, a in arrays.items()})
+    kj, kt = _bf16(rng.randn(B, w, HKV, HD))
+    vj, vt = _bf16(rng.randn(B, w, HKV, HD))
+    return {"k": kj, "v": vj}, {"k": kt, "v": vt}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("sq,starts,window", [
+    (5, (0, 11, 3), 32),          # ragged chunk, per-slot starts
+    (16, (16, 0, 40), None),      # a full chunk, whole buffer
+    (1, (63, 7, 0), 64),          # a 1-token tail chunk at W-1
+])
+def test_prefill_attention_vs_oracle_and_pallas(quantized, sq, starts,
+                                                window):
+    w = 64
+    cj, ct = _cache(sq + w, w, quantized)
+    qj, qt = _bf16(np.random.RandomState(sq).randn(B, sq, HQ, HD))
+    start = np.asarray(starts, np.int32)
+    out = ops.prefill_attention(qt, ct, torch.from_numpy(start), window)
+    want = jops.cached_attention(qj, cj, jnp.asarray(start), window)
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+    kj, vj, ksj, vsj = jops._cache_window(cj, window)
+    pallas = jpre.prefill_attention_pallas(qj, kj, vj, ksj, vsj,
+                                           jnp.asarray(start), bq=8, bk=16,
+                                           interpret=True)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **ATTN_PALLAS)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("starts,window", [((0, 31, 12), 32),
+                                           ((50, 3, 63), None)])
+def test_decode_attention_vs_oracle_and_pallas(quantized, starts, window):
+    w = 64
+    cj, ct = _cache(len(starts) + w, w, quantized)
+    qj, qt = _bf16(np.random.RandomState(1).randn(B, 1, HQ, HD))
+    start = np.asarray(starts, np.int32)
+    out = ops.decode_attention(qt, ct, torch.from_numpy(start), window)
+    want = jops.cached_attention(qj, cj, jnp.asarray(start), window)
+    assert out.shape == (B, 1, HQ, HD)
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+    kj, vj, ksj, vsj = jops._cache_window(cj, window)
+    pallas = jdec.decode_attention_pallas(qj[:, 0], kj, vj, ksj, vsj,
+                                          jnp.asarray(start), bk=16,
+                                          interpret=True)
+    np.testing.assert_allclose(_f32(out[:, 0]), _f32(pallas), **ATTN_PALLAS)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_windowed_attend_equals_full_buffer(quantized):
+    """Positions past the window mask to exact zeros: a window that covers
+    every consumed row gives the full buffer's bits."""
+    _, ct = _cache(9, 64, quantized)
+    _, qt = _bf16(np.random.RandomState(2).randn(B, 4, HQ, HD))
+    start = torch.tensor([0, 5, 12], dtype=torch.int32)
+    full = ops.prefill_attention(qt, ct, start, None)
+    assert torch.equal(ops.prefill_attention(qt, ct, start, 16), full)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_rows_past_the_window_see_the_whole_window(quantized):
+    """A slot at or past the window's end attends every position of the
+    window, as the reference does: the same bits as a slot at W - 1. The
+    CUDA kernels clamp each row's limit to W - 1 to keep this."""
+    w = 16
+    cj, ct = _cache(11, w, quantized)
+    qj, qt = _bf16(np.random.RandomState(3).randn(B, 1, HQ, HD))
+    start = np.asarray([w - 1, w + 2, 3 * w], np.int32)
+    out = ops.decode_attention(qt, ct, torch.from_numpy(start), None)
+    at_end = ops.decode_attention(
+        qt, ct, torch.full((B,), w - 1, dtype=torch.int32), None)
+    assert torch.equal(out, at_end)
+    want = jops.cached_attention(qj, cj, jnp.asarray(start), None)
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.zeros(2, 4, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        quantize_rowwise(x)
