@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on the card: build the CUDA
 kernels, hold each against its plain PyTorch version at the shapes of the
-serving path, then serve the full-width qwen3-0.6b (random weights from a
-seed, INT8 PTQ) through the continuous-batching engine and check it against
-serial decode; last, profile a steady decode dispatch (where its time goes
-on the card).
+serving path (the paged ones also bit for bit against their contiguous
+twins on the gathered window), then serve the full-width qwen3-0.6b (random
+weights from a seed, INT8 PTQ) through the continuous-batching engine, with
+a contiguous KV pool and with a paged KV arena and its prefix cache, and
+check every request against serial decode; last, profile a steady decode
+dispatch (where its time goes on the card).
 
     python3 chip_smoke.py
 
@@ -26,6 +28,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_CHUNK, SERVE_STEPS = 4, 256, 16, 4
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 6, 48, 32
+SERVE_PAGE = 16             # page size of the paged serve phase
+SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
+PAGE_SIZES = (16, 32, 48, 256)  # paged kernel checks
 PROFILE_TICKS = 10          # decode dispatches timed in the profile phase
 
 # Attention tolerance, |kernel - plain| <= ATOL + RTOL * |plain|: the plain
@@ -300,6 +305,168 @@ def phase_prefill(dev, report):
               f"{hd})")
 
 
+# ------------------------------------------------------------ paged kernels
+def _paged_case(dev, ps, quantized, limits, hkv=8, hd=64, max_seq=256):
+    """A paged arena whose pages sit in a random physical order, and a
+    (B, max_pages) table: row r maps the pages covering positions
+    0..limits[r]; its other entries point at the trash page 0, which holds
+    random values like every other page."""
+    import torch
+    from repro_torch.kernels.kv_layout import page_count
+    max_pages = page_count(max_seq, ps)
+    n_pages = 1 + len(limits) * max_pages
+    k, v, ks, vs = _kv(dev, n_pages, ps, hkv, hd, quantized)
+    perm = (torch.randperm(n_pages - 1) + 1).tolist()
+    table = torch.zeros(len(limits), max_pages, dtype=torch.int32)
+    for r, lim in enumerate(limits):
+        n = min(page_count(lim + 1, ps), max_pages)
+        table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    return (k, v, ks, vs), table.to(dev)
+
+
+def _gathered(arena, idx):
+    from repro_torch.kernels.kv_layout import gather_pages
+    return [None if t is None else gather_pages(t, idx) for t in arena]
+
+
+def _equal(a, b, what):
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        d = (a.float() - b.float()).abs().max().item()
+        fail(f"{what}: not bitwise equal (max |diff| {d:.4g})")
+
+
+def phase_paged_decode(dev, report):
+    import torch
+    from repro_torch.kernels import decode_attention as kd, ref
+    from repro_torch.kernels.kv_layout import window_pages
+    b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
+    err = 0.0
+    for quantized in (False, True):
+        for ps in PAGE_SIZES:
+            for window in (64, 256):
+                starts = [0, window - 1, window // 3, window + 5]
+                arena, table = _paged_case(dev, ps, quantized, starts)
+                idx = window_pages(table, ps, window).contiguous()
+                start = torch.tensor(starts, dtype=torch.int32, device=dev)
+                q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
+                what = f"paged decode page={ps} W={window} int8={quantized}"
+                out = kd.paged_decode_attention(q, *arena, start, idx)
+                err = max(err, _attn_err(
+                    out, ref.paged_decode_attention_ref(q, *arena, start,
+                                                        idx), what))
+                _equal(out, kd.decode_attention(q, *_gathered(arena, idx),
+                                                start), what + " vs B3")
+    # serve's paged decode: 64-token window in pages of 16, every slot at
+    # position 63, INT8 KV (the main path's), bf16 KV beside it
+    w, ps = 64, SERVE_PAGE
+    starts = [w - 1] * b
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
+    arena_q, table = _paged_case(dev, ps, True, starts)
+    arena_b, _ = _paged_case(dev, ps, False, starts)
+    idx = window_pages(table, ps, w).contiguous()
+    n_kv, n_ops = b * w * hkv * hd, 4 * b * hq * hd * w
+    io = b * hq * hd * 2 * 2 + b * 4 + idx.numel() * 4  # q, out, start, table
+    b_ms, by = bound(n_kv * 2 + b * w * hkv * 4 * 2 + io, n_ops, "int8")
+    b16_ms, b16_by = bound(n_kv * 2 * 2 + io, n_ops, "bf16")
+    gk, gv, _, _ = _gathered(arena_b, idx)
+    report["paged_decode_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kd.paged_decode_attention(q, *arena_q, start,
+                                                     idx)),
+        plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(
+            q, *arena_q, start, idx)),
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        bf16_kv=dict(
+            ms=time_ms(lambda: kd.paged_decode_attention(q, *arena_b, start,
+                                                         idx)),
+            plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(
+                q, *arena_b, start, idx)),
+            bound_ms=b16_ms, bound_by=b16_by,
+            library_ms=_sdpa_ms(q[:, None], gk, gv, start, 1),
+            library="SDPA on the gathered window, gather not timed"),
+        shape=f"q ({b}, {hq}, {hd}) vs INT8 arena, pages of {ps}, window "
+              f"{w}")
+
+
+def phase_paged_prefill(dev, report):
+    import torch
+    from repro_torch.kernels import prefill_attention as kp, ref
+    from repro_torch.kernels.kv_layout import page_count, window_pages
+    b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
+    err = 0.0
+    for quantized in (False, True):
+        for ps in PAGE_SIZES:
+            for sq in (16, 5, 1):
+                starts = [0, 16, 37, 200 - sq]
+                window = -(-(max(starts) + sq) // 16) * 16
+                arena, table = _paged_case(
+                    dev, ps, quantized, [s + sq - 1 for s in starts])
+                idx = window_pages(table, ps, window).contiguous()
+                start = torch.tensor(starts, dtype=torch.int32, device=dev)
+                q = torch.randn(b, sq, hq, hd, device=dev).to(torch.bfloat16)
+                what = f"paged prefill page={ps} Sq={sq} int8={quantized}"
+                out = kp.paged_prefill_attention(q, *arena, start, idx)
+                err = max(err, _attn_err(
+                    out, ref.paged_prefill_attention_ref(q, *arena, start,
+                                                         idx), what))
+                _equal(out, kp.prefill_attention(q, *_gathered(arena, idx),
+                                                 start), what + " vs B4")
+            # chunk == whole: a 53-token prompt in chunks of 16, each chunk
+            # against the page-rounded window the engine would give it
+            n = 53
+            arena, table = _paged_case(dev, ps, quantized, [n - 1])
+            q = torch.randn(1, n, hq, hd, device=dev).to(torch.bfloat16)
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            whole = kp.paged_prefill_attention(
+                q, *arena, zero, window_pages(table, ps, 64).contiguous())
+            for lo in range(0, n, 16):
+                hi = min(n, lo + 16)
+                c = page_count(-(-hi // 16) * 16, ps) * ps
+                part = kp.paged_prefill_attention(
+                    q[:, lo:hi].contiguous(), *arena,
+                    torch.full((1,), lo, dtype=torch.int32, device=dev),
+                    window_pages(table, ps, c).contiguous())
+                _equal(part, whole[:, lo:hi],
+                       f"paged prefill page={ps} chunk [{lo}, {hi}) "
+                       f"int8={quantized} vs whole prompt")
+    # serve's paged prefill chunk: 16 queries at 37.. against a 64-token
+    # window in pages of 16, INT8 KV (the main path's), bf16 KV beside it
+    sq, st, w, ps = 16, 37, 64, SERVE_PAGE
+    arena_q, table = _paged_case(dev, ps, True, [st + sq - 1])
+    arena_b, _ = _paged_case(dev, ps, False, [st + sq - 1])
+    idx = window_pages(table, ps, w).contiguous()
+    q = torch.randn(1, sq, hq, hd, device=dev).to(torch.bfloat16)
+    start = torch.full((1,), st, dtype=torch.int32, device=dev)
+    visible = sum(st + i + 1 for i in range(sq))    # causal (query, kv) pairs
+    n_ops = 4 * hq * hd * visible
+    seen = (st + sq) * hkv                          # the prefix the chunk sees
+    io = sq * hq * hd * 2 * 2 + 4 + idx.numel() * 4  # q, out, start, table
+    b_ms, by = bound(seen * hd * 2 + seen * 4 * 2 + io, n_ops, "int8")
+    b16_ms, b16_by = bound(seen * hd * 2 * 2 + io, n_ops, "bf16")
+    gk, gv, _, _ = _gathered(arena_b, idx)
+    report["paged_prefill_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kp.paged_prefill_attention(q, *arena_q, start,
+                                                      idx)),
+        plain_ms=time_ms(lambda: ref.paged_prefill_attention_ref(
+            q, *arena_q, start, idx)),
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        bf16_kv=dict(
+            ms=time_ms(lambda: kp.paged_prefill_attention(q, *arena_b, start,
+                                                          idx)),
+            plain_ms=time_ms(lambda: ref.paged_prefill_attention_ref(
+                q, *arena_b, start, idx)),
+            bound_ms=b16_ms, bound_by=b16_by,
+            library_ms=_sdpa_ms(q, gk, gv, start, sq),
+            library="SDPA on the gathered window, gather not timed"),
+        shape=f"q (1, {sq}, {hq}, {hd}) at {st} vs INT8 arena, pages of "
+              f"{ps}, window {w}")
+
+
 # ------------------------------------------------------------------ serving
 def phase_small_e2e(dev):
     """The smoke model on the card against the same model on the CPU (the
@@ -335,47 +502,76 @@ def phase_small_e2e(dev):
     return err
 
 
-def serve_once(params, cfg, dev, quantized_kv, kernels):
+def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
+               arrivals_s=None, arrival_ticks=None, **engine_kw):
+    """One engine run from launch counts at 0: every request must equal
+    serial decode token for token, every kernel in ``must`` must have
+    launched and none in ``must_not``. Returns (summary, engine, launches)."""
     import torch
-    from repro_torch.launch.serve import synth_requests
     from repro_torch.serving import (Engine, SchedulerConfig, serial_decode,
                                      summarize_results)
-    reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
-                                    SERVE_NEW)
+    qkv = engine_kw.get("quantized_kv", False)
     eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
                  sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
                                        decode_steps=SERVE_STEPS),
-                 quantized_kv=quantized_kv, device=dev)
+                 device=dev, **engine_kw)
+    what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}")
     torch.cuda.synchronize()
     for kern in kernels.values():
         kern.launches = 0
     t0 = time.monotonic()
-    results = eng.run(reqs, arrivals_s=arrivals)
+    results = eng.run(reqs, arrivals_s=arrivals_s,
+                      arrival_ticks=arrival_ticks)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
     if len(results) != len(reqs):
-        fail(f"engine finished {len(results)} of {len(reqs)} requests")
+        fail(f"{what}: engine finished {len(results)} of {len(reqs)} "
+             f"requests")
     for i, res in sorted(results.items()):
-        if len(res.tokens) != SERVE_NEW or not all(
+        n_new = reqs[i].max_new_tokens
+        if len(res.tokens) != n_new or not all(
                 0 <= t < cfg.vocab_size for t in res.tokens):
-            fail(f"request {i}: bad tokens {res.tokens}")
-        want = serial_decode(params, cfg, reqs[i].prompt, SERVE_NEW,
-                             max_seq=SERVE_MAX_SEQ, quantized_kv=quantized_kv,
+            fail(f"{what} request {i}: bad tokens {res.tokens}")
+        want = serial_decode(params, cfg, reqs[i].prompt, n_new,
+                             max_seq=SERVE_MAX_SEQ, quantized_kv=qkv,
                              device=dev)
         if res.tokens != want:
-            fail(f"int8_kv={quantized_kv} request {i}: engine tokens differ "
-                 f"from serial decode\n engine {res.tokens}\n serial {want}")
-    idle = [name for name, n in launches.items() if n == 0]
+            fail(f"{what} request {i}: engine tokens differ from serial "
+                 f"decode\n engine {res.tokens}\n serial {want}")
+    idle = [name for name in must if launches[name] == 0]
     if idle:
-        fail(f"kernels never launched on the serving run: {idle}")
-    return summarize_results(results, wall), eng.stats, launches
+        fail(f"{what}: kernels never launched on the serving run: {idle}")
+    stray = [name for name in must_not if launches[name]]
+    if stray:
+        fail(f"{what}: kernels of the other KV layout launched: {stray}")
+    return summarize_results(results, wall), eng, launches
+
+
+def shared_prompt_load(cfg):
+    """Request 0 is a SHARED_HEAD-token head plus a tail of 8; the other
+    SHARED_N - 1 share the head, with distinct tails of 8-16 tokens, and
+    arrive on the tick after request 0's prefill ends (its last chunk
+    inserts the head into the prefix cache)."""
+    import torch
+    from repro_torch.serving import Request
+    gen = torch.Generator().manual_seed(1)
+    head = _tokens(cfg, SHARED_HEAD, gen)
+    reqs = [Request(head + _tokens(cfg, 8 + (i * 5) % 9, gen),
+                    max_new_tokens=SERVE_NEW) for i in range(SHARED_N)]
+    first = -(-len(reqs[0].prompt) // SERVE_CHUNK)
+    return reqs, [0] + [first] * (SHARED_N - 1)
+
+
+def _tokens(cfg, n, gen):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
 
 
 def _group(name: str, kernels) -> str:
     for k in kernels:
-        if k + "_kernel" in name:
-            return k
+        if k + "_kernel" in name:       # the paged twins share the body
+            return "paged_" + k if "PagedAddr" in name else k
     low = name.lower()
     if any(t in low for t in ("gemm", "gemv", "cublas", "xmma", "nvjet")):
         return "cublas"
@@ -383,67 +579,84 @@ def _group(name: str, kernels) -> str:
 
 
 def phase_profile(params, cfg, dev, kernels):
-    """Where a steady decode dispatch's time goes: SERVE_SLOTS requests, all
-    decoding, INT8 KV. PROFILE_TICKS dispatches are timed on the host clock
-    (each ends in the engine's one host sync); two more run under
+    """Where a steady decode dispatch's time goes, contiguous against paged
+    (pages of SERVE_PAGE): SERVE_SLOTS requests, all decoding, INT8 KV, one
+    engine per layout on the same prompts. PROFILE_TICKS dispatches of each
+    are timed on the host clock (each ends in the engine's one host sync),
+    the two layouts taking turns in the order C P P C ..., so a drift of the
+    shared host lands on both; then two more of each run under
     torch.profiler, whose device kernel time is summed by group. Device busy
     over host wall gives the idle share."""
     import torch
     from repro_torch.serving import Engine, Request, SchedulerConfig
-    eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
-                 sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
-                                       decode_steps=SERVE_STEPS),
-                 quantized_kv=True, device=dev)
     rng = torch.Generator().manual_seed(0)
-    for _ in range(SERVE_SLOTS):
-        eng.submit(Request(torch.randint(0, cfg.vocab_size, (SERVE_PROMPT,),
-                                         generator=rng).tolist(),
-                           max_new_tokens=SERVE_MAX_SEQ - SERVE_PROMPT))
+    prompts = [_tokens(cfg, SERVE_PROMPT, rng) for _ in range(SERVE_SLOTS)]
+    engines = {}
+    for layout, page_size in (("contiguous", None), ("paged", SERVE_PAGE)):
+        eng = engines[layout] = Engine(
+            params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+            sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
+                                  decode_steps=SERVE_STEPS),
+            quantized_kv=True, device=dev, page_size=page_size)
+        for prompt in prompts:
+            eng.submit(Request(prompt, SERVE_MAX_SEQ - SERVE_PROMPT))
 
-    def tick():
+    def tick(eng):
         eng.step()
         torch.cuda.synchronize(dev)
 
-    while any(slot.stage != "decode" for slot in eng.slots):
-        tick()
-    tick()                                              # warm the decode path
-    for kern in kernels.values():
-        kern.launches = 0
-    t0 = time.monotonic()
-    for _ in range(PROFILE_TICKS):
-        tick()
+    for eng in engines.values():
+        while any(slot.stage != "decode" for slot in eng.slots):
+            tick(eng)
+        tick(eng)                                       # warm the decode path
+    wall = {layout: 0.0 for layout in engines}
+    launches = {layout: dict.fromkeys(kernels, 0) for layout in engines}
+    order = list(engines)
+    for i in range(PROFILE_TICKS):
+        for layout in (order if i % 2 == 0 else order[::-1]):
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.monotonic()
+            tick(engines[layout])
+            wall[layout] += time.monotonic() - t0
+            for n, kern in kernels.items():
+                launches[layout][n] += kern.launches
     steps = PROFILE_TICKS * SERVE_STEPS
-    step_ms = (time.monotonic() - t0) / steps * 1e3
-    launches = {n: kern.launches / steps for n, kern in kernels.items()}
-
+    out = {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        for _ in range(2):
-            tick()
-        prof_wall_ms = (time.monotonic() - t0) * 1e3
-    groups, n_kernels = {}, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            g = _group(evt.name, kernels)
-            groups[g] = groups.get(g, 0.0) + evt.time_range.elapsed_us() / 1e3
-            n_kernels += 1
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=15))
-    busy_ms = sum(groups.values())
-    prof_steps = 2 * SERVE_STEPS
-    return {
-        "decode_step_ms": step_ms,
-        "tokens_per_s": SERVE_SLOTS / step_ms * 1e3,
-        "port_launches_per_step": launches,
-        "profiled_device_kernels_per_step": n_kernels / prof_steps,
-        "profiled_wall_ms_per_step": prof_wall_ms / prof_steps,
-        "device_busy_ms_per_step": busy_ms / prof_steps,
-        "device_idle_share": 1 - busy_ms / prof_wall_ms if busy_ms else None,
-        "device_ms_per_step_by_group": {g: v / prof_steps
-                                        for g, v in sorted(groups.items())},
-    }
+    for layout, eng in engines.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            for _ in range(2):
+                tick(eng)
+            prof_wall_ms = (time.monotonic() - t0) * 1e3
+        groups, n_kernels = {}, 0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                g = _group(evt.name, kernels)
+                groups[g] = (groups.get(g, 0.0)
+                             + evt.time_range.elapsed_us() / 1e3)
+                n_kernels += 1
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=15))
+        busy_ms = sum(groups.values())
+        prof_steps = 2 * SERVE_STEPS
+        step_ms = wall[layout] / steps * 1e3
+        out[layout] = {
+            "decode_step_ms": step_ms,
+            "tokens_per_s": SERVE_SLOTS / step_ms * 1e3,
+            "port_launches_per_step": {n: c / steps for n, c
+                                       in launches[layout].items()},
+            "profiled_device_kernels_per_step": n_kernels / prof_steps,
+            "profiled_wall_ms_per_step": prof_wall_ms / prof_steps,
+            "device_busy_ms_per_step": busy_ms / prof_steps,
+            "device_idle_share": (1 - busy_ms / prof_wall_ms if busy_ms
+                                  else None),
+            "device_ms_per_step_by_group": {
+                g: v / prof_steps for g, v in sorted(groups.items())},
+        }
+    return out
 
 
 def main() -> int:
@@ -478,10 +691,12 @@ def main() -> int:
     kernels = {"quantize_rowwise": quantize.KERNEL,
                "int8_matmul": int8_matmul.KERNEL,
                "decode_attention": decode_attention.KERNEL,
-               "prefill_attention": prefill_attention.KERNEL}
+               "prefill_attention": prefill_attention.KERNEL,
+               "paged_decode_attention": decode_attention.PAGED_KERNEL,
+               "paged_prefill_attention": prefill_attention.PAGED_KERNEL}
     report = {}
     for phase in (phase_quantize, phase_int8_matmul, phase_decode,
-                  phase_prefill):
+                  phase_prefill, phase_paged_decode, phase_paged_prefill):
         phase(dev, report)
     for name, r in report.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -492,14 +707,15 @@ def main() -> int:
         if "bf16_kv" in r:
             o = r["bf16_kv"]
             print(f"[kernel] {name} with bf16 KV: kernel {o['ms']:.4f} ms, "
-                  f"plain {o['plain_ms']:.4f} ms, library (SDPA) "
-                  f"{o['library_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
-                  f"({o['bound_by']})  [{card}]")
+                  f"plain {o['plain_ms']:.4f} ms, library "
+                  f"({o.get('library', 'SDPA')}) {o['library_ms']:.4f} ms, "
+                  f"bound {o['bound_ms']:.6f} ms ({o['bound_by']})  [{card}]")
     print(f"[e2e] smoke model, card vs CPU plain path: max |logit diff| "
           f"{phase_small_e2e(dev):.4g}")
 
     from repro_torch import configs
     from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.launch.serve import synth_requests
     from repro_torch.models import lm
     cfg = configs.get_config("qwen3-0.6b")
     t0 = time.monotonic()
@@ -508,31 +724,86 @@ def main() -> int:
     print(f"[serve] {cfg.name} full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {lm.padded_vocab(cfg)}), INT8 PTQ in "
           f"{time.monotonic() - t0:.1f}s")
-    main_launches = None
+    contiguous = ("decode_attention", "prefill_attention")
+    paged = ("paged_decode_attention", "paged_prefill_attention")
+    dense = ("quantize_rowwise", "int8_matmul")
+    reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                                    SERVE_NEW)
+
+    def line(summary, eng, launches, label):
+        print(f"[serve] {label}: {summary['n_requests']} requests, "
+              f"{summary['out_tokens']} tokens, {summary['tokens_per_s']:.2f} "
+              f"tok/s, TTFT p50 {summary['ttft_p50_ms']:.1f} ms, latency p50 "
+              f"{summary['latency_p50_ms']:.1f} ms, "
+              f"{eng.stats['device_steps']} device steps / "
+              f"{eng.stats['host_syncs']} host syncs, engine == serial on "
+              f"all requests, launches {launches}  [{card}]")
+
+    main_launches = {}
+    kv_bytes = None
     for quantized_kv in (True, False):
-        summary, stats, launches = serve_once(params, cfg, dev, quantized_kv,
-                                              kernels)
+        summary, eng, launches = serve_once(
+            params, cfg, dev, kernels, reqs, dense + contiguous, paged,
+            arrivals_s=arrivals, quantized_kv=quantized_kv)
         if quantized_kv:
-            main_launches = launches
-        print(f"[serve] kv={'int8' if quantized_kv else 'bf16'}: "
-              f"{summary['n_requests']} requests, {summary['out_tokens']} "
-              f"tokens, {summary['tokens_per_s']:.2f} tok/s, TTFT p50 "
-              f"{summary['ttft_p50_ms']:.1f} ms, latency p50 "
-              f"{summary['latency_p50_ms']:.1f} ms, {stats['device_steps']} "
-              f"device steps / {stats['host_syncs']} host syncs, engine == "
-              f"serial on all requests, launches {launches}  [{card}]")
-    print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots: "
-          f"{json.dumps(phase_profile(params, cfg, dev, kernels))}  [{card}]")
+            main_launches.update({k: launches[k] for k in dense + contiguous})
+            kv_bytes = eng.stats["kv_bytes"]
+        line(summary, eng, launches,
+             f"contiguous kv={'int8' if quantized_kv else 'bf16'}")
+
+    # the paged path: the same staggered load, then a shared-prompt load
+    summary, eng, launches = serve_once(
+        params, cfg, dev, kernels, reqs, dense + paged, contiguous,
+        arrivals_s=arrivals, quantized_kv=True, page_size=SERVE_PAGE)
+    main_launches.update({k: launches[k] for k in paged})
+    line(summary, eng, launches, f"paged kv=int8 page={SERVE_PAGE}")
+    print(f"[serve] paged staggered load: pages_peak "
+          f"{eng.stats['pages_peak']}, kv_bytes_peak "
+          f"{eng.stats['kv_bytes_peak']} B against the contiguous pool's "
+          f"{kv_bytes} B, prefix_hits {eng.stats['prefix_hits']}  [{card}]")
+    shared, ticks = shared_prompt_load(cfg)
+    summary, eng, launches = serve_once(
+        params, cfg, dev, kernels, shared, dense + paged, contiguous,
+        arrival_ticks=ticks, quantized_kv=True, page_size=SERVE_PAGE)
+    line(summary, eng, launches,
+         f"paged kv=int8 page={SERVE_PAGE}, shared {SHARED_HEAD}-token head")
+    st = eng.stats
+    n_prompt = sum(len(r.prompt) for r in shared)
+    want_prefill = n_prompt - (SHARED_N - 1) * SHARED_HEAD
+    if st["prefix_hits"] != SHARED_N - 1:
+        fail(f"shared-prompt load: {st['prefix_hits']} prefix hits, "
+             f"expected {SHARED_N - 1}")
+    if st["prefill_tokens"] != want_prefill:
+        fail(f"shared-prompt load: {st['prefill_tokens']} prompt tokens "
+             f"prefilled, expected {want_prefill}")
+    cached = len({p for v in eng.prefix._entries.values() for p in v})
+    if eng.alloc.pages_in_use != cached:
+        fail(f"shared-prompt load: {eng.alloc.pages_in_use} pages in use "
+             f"after the run, the prefix cache holds {cached}")
+    eng.alloc.check()
+    eng.prefix.clear()
+    if eng.alloc.pages_in_use != 0:
+        fail(f"shared-prompt load: {eng.alloc.pages_in_use} pages leaked")
+    print(f"[serve] shared-prompt load: prefix_hits {st['prefix_hits']}, "
+          f"prefill_tokens {st['prefill_tokens']} of {n_prompt}, pages_peak "
+          f"{st['pages_peak']}, kv_bytes_peak {st['kv_bytes_peak']} B against "
+          f"the contiguous pool's {kv_bytes} B, {cached} pages cached after "
+          f"the run, 0 after clearing the cache  [{card}]")
+    for layout, prof in phase_profile(params, cfg, dev, kernels).items():
+        print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots, "
+              f"{layout}: {json.dumps(prof)}  [{card}]")
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
                 "decode_attention": "decode_attention.py:109",
-                "prefill_attention": "prefill_attention.py:122"}
+                "prefill_attention": "prefill_attention.py:122",
+                "paged_decode_attention": "decode_attention.py:155",
+                "paged_prefill_attention": "prefill_attention.py:180"}
     entries = []
     for name, r in report.items():
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{kernels[name].source}.cu",
             "replaces": f"src/repro/kernels/{replaces[name]}",
             "launches": main_launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -3,7 +3,8 @@
 Each op looks at its input tensor: a CPU tensor goes to the plain PyTorch
 version, a CUDA tensor launches the hand-written kernel (or raises). There is
 no switch and no fallback. This module owns the cache-dict unpacking and the
-static visible-window slice of the attention ops."""
+static visible window of the attention ops: a slice of a slotted cache, or
+the page-table prefix of a paged arena."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -11,9 +12,12 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels.decode_attention import (
-    decode_attention as _decode_attention)
+    decode_attention as _decode_attention,
+    paged_decode_attention as _paged_decode_attention)
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
+from repro_torch.kernels.kv_layout import window_pages
 from repro_torch.kernels.prefill_attention import (
+    paged_prefill_attention as _paged_prefill_attention,
     prefill_attention as _prefill_attention)
 from repro_torch.kernels.quantize import quantize_rowwise as _quantize_rowwise
 
@@ -42,19 +46,35 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 # ------------------------------------------------------------- KV-cache attn
+def _leaves(cache: dict):
+    """(k, v, k_s, v_s) of a bf16 or INT8 KV-cache dict."""
+    if "k_q" in cache:
+        return cache["k_q"], cache["v_q"], cache["k_s"], cache["v_s"]
+    return cache["k"], cache["v"], None, None
+
+
 def _cache_window(cache: dict, window: Optional[int]):
     """(k, v, k_s, v_s) views of a (possibly INT8) KV-cache dict, restricted
     to the first ``window`` positions. The slice is a view: no copy, and the
     kernels take its batch stride. Positions past the window would mask to
     exact zeros, so the windowed attend equals the full one."""
-    if "k_q" in cache:
-        k, v, k_s, v_s = cache["k_q"], cache["v_q"], cache["k_s"], cache["v_s"]
-    else:
-        k, v, k_s, v_s = cache["k"], cache["v"], None, None
+    k, v, k_s, v_s = _leaves(cache)
     if window is not None and window < k.shape[1]:
         sl = lambda t: None if t is None else t[:, :window]
         k, v, k_s, v_s = sl(k), sl(v), sl(k_s), sl(v_s)
     return k, v, k_s, v_s
+
+
+def _paged_window(cache: dict, pages: torch.Tensor, window: Optional[int]):
+    """(k, v, k_s, v_s) of a paged arena (leaves (n_pages, page_size, ...))
+    plus the contiguous int32 (B, n_blk) table prefix that covers the static
+    ``window``. Positions past a row's limit (the page-rounded tail, trash
+    entries) mask to exact zeros, so the paged read equals the contiguous
+    one. The engine hands tables already cut to the window, so the prefix
+    is then the table itself and no copy is made."""
+    k, v, k_s, v_s = _leaves(cache)
+    idx = window_pages(pages, k.shape[1], window)
+    return k, v, k_s, v_s, idx.to(torch.int32).contiguous()
 
 
 def _start_vector(start: Start, b: int, device) -> torch.Tensor:
@@ -66,19 +86,29 @@ def _start_vector(start: Start, b: int, device) -> torch.Tensor:
 
 
 def prefill_attention(q: torch.Tensor, cache: dict, start: Start,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      window: Optional[int] = None,
+                      pages: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked-prefill attend: q (B, Sq, Hq, hd) at absolute positions
     start..start+Sq-1 against a cache holding [0, start+Sq); ``window >=
     start + Sq`` for every consumed row. Sq == 1 (a prompt's tail chunk)
-    stays here, so a tail chunk and a whole-prompt prefill share numerics."""
+    stays here, so a tail chunk and a whole-prompt prefill share numerics.
+    ``pages`` (B, max_pages) int32 marks the cache as a paged arena."""
     start = _start_vector(start, q.shape[0], q.device)
+    if pages is not None:
+        k, v, k_s, v_s, idx = _paged_window(cache, pages, window)
+        return _paged_prefill_attention(q, k, v, k_s, v_s, start, idx)
     return _prefill_attention(q, *_cache_window(cache, window), start)
 
 
 def decode_attention(q: torch.Tensor, cache: dict, start: Start,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     pages: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attend: q (B, 1, Hq, hd) at per-slot positions ``start`` ->
-    (B, 1, Hq, hd)."""
+    (B, 1, Hq, hd); ``pages`` as in ``prefill_attention``."""
     start = _start_vector(start, q.shape[0], q.device)
+    if pages is not None:
+        k, v, k_s, v_s, idx = _paged_window(cache, pages, window)
+        return _paged_decode_attention(q[:, 0], k, v, k_s, v_s, start,
+                                       idx)[:, None]
     return _decode_attention(q[:, 0], *_cache_window(cache, window),
                              start)[:, None]

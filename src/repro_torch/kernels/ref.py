@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path.
 
 They keep the staging of the JAX package's xla oracles: q scaled in f32 then
 rounded to bf16; scores in f32 with ``k_s`` applied to the scores; the mask
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.kv_layout import gather_pages
 
 NEG_INF = -1e30
 
@@ -88,3 +90,25 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-query attention, q (B, Hq, hd): the Sq=1 slice of
     ``cached_attention_ref``."""
     return cached_attention_ref(q[:, None], k, v, k_s, v_s, start)[:, 0]
+
+
+def _gathered_window(k, v, k_s, v_s, pages):
+    """A paged arena's window as contiguous (B, W, ...) tensors: the plain
+    paged read is this gather plus the contiguous plain version, which is
+    what makes paged equal contiguous bit for bit."""
+    g = lambda t: None if t is None else gather_pages(t, pages)
+    return g(k), g(v), g(k_s), g(v_s)
+
+
+def paged_prefill_attention_ref(q, k, v, k_s, v_s, start, pages):
+    """q (B, Sq, Hq, hd); k/v (n_pages, page_size, Hkv, hd) arenas (int8 with
+    (n_pages, page_size, Hkv) scales when quantized); start (B,); pages
+    (B, n_blk) the window prefix of each row's page table."""
+    return cached_attention_ref(q, *_gathered_window(k, v, k_s, v_s, pages),
+                                start)
+
+
+def paged_decode_attention_ref(q, k, v, k_s, v_s, start, pages):
+    """The Sq=1 slice of ``paged_prefill_attention_ref`` (q (B, Hq, hd))."""
+    return decode_attention_ref(q, *_gathered_window(k, v, k_s, v_s, pages),
+                                start)

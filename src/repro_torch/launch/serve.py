@@ -3,6 +3,7 @@ through the lockstep loop or the continuous-batching engine.
 
   python -m repro_torch.launch.serve --smoke --device cpu --engine --verify
   python -m repro_torch.launch.serve --engine --hqp --verify   # on the card
+  python -m repro_torch.launch.serve --engine --hqp --page-size 16  # paged KV
 
 ``--hqp`` here is post-training INT8 quantization of the linears plus the
 INT8 KV cache (``--prune-steps 0``); Fisher-guided pruning is ROADMAP A7.
@@ -73,7 +74,10 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
     eng = Engine(params, cfg, n_slots=args.engine_slots, max_seq=args.max_seq,
                  sched=SchedulerConfig(prefill_chunk=args.prefill_chunk,
                                        decode_steps=args.decode_steps),
-                 quantized_kv=quantized_kv, device=device)
+                 quantized_kv=quantized_kv, device=device,
+                 page_size=args.page_size or None,
+                 total_pages=args.total_pages or None,
+                 prefix_cache=not args.no_prefix_cache)
     t0 = time.monotonic()
     results = eng.run(reqs, arrivals_s=arrivals)
     if device.type == "cuda":
@@ -85,7 +89,10 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
         f"{stats['latency_p50_ms']:.0f}/{stats['latency_p95_ms']:.0f}ms, "
         f"ttft p50/p95 {stats['ttft_p50_ms']:.0f}/"
         f"{stats['ttft_p95_ms']:.0f}ms ({eng.stats['device_steps']} device "
-        f"decode steps / {eng.stats['host_syncs']} host syncs)")
+        f"decode steps / {eng.stats['host_syncs']} host syncs"
+        + (f", {eng.stats['prefix_hits']} prefix hits / "
+           f"{eng.stats['pages_peak']} pages peak" if args.page_size else "")
+        + ")")
     verify = args.verify if args.verify is not None else args.smoke
     if verify:
         bad = [i for i, res in sorted(results.items())
@@ -150,6 +157,15 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--decode-steps", type=int, default=4,
                     help="batched decode steps per host sync")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged KV cache: arena page size in tokens (engine "
+                         "mode; 0 = contiguous per-slot pool). Outputs are "
+                         "token-identical at every page size")
+    ap.add_argument("--total-pages", type=int, default=0,
+                    help="paged KV arena size in pages (0 = full "
+                         "provisioning, 1 + slots*ceil(max_seq/page_size))")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix page reuse (paged mode)")
     ap.add_argument("--verify", action="store_true", default=None,
                     help="check engine outputs == serial decode "
                          "(default: on under --smoke)")
@@ -157,6 +173,9 @@ def main(argv=None):
     if args.hqp and args.load_artifact:
         ap.error("--hqp builds an artifact; --load-artifact loads one — "
                  "pick one")
+    if args.page_size and not args.engine:
+        ap.error("--page-size needs --engine (the lockstep loop has no "
+                 "slot pool to page)")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))

@@ -75,21 +75,26 @@ def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
 def init_decode_state(cfg, batch: int, max_seq: int,
                       params: Optional[dict] = None,
                       per_slot_pos: bool = False, quantized_kv: bool = False,
-                      device=None) -> dict:
+                      device=None,
+                      kv_pages: Optional[Tuple[int, int]] = None) -> dict:
     """Per-layer KV caches plus the current length.
 
     ``pos`` is an int (the whole batch at one position: the serial path) or,
     with ``per_slot_pos``, a (batch,) int32 tensor (the engine's slots).
     With ``params`` the KV widths derive from the param shapes, so
-    HQP-compacted artifacts size their own caches."""
+    HQP-compacted artifacts size their own caches. ``kv_pages=(total_pages,
+    page_size)`` makes every KV cache a paged arena (total_pages, page_size,
+    Hkv, hd) with no slot axis, shared through page tables the caller owns
+    (``serving.state_pool``)."""
     _check_pattern(cfg)
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
+    kv_b, kv_s = kv_pages if kv_pages is not None else (batch, max_seq)
     caches = []
     for i in range(cfg.n_layers):
         n_kv = (L.out_features(params["blocks"][i]["attn"]["wk"]) // hd
                 if params is not None else cfg.n_kv_heads)
-        caches.append(A.init_kv_cache(batch, max_seq, n_kv, hd, quantized_kv,
+        caches.append(A.init_kv_cache(kv_b, kv_s, n_kv, hd, quantized_kv,
                                       dev))
     pos = (torch.zeros((batch,), dtype=torch.int32, device=dev)
            if per_slot_pos else 0)
@@ -107,17 +112,24 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
     Only the last position's logits are computed: every caller (engine
     prefill and decode, serial decode) reads only those, and the unembed is
     the largest product of the step. ``window`` and ``route`` are as in
-    ``attention.attention_forward``."""
+    ``attention.attention_forward``.
+
+    ``state["pages"]`` (B, max_pages) int32, when present, marks the KV
+    caches as paged arenas: every KV write and attend goes through the
+    per-row page table. The table is an input only and the returned state
+    never carries it: the engine redirects rows to the trash page between
+    dispatches, which a pass-through would undo."""
     x = L.embed_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     cur: Union[int, torch.Tensor] = state["pos"]
+    pages = state.get("pages")
     steps = torch.arange(s, device=x.device)
     positions = (cur[:, None] + steps[None, :] if isinstance(cur, torch.Tensor)
                  else (cur + steps)[None, :].expand(b, s))
     for p, cache in zip(params["blocks"], state["caches"]):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         x = x + A.attention_forward(p["attn"], cfg, h, positions, cache, cur,
-                                    window, route)
+                                    window, route, pages)
         x = x + L.mlp(L.rmsnorm(x, p["norm2"], cfg.norm_eps), p["mlp"])
     x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x), {"caches": state["caches"],

@@ -3,8 +3,9 @@
 The ``Engine`` owns ``n_slots`` concurrent requests. Requests are admitted
 into free slots on arrival, prefilled in chunks interleaved with batched
 decode (``serving.scheduler`` owns the policy), and evicted on EOS or
-length, freeing the slot for the next waiting request. The contiguous pool,
-greedy decoding, no speculation.
+length, freeing the slot for the next waiting request. Greedy decoding, no
+speculation. The KV lives in a contiguous per-slot pool or, with
+``page_size``, in a paged arena shared by all slots (``state_pool``).
 
 Each decode dispatch runs ``decode_steps`` greedy steps on the device with
 no host round trip between them: argmax, token feedback and the per-slot
@@ -20,7 +21,8 @@ cache through the same ops as the serial path, whose causal limits are
 absolute positions, so chunk boundaries and window buckets leave every row's
 bits unchanged; (c) rows that are not live in a dispatch never advance
 ``pos``, and whatever they write sits at or past their own position, where
-it stays masked until a real write replaces it.
+it stays masked until a real write replaces it; in paged mode they are
+pointed at the trash page, so their writes never reach a live page.
 
 A fault in a step propagates to the caller: request-scoped fault isolation
 comes with the service plane (ROADMAP), and catching every exception here
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.kv_layout import page_count
 from repro_torch.models import lm
 from repro_torch.serving import sampling as smp
 from repro_torch.serving import state_pool as sp
@@ -87,17 +90,44 @@ class _Slot:
     result: Optional[RequestResult] = None
     eos_id: Optional[int] = None
     max_new_tokens: int = 0
+    pages: List[int] = dataclasses.field(default_factory=list)
+
+
+def _kv_bytes(pool) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for entry in pool["caches"] for leaf in entry.values())
 
 
 class Engine:
     """Continuous-batching engine serving a (possibly HQP-quantized) LM.
 
     ``params`` must lie on ``device`` (default: the card). ``quantized_kv``
-    selects the INT8 KV cache (HQP serving)."""
+    selects the INT8 KV cache (HQP serving).
+
+    ``page_size`` switches on paged KV: the per-slot pool becomes one arena
+    of ``total_pages`` pages (default ``1 + n_slots * ceil(max_seq /
+    page_size)``, page 0 being the trash page) with a host-side allocator and
+    a page-table row per slot. Pages covering the prompt are mapped at
+    admission and grown before each decode dispatch; with ``prefix_cache``
+    the page-aligned heads of finished prompts are kept under a content
+    hash, so a prompt that repeats a head maps those pages without a copy
+    and prefills only its tail. ``page_size == max_seq`` is the contiguous
+    layout with one page per slot. Outputs are token-identical to the
+    contiguous pool at every page size.
+
+    Shared pages need no copy-on-write here: a hit admits the slot at the
+    hit position, capped at ``(len - 1) // page_size`` pages, so every write
+    of the slot lands at or past it; insertion covers only pages the prompt
+    fills, and decode writes start at the prompt's end. Only a speculative
+    healing chunk writes behind that point, so copy-on-write comes with
+    speculation (ROADMAP A9)."""
 
     def __init__(self, params: Any, cfg, n_slots: int = 4,
                  max_seq: int = 128, sched: Optional[SchedulerConfig] = None,
-                 quantized_kv: bool = False, device=None):
+                 quantized_kv: bool = False, device=None,
+                 page_size: Optional[int] = None,
+                 total_pages: Optional[int] = None,
+                 prefix_cache: bool = True):
         self.device = resolve_device(device)
         if lm.params_device(params) != self.device:
             raise ValueError(f"params lie on {lm.params_device(params)}, "
@@ -107,12 +137,36 @@ class Engine:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.scheduler = Scheduler(sched)
-        self.pool = sp.init_pool(cfg, n_slots, max_seq, params=params,
-                                 quantized_kv=quantized_kv,
-                                 device=self.device)
-        kv_bytes = sum(leaf.numel() * leaf.element_size()
-                       for entry in self.pool["caches"]
-                       for leaf in entry.values())
+        self.paged = page_size is not None
+        self.alloc: Optional[sp.PageAllocator] = None
+        self.prefix: Optional[sp.PrefixCache] = None
+        if self.paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self.page_size = page_size
+            self.max_pages = page_count(max_seq, page_size)
+            if total_pages is None:
+                total_pages = 1 + n_slots * self.max_pages
+            self.total_pages = total_pages
+            self.alloc = sp.PageAllocator(total_pages)
+            if prefix_cache:
+                self.prefix = sp.PrefixCache(self.alloc, page_size)
+            # host mirror of every slot's page table; device copies are
+            # cached in _dispatch_table
+            self.table = np.zeros((n_slots, self.max_pages), np.int32)
+            self._table_cache: Dict[Any, torch.Tensor] = {}
+            self.pool = sp.init_paged_pool(
+                cfg, n_slots, max_seq, page_size=page_size,
+                total_pages=total_pages, params=params,
+                quantized_kv=quantized_kv, device=self.device)
+            kv_bytes = _kv_bytes(self.pool)
+            self._kv_page_bytes = kv_bytes // total_pages
+            self._kv_token_bytes = self._kv_page_bytes // page_size
+        else:
+            self.pool = sp.init_pool(cfg, n_slots, max_seq, params=params,
+                                     quantized_kv=quantized_kv,
+                                     device=self.device)
+            kv_bytes = _kv_bytes(self.pool)
         self.slots = [_Slot(i) for i in range(n_slots)]
         self.waiting: List[Request] = []
         self._uid = itertools.count()
@@ -121,7 +175,106 @@ class Engine:
         self.stats = {"prefill_ticks": 0, "decode_ticks": 0,
                       "decode_slot_steps": 0, "prefill_tokens": 0,
                       "host_syncs": 0, "device_steps": 0,
-                      "kv_bytes": kv_bytes}
+                      "kv_bytes": kv_bytes, "prefix_hits": 0,
+                      "prefix_hit_tokens": 0, "bytes_saved": 0,
+                      "pages_in_use": 0, "pages_peak": 0,
+                      "kv_bytes_peak": 0 if self.paged else kv_bytes}
+
+    # ------------------------------------------------------------ paged KV
+    def _note_pages(self) -> None:
+        n = self.alloc.pages_in_use
+        self.stats["pages_in_use"] = n
+        if n > self.stats["pages_peak"]:
+            self.stats["pages_peak"] = n
+            self.stats["kv_bytes_peak"] = n * self._kv_page_bytes
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Allocate n pages, evicting prefix-cache LRU entries under arena
+        pressure; raises MemoryError only once the cache is drained."""
+        if n <= 0:
+            return []
+        while True:
+            try:
+                return self.alloc.alloc(n)
+            except MemoryError:
+                if self.prefix is None or not self.prefix.evict_lru():
+                    raise
+
+    def _map_slot_pages(self, slot: _Slot, prompt: np.ndarray) -> int:
+        """Admission: map the slot's table row for ``prompt``: the longest
+        page-aligned prefix-cache hit (no copy, refcounted) plus fresh pages
+        for the rest of the prompt. Returns the hit length in tokens, the
+        position prefill resumes from."""
+        hit, pages = ((0, []) if self.prefix is None
+                      else self.prefix.lookup(prompt))
+        try:
+            pages = pages + self._alloc_pages(
+                page_count(prompt.size, self.page_size) - len(pages))
+        except MemoryError:
+            # lookup() ref'd the hit pages for this slot: drop them
+            if pages:
+                self.alloc.unref(pages)
+            raise
+        slot.pages = pages
+        self.table[slot.idx] = 0
+        self.table[slot.idx, :len(pages)] = pages
+        self._table_cache.clear()
+        if hit:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += hit
+            self.stats["bytes_saved"] += hit * self._kv_token_bytes
+        self._note_pages()
+        return hit
+
+    def _ensure_capacity(self, slot: _Slot, upto: int) -> None:
+        """Grow the slot's table to cover writes at positions < ``upto``
+        before the dispatch: a write through an unmapped entry would land
+        on the trash page and lose that KV."""
+        need = page_count(min(upto, self.max_seq), self.page_size)
+        if need > len(slot.pages):
+            new = self._alloc_pages(need - len(slot.pages))
+            self.table[slot.idx, len(slot.pages):need] = new
+            slot.pages.extend(new)
+            self._table_cache.clear()
+            self._note_pages()
+
+    def _release_slot_pages(self, slot: _Slot) -> None:
+        """Eviction: drop the slot's page references (pages the prefix cache
+        also holds stay resident for later hits) and zero its table row."""
+        if slot.pages:
+            self.alloc.unref(slot.pages)
+            slot.pages = []
+            self.table[slot.idx] = 0
+            self._table_cache.clear()
+            self._note_pages()
+
+    def _dispatch_table(self, window: int,
+                        active: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Device copy of the page table for one dispatch, cut to the pages
+        that cover ``window`` (so the attention ops take it as it is).
+        Decode dispatches pass ``active``: every other row (free slots and
+        slots mid-prefill) points at the trash page, because the shared
+        arena cannot be masked per slot and those rows write garbage KV at
+        their position every step.
+
+        The copy is cached per (window pages, active mask) until the table
+        next changes (admission, growth, eviction), so a steady decode tick
+        makes no host-to-device copy."""
+        n_blk = min(self.max_pages, page_count(window, self.page_size))
+        key = (n_blk, None if active is None else active.tobytes())
+        dev = self._table_cache.get(key)
+        if dev is None:
+            tab = self.table[:, :n_blk]
+            if active is not None:
+                tab = np.where(active[:, None], tab, np.int32(sp.TRASH_PAGE))
+            dev = self._table_cache[key] = torch.as_tensor(
+                np.ascontiguousarray(tab), device=self.device)
+        return dev
+
+    def _window(self, needed: int) -> int:
+        return self.scheduler.visible_window(
+            needed, self.max_seq,
+            page_multiple=self.page_size if self.paged else 0)
 
     # ------------------------------------------------------------- lifecycle
     def submit(self, request: Request) -> int:
@@ -152,10 +305,12 @@ class Engine:
             if slot.stage != FREE:
                 continue
             req = self.waiting.pop(0)
-            sp.reset_slot(self.pool, slot.idx)
+            pos0 = (self._map_slot_pages(slot, req.prompt) if self.paged
+                    else 0)
+            sp.reset_slot(self.pool, slot.idx, pos0)
             slot.stage = PREFILL
             slot.prompt = req.prompt
-            slot.prefill_done = 0
+            slot.prefill_done = pos0
             slot.eos_id = req.eos_id
             slot.max_new_tokens = req.max_new_tokens
             slot.result = RequestResult(
@@ -178,6 +333,8 @@ class Engine:
             slot.stage = FREE          # eviction: slot reusable next tick
             slot.result = None
             slot.prompt = None
+            if self.paged:
+                self._release_slot_pages(slot)
         else:
             slot.last_token = tok
             slot.stage = DECODE
@@ -208,8 +365,10 @@ class Engine:
         lo, hi = self.scheduler.chunk_bounds(slot.prompt.size,
                                              slot.prefill_done)
         chunk = torch.as_tensor(slot.prompt[None, lo:hi], device=self.device)
-        window = self.scheduler.visible_window(hi, self.max_seq)
-        st = sp.gather_slot(self.pool, slot.idx, lo)
+        window = self._window(hi)
+        st = sp.gather_slot(self.pool, slot.idx, lo,
+                            self._dispatch_table(window) if self.paged
+                            else None)
         # route="prefill" for every chunk, the 1-token tail included: the
         # same op serial whole-prompt prefill takes, so the bits agree
         logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
@@ -219,6 +378,11 @@ class Engine:
         self.stats["prefill_ticks"] += 1
         self.stats["prefill_tokens"] += hi - lo
         if hi == slot.prompt.size:
+            if self.prefix is not None:
+                # the prompt's KV is complete: register its page-aligned
+                # heads for later admissions
+                self.prefix.insert(slot.prompt, slot.pages, hi)
+                self._note_pages()
             tok = int(smp.greedy(logits[0, -1]))
             self.stats["host_syncs"] += 1
             self._emit(slot, tok, finished)
@@ -238,13 +402,20 @@ class Engine:
             if slot.eos_id is not None:
                 eos[i] = slot.eos_id
             budget[i] = slot.max_new_tokens - len(slot.result.tokens)
+            if self.paged:
+                # deepest write: pos + live steps (a slot that stops early
+                # rewrites its stop position, already covered)
+                self._ensure_capacity(
+                    slot, min(self._slot_pos(slot) + k_steps,
+                              int(slot.prompt.size) + slot.max_new_tokens))
         # the deepest live slot after k_steps attends positions
         # <= max(pos) + k_steps - 1  ->  window covers max(pos) + k_steps
         needed = max(self._slot_pos(self.slots[i]) for i in slot_ids) + k_steps
-        window = self.scheduler.visible_window(needed, self.max_seq)
+        window = self._window(needed)
+        table = self._dispatch_table(window, active) if self.paged else None
         toks, emitted = self._decode_steps(
             *(torch.as_tensor(a, device=self.device)
-              for a in (tokens, active, eos, budget)), k_steps, window)
+              for a in (tokens, active, eos, budget)), k_steps, window, table)
         self.stats["host_syncs"] += 1
         self.stats["device_steps"] += k_steps
         for t in range(k_steps):
@@ -254,16 +425,19 @@ class Engine:
         self.stats["decode_ticks"] += 1
         self.stats["decode_slot_steps"] += int(emitted.sum())
 
-    def _decode_steps(self, tok, live, eos, left, k_steps: int, window: int):
+    def _decode_steps(self, tok, live, eos, left, k_steps: int, window: int,
+                      table: Optional[torch.Tensor]):
         """``k_steps`` greedy steps over every slot, on the device. tok
         (B, 1) = each live slot's last token; live (B,) bool; eos (B,) (-1 =
-        none); left (B,) = tokens each slot may still emit. Slots that hit
-        EOS or their budget freeze for the remaining steps. Returns host
-        arrays (toks (K, B), emitted (K, B) bool) after one sync."""
+        none); left (B,) = tokens each slot may still emit; ``table`` the
+        dispatch's page table (paged mode). Slots that hit EOS or their
+        budget freeze for the remaining steps. Returns host arrays (toks
+        (K, B), emitted (K, B) bool) after one sync."""
         pool = self.pool
         toks, emitted = [], []
         for _ in range(k_steps):
-            logits, new = lm.decode_step(self.params, self.cfg, pool, tok,
+            state = pool if table is None else dict(pool, pages=table)
+            logits, new = lm.decode_step(self.params, self.cfg, state, tok,
                                          window=window, route="decode")
             nxt = smp.greedy(logits[:, -1]).long()
             pool["pos"] = torch.where(live, new["pos"], pool["pos"])

@@ -1,16 +1,31 @@
-"""Per-slot decode-state pool for the continuous-batching engine (the
-contiguous layout; paged KV is ROADMAP A8).
+"""Per-slot decode-state pool for the continuous-batching engine, in the
+contiguous layout or as a paged KV arena, and the host-side page allocator
+and prefix cache of the paged layout.
 
-The pool is ``lm.init_decode_state(..., per_slot_pos=True)``: every cache
-leaf has the slot axis first and ``pos`` is a (n_slots,) int32 tensor.
-PyTorch updates in place, so a slot's state is a set of views into the
-pool: a prefill through those views writes the pool's KV directly, and no
-slot is ever copied out or back."""
+The contiguous pool is ``lm.init_decode_state(..., per_slot_pos=True)``:
+every cache leaf has the slot axis first and ``pos`` is a (n_slots,) int32
+tensor. PyTorch updates in place, so a slot's state is a set of views into
+the pool: a prefill through those views writes the pool's KV directly, and
+no slot is ever copied out or back.
+
+The paged pool (``init_paged_pool``) swaps the per-slot KV for one arena of
+(total_pages, page_size) pages shared by every slot; each slot owns a row of
+the engine's page table (``PageAllocator`` hands out pages, ``PrefixCache``
+shares them between prompts with a common head). A slot's state is then the
+whole arena plus its table row as ``pages``. Physical page ``TRASH_PAGE`` is
+never handed out: rows that are not live in a dispatch are pointed at it, so
+their writes never touch a live page."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.models import lm
+
+TRASH_PAGE = 0
 
 
 def init_pool(cfg, n_slots: int, max_seq: int, params: Optional[dict] = None,
@@ -21,9 +36,28 @@ def init_pool(cfg, n_slots: int, max_seq: int, params: Optional[dict] = None,
                                 device=device)
 
 
-def gather_slot(pool: Dict[str, Any], slot: int, pos: int) -> Dict[str, Any]:
-    """Slot ``slot`` as a batch=1 ``decode_step`` state: views of the pool's
-    caches and the host's copy of the slot's position."""
+def init_paged_pool(cfg, n_slots: int, max_seq: int, *, page_size: int,
+                    total_pages: int, params: Optional[dict] = None,
+                    quantized_kv: bool = False, device=None
+                    ) -> Dict[str, Any]:
+    """Pool whose KV caches are one shared (total_pages, page_size) arena.
+    Page ``TRASH_PAGE`` is reserved, so ``total_pages`` budgets one page
+    over the live working set."""
+    return lm.init_decode_state(cfg, n_slots, max_seq, params=params,
+                                per_slot_pos=True, quantized_kv=quantized_kv,
+                                device=device,
+                                kv_pages=(total_pages, page_size))
+
+
+def gather_slot(pool: Dict[str, Any], slot: int, pos: int,
+                table: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Slot ``slot`` as a batch=1 ``decode_step`` state at the host's copy
+    of its position. Contiguous: views of the pool's caches. Paged (a
+    device page ``table`` (n_slots, n_blk) is given): the arena whole, and
+    the slot's table row as ``pages``."""
+    if table is not None:
+        return {"caches": pool["caches"], "pos": pos,
+                "pages": table[slot:slot + 1]}
     caches = [{k: leaf[slot:slot + 1] for k, leaf in entry.items()}
               for entry in pool["caches"]]
     return {"caches": caches, "pos": pos}
@@ -32,12 +66,146 @@ def gather_slot(pool: Dict[str, Any], slot: int, pos: int) -> Dict[str, Any]:
 def scatter_slot(pool: Dict[str, Any], slot: int,
                  state: Dict[str, Any]) -> None:
     """Record a batch=1 state's position in the pool (its KV already landed
-    in the pool through the views)."""
+    in the pool through the views or the page table)."""
     pool["pos"][slot] = int(state["pos"])
 
 
-def reset_slot(pool: Dict[str, Any], slot: int) -> None:
-    """Admission: the slot's position drops to 0. Its KV is left as it is:
-    the previous occupant's entries are masked by every later attend until
-    prefill overwrites them."""
-    pool["pos"][slot] = 0
+def reset_slot(pool: Dict[str, Any], slot: int, pos0: int = 0) -> None:
+    """Admission: the slot's position drops to ``pos0`` (0, or the length of
+    a prefix-cache hit, whose pages the slot's table already maps). KV is
+    left as it is in both layouts: the previous occupant's entries lie at or
+    past ``pos0``, where every later attend masks them until prefill
+    overwrites them, and a paged arena holds pages other slots still
+    read."""
+    pool["pos"][slot] = pos0
+
+
+# --------------------------------------------------------- host-side paging
+class PageAllocator:
+    """Host-side free-list allocator with refcounts over the KV page arena.
+
+    Physical page 0 is ``TRASH_PAGE`` and never allocated. Sharing is
+    refcount-based: a prefix-cache hit bumps the refcount of each shared
+    page (``ref``); eviction and copy-on-write drop it (``unref``), and the
+    page returns to the free list when the count hits zero. Pure Python —
+    allocation happens on the host between dispatches, never inside one."""
+
+    def __init__(self, total_pages: int):
+        if total_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is the trash page)")
+        self.total_pages = total_pages
+        self.refs = np.zeros(total_pages, dtype=np.int32)
+        self.refs[TRASH_PAGE] = 1   # permanently pinned
+        self._free: List[int] = list(range(total_pages - 1, 0, -1))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.total_pages - 1 - len(self._free)
+
+    def alloc(self, n: int = 1) -> List[int]:
+        """Allocate ``n`` fresh pages (refcount 1). Raises MemoryError when
+        the arena is exhausted — the engine catches this and evicts from the
+        prefix cache before retrying."""
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV arena exhausted: want {n} pages, {len(self._free)} free")
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self.refs[p] = 1
+        return out
+
+    def ref(self, pages) -> None:
+        for p in pages:
+            assert self.refs[p] > 0, f"ref of dead page {p}"
+            self.refs[p] += 1
+
+    def unref(self, pages) -> None:
+        for p in pages:
+            assert p != TRASH_PAGE and self.refs[p] > 0, f"bad unref {p}"
+            self.refs[p] -= 1
+            if self.refs[p] == 0:
+                self._free.append(int(p))
+
+    def check(self) -> None:
+        """Invariant check (tests): every page is either free (ref 0) or
+        referenced, never both; the trash page stays pinned."""
+        free = set(self._free)
+        assert len(free) == len(self._free), "duplicate pages on free list"
+        assert TRASH_PAGE not in free and self.refs[TRASH_PAGE] == 1
+        for p in range(self.total_pages):
+            assert (self.refs[p] == 0) == (p in free), \
+                f"page {p}: refs={self.refs[p]}, free={p in free}"
+
+
+class PrefixCache:
+    """Hash-keyed shared-prefix page cache (LRU).
+
+    Keys are the raw bytes of page-aligned prompt heads: an entry for
+    ``k`` pages maps ``prompt[:k*page_size].tobytes()`` to the k physical
+    page ids holding that prefix's KV. Lookup walks candidate lengths
+    longest-first and returns the first hit; the hit caps at
+    ``align_down(prompt_len - 1, page_size)`` so at least one prompt token
+    always goes through prefill (the engine needs its logits for the first
+    sampled token). Hit pages are ref'd for the requesting slot — mapping
+    is copy-free; the slot only prefills the tail. Prefix KV bits are
+    chunking-independent (rope/projection/quantization are all per-token),
+    so reuse is bit-exact regardless of how the original prompt was
+    chunked."""
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.page_size = page_size
+        self._entries: "OrderedDict[bytes, List[int]]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def lookup(self, prompt: np.ndarray) -> Tuple[int, List[int]]:
+        """Longest page-aligned proper-prefix hit: (n_tokens, page ids),
+        with every returned page ref'd for the caller. (0, []) on miss."""
+        ps = self.page_size
+        for k in range((len(prompt) - 1) // ps, 0, -1):
+            key = np.ascontiguousarray(prompt[:k * ps]).tobytes()
+            pages = self._entries.get(key)
+            if pages is not None:
+                self._entries.move_to_end(key)
+                self.alloc.ref(pages)
+                return k * ps, list(pages)
+        return 0, []
+
+    def insert(self, prompt: np.ndarray, pages: List[int],
+               n_tokens: int) -> int:
+        """Register every page-aligned prefix of a freshly prefilled prompt
+        (``pages`` = the slot's table row, ``n_tokens`` = prompt length).
+        Returns the longest number of tokens now cached — the slot's pages
+        up to that point are shared and must be treated copy-on-write."""
+        ps = self.page_size
+        shared = 0
+        for k in range(1, n_tokens // ps + 1):
+            key = np.ascontiguousarray(prompt[:k * ps]).tobytes()
+            if key in self._entries:
+                self._entries.move_to_end(key)
+            else:
+                entry = list(pages[:k])
+                self.alloc.ref(entry)
+                self._entries[key] = entry
+            shared = k * ps
+        return shared
+
+    def evict_lru(self) -> bool:
+        """Drop the least-recently-used entry, unref'ing its pages. Returns
+        False when the cache is empty (arena pressure is then real — the
+        engine's alloc retry will raise)."""
+        if not self._entries:
+            return False
+        _, pages = self._entries.popitem(last=False)
+        self.alloc.unref(pages)
+        return True
+
+    def clear(self) -> None:
+        while self.evict_lru():
+            pass

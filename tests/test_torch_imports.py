@@ -44,7 +44,8 @@ def test_port_imports_without_jax():
         "import repro_torch\n"
         "import repro_torch.models.lm, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve, repro_torch.weights\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.kv_layout\n"
+        "import repro_torch.serving.state_pool\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
