@@ -2,11 +2,16 @@
 """Quickest proof that the PyTorch port runs on the card: build the CUDA
 kernels, hold each against its plain PyTorch version at the shapes of the
 serving path (the paged ones also bit for bit against their contiguous
-twins on the gathered window), then serve the full-width qwen3-0.6b (random
+twins on the gathered window) and of the train route (the causal flash
+kernel, its backward too), then serve the full-width qwen3-0.6b (random
 weights from a seed, INT8 PTQ) through the continuous-batching engine, with
 a contiguous KV pool and with a paged KV arena and its prefix cache, and
-check every request against serial decode; last, profile a steady decode
-dispatch (where its time goes on the card).
+check every request against serial decode; then run the HQP compression
+path at full width (Fisher pass, conditional pruning, compaction, PTQ)
+through the causal flash kernel, hold the masked model against the
+compacted one, and serve the pruned artifact, contiguous and paged, against
+serial decode; last, profile a steady decode dispatch (where its time goes
+on the card).
 
     python3 chip_smoke.py
 
@@ -42,6 +47,33 @@ ATTN_ATOL, ATTN_RTOL = 3e-2, 3e-2
 # Card vs CPU plain path on the smoke model, f32 logits of magnitude <~ 1:
 # attention differs as above, which can move an int8 activation code by one.
 E2E_ATOL = 5e-2
+# The same on the train route (bf16 hidden states of magnitude <~ 4 after
+# two layers; cuBLAS and the CPU round each bf16 product at their own
+# places, one ulp a layer) and its mean cross-entropy.
+TRAIN_HIDDEN_ATOL, TRAIN_LOSS_RTOL = 6.25e-2, 1e-3
+# Flash kernel: the log-sum-exp is f32 on both sides, summed in another
+# order (|lse| <~ 10); each gradient (bf16, from bf16 p in the kernel's PV
+# against f32 p in the plain version) within 2 % of its largest magnitude.
+LSE_ATOL, GRAD_FRAC = 1e-4, 2e-2
+# Flash output row by row, ||kernel - plain|| / ||plain|| over each (batch,
+# query, head) row: both round to bf16 (2^-9 relative each), the plain
+# version's bf16 p averages out over the row. At long S a causal row is the
+# mean of many v rows (|o| ~ 0.05), where ATTN_ATOL alone would pass a
+# PV-side fault of several percent; this holds every row to 1 %.
+ATTN_ROW_REL = 1e-2
+# Masked vs compacted model, each layer's attention and FFN output fed the
+# same input: cuBLAS sums the products that lose pruned terms (wo, down)
+# over fewer terms in another order, and both round to bf16 (2^-9 relative
+# each). A compaction fault that misaligns a layer's units changes that
+# output wholesale. (The final hidden states compound 28 layers' roundings
+# on random weights: 2.6 % apart on a sound per-layer cut of qwen3-0.6b on
+# an H100, against 36 % with the planted fault.)
+SUBLAYER_REL = 2e-2
+# The launcher's calibration batch and HQP run at full width.
+CALIB_B, CALIB_S, PRUNE_STEPS = 2, 32, 3
+FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8), (1, 2048, 16, 8), (1, 1000, 16, 8),
+                (2, 256, 8, 8))            # (B, S, Hq, Hkv), hd 64
+PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
 
 
 def fail(msg: str) -> None:
@@ -467,10 +499,91 @@ def phase_paged_prefill(dev, report):
               f"{ps}, window {w}")
 
 
+# ------------------------------------------------------------ flash (train)
+def _flash_case(dev, b, s, hq, hkv, hd=64):
+    import torch
+    return [torch.randn(b, s, h, hd, device=dev).to(torch.bfloat16)
+            for h in (hq, hkv, hkv)]
+
+
+def _flash_bound(b, s, hq, hkv, hd=64):
+    """q, k, v, out and lse moved once; 4·hd operations per visible causal
+    (query, key) pair, s(s+1)/2 of them per (batch, head)."""
+    n_bytes = b * s * (2 * hq + 2 * hkv) * hd * 2 + b * hq * s * 4
+    return bound(n_bytes, 4 * hd * b * hq * s * (s + 1) // 2, "bf16")
+
+
+def _sdpa_causal_ms(q, k, v):
+    """scaled_dot_product_attention(is_causal=True) on K/V expanded to Hq
+    heads: the library yardstick of the flash kernel."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True))
+
+
+def phase_flash(dev, report):
+    """The causal flash kernel (B7) against its plain version: output and
+    log-sum-exp at the calibration shape, a long S, a ragged S and G = 1;
+    q read through strides; the backward (autograd through the kernel's
+    Function) against autograd through the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf, ref
+    err = row_rel = 0.0
+    for b, s, hq, hkv in FLASH_SHAPES:
+        what = f"flash B={b} S={s} Hq={hq} Hkv={hkv}"
+        q, k, v = _flash_case(dev, b, s, hq, hkv)
+        out, lse = kf.flash_attention_fwd(q, k, v)
+        want, want_lse = ref.flash_attention_lse_ref(q, k, v)
+        err = max(err, _attn_err(out, want, what))
+        rows = ((out.float() - want.float()).norm(dim=-1)
+                / want.float().norm(dim=-1)).max().item()
+        row_rel = max(row_rel, rows)
+        if not rows <= ATTN_ROW_REL:
+            fail(f"{what}: a row of the output {rows:.4g} off the plain "
+                 f"version's, over {ATTN_ROW_REL}")
+        d = (lse - want_lse).abs().max().item()
+        if not d <= LSE_ATOL:
+            fail(f"{what}: max |lse - plain| = {d:.4g} over {LSE_ATOL}")
+        # q with its heads outermost, read through its strides
+        qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+        _equal(kf.flash_attention_fwd(qs, k, v)[0], out, what + " strided q")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        d_out = torch.randn_like(out)
+        got = torch.autograd.grad(kf.flash_attention(*leaves), leaves, d_out)
+        plain = torch.autograd.grad(ref.flash_attention_ref(*leaves), leaves,
+                                    d_out)
+        torch.cuda.synchronize()
+        for name, g, w in zip("qkv", got, plain):
+            if not torch.isfinite(g.float()).all():
+                fail(f"{what}: non-finite d{name}")
+            e = (g.float() - w.float()).abs().max().item()
+            top = w.float().abs().max().item()
+            if e > GRAD_FRAC * top:
+                fail(f"{what}: d{name} max |kernel - plain| {e:.4g} over "
+                     f"{GRAD_FRAC} x {top:.4g}")
+    timing = {}
+    for b, s, hq, hkv in FLASH_SHAPES[:2]:
+        q, k, v = _flash_case(dev, b, s, hq, hkv)
+        b_ms, by = _flash_bound(b, s, hq, hkv)
+        timing[(b, s)] = dict(
+            ms=time_ms(lambda: kf.flash_attention_fwd(q, k, v)),
+            plain_ms=time_ms(lambda: ref.flash_attention_lse_ref(q, k, v)),
+            bound_ms=b_ms, bound_by=by, library_ms=_sdpa_causal_ms(q, k, v),
+            shape=f"q ({b}, {s}, {hq}, 64) vs k/v ({b}, {s}, {hkv}, 64) bf16")
+    main, long = timing.values()
+    report["flash_attention"] = dict(max_abs_err=err, max_row_rel=row_rel,
+                                     **main, long_s=long)
+
+
 # ------------------------------------------------------------------ serving
 def phase_small_e2e(dev):
     """The smoke model on the card against the same model on the CPU (the
-    plain versions): prefill + 8 decode steps, teacher-forced, INT8 KV."""
+    plain versions): prefill + 8 decode steps, teacher-forced, INT8 KV; and
+    the train route's hidden states and loss on the FP weights."""
     import torch
     from repro_torch import configs
     from repro_torch.compress.quantize import quantize_lm_params
@@ -499,7 +612,23 @@ def phase_small_e2e(dev):
         toks = a[:, -1].argmax(-1)[:, None]
     if err > E2E_ATOL:
         fail(f"smoke model card vs CPU: max |logit diff| {err:.4g}")
-    return err
+    # the train route: the flash kernel on the card, the chunked online
+    # softmax on the CPU, on the FP weights
+    fp = lm.init_params(cfg, seed=0, device="cpu")
+    gpu_fp = to_device(fp, dev)
+    batch = {"tokens": prompt}
+    h_cpu = lm.forward(fp, cfg, batch)
+    h_dev = lm.forward(gpu_fp, cfg, {"tokens": prompt.to(dev)}).cpu()
+    if not torch.isfinite(h_dev.float()).all():
+        fail("smoke model train route: non-finite hidden states")
+    h_err = (h_cpu.float() - h_dev.float()).abs().max().item()
+    loss_cpu = lm.loss_fn(fp, cfg, batch).item()
+    loss_dev = lm.loss_fn(gpu_fp, cfg, {"tokens": prompt.to(dev)}).item()
+    if (h_err > TRAIN_HIDDEN_ATOL
+            or abs(loss_dev - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu)):
+        fail(f"smoke model train route card vs CPU: max |hidden diff| "
+             f"{h_err:.4g}, loss {loss_dev:.6f} vs {loss_cpu:.6f}")
+    return err, h_err, loss_dev, loss_cpu
 
 
 def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
@@ -546,6 +675,167 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     if stray:
         fail(f"{what}: kernels of the other KV layout launched: {stray}")
     return summarize_results(results, wall), eng, launches
+
+
+def _per_layer_ranking(ranked, drops):
+    """A ranking over ``ranked``'s families that drops, in family i, its
+    ``drops(i, spec)`` lowest-S units in the Fisher order of ``ranked``;
+    returns it with its drop count."""
+    import numpy as np
+    from repro_torch.core.pruning import RankedUnits
+    spec_idx, unit_idx = [], []
+    for i, spec in enumerate(ranked.specs):
+        d = drops(i, spec)
+        spec_idx += [i] * d
+        unit_idx += ranked.unit_idx[ranked.spec_idx == i][:d].tolist()
+    n = len(unit_idx)
+    return RankedUnits(ranked.specs, np.asarray(spec_idx),
+                       np.asarray(unit_idx), np.zeros(n, np.float32)), n
+
+
+def _sublayer_rel(cfg, masked, other, batch):
+    """The worst relative difference, ||masked - other|| / ||masked||, of a
+    layer's attention or FFN output between two models, both fed the
+    masked model's input to that layer (the loop of ``lm.forward``). Layer
+    by layer, no layer compounds another's roundings."""
+    import torch
+    from repro_torch.models import attention as A, layers as L
+    tokens = batch["tokens"]
+    x = L.embed_lookup(masked["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    worst = 0.0
+    for pm, po in zip(masked["blocks"], other["blocks"]):
+        h = L.rmsnorm(x, pm["norm1"], cfg.norm_eps, batch_invariant=False)
+        am, ao = (A.attention_forward(p["attn"], cfg, h, positions,
+                                      route=A.TRAIN) for p in (pm, po))
+        x = x + am
+        h = L.rmsnorm(x, pm["norm2"], cfg.norm_eps, batch_invariant=False)
+        fm, fo = (L.mlp(h, p["mlp"], batch_invariant=False)
+                  for p in (pm, po))
+        x = x + fm
+        for m, o in ((am, ao), (fm, fo)):
+            m, o = m.float(), o.float()
+            if not o.isfinite().all():
+                return float("inf")
+            worst = max(worst, ((m - o).norm() / m.norm()).item())
+    return worst
+
+
+def _misalign_ffn(params, layer):
+    """A planted compaction fault: ``layer``'s FFN down rows one unit off
+    from its gate/up columns."""
+    blocks = list(params["blocks"])
+    b = blocks[layer]
+    down = {**b["mlp"]["down"], "w": b["mlp"]["down"]["w"].roll(1, 0)}
+    blocks[layer] = {**b, "mlp": {**b["mlp"], "down": down}}
+    return {**params, "blocks": blocks}
+
+
+def _mask_vs_compact(cfg, masked, compact, batch, what, card):
+    """The masked model and the compacted one compute the same function:
+    the same accuracy on the calibration batch, and each layer's attention
+    and FFN outputs within SUBLAYER_REL of each other. The same check must
+    refuse the compacted model with a planted fault (one layer's FFN down
+    rows misaligned). Returns the accuracy."""
+    from repro_torch.train.train_step import make_eval_step
+    ev = make_eval_step(cfg)
+    acc_masked, acc_compact = float(ev(masked, batch)), float(ev(compact,
+                                                                 batch))
+    rel = _sublayer_rel(cfg, masked, compact, batch)
+    rel_fault = _sublayer_rel(cfg, masked,
+                              _misalign_ffn(compact, cfg.n_layers // 2),
+                              batch)
+    widths = sorted({(b["attn"]["wk"]["w"].shape[1] // cfg.resolved_head_dim,
+                      b["mlp"]["up"]["w"].shape[1])
+                     for b in compact["blocks"]})
+    print(f"[hqp] {what}, mask == compact: accuracy {acc_masked:.4f} "
+          f"(masked) vs {acc_compact:.4f} (compacted); worst layer "
+          f"output |masked - compacted| / |masked| {rel:.4g} (limit "
+          f"{SUBLAYER_REL}), "
+          f"{rel_fault:.4g} with layer {cfg.n_layers // 2}'s FFN down rows "
+          f"misaligned; compacted (kv heads, d_ff) {widths} of "
+          f"({cfg.n_kv_heads}, {cfg.d_ff})  [{card}]")
+    if acc_masked != acc_compact:
+        fail(f"{what}: masked accuracy {acc_masked}, compacted "
+             f"{acc_compact}")
+    if not rel <= SUBLAYER_REL:
+        fail(f"{what}: a compacted layer's output {rel:.4g} off the masked "
+             f"model's, over {SUBLAYER_REL}")
+    if not rel_fault > SUBLAYER_REL:
+        fail(f"{what}: the mask == compact check passes a planted fault "
+             f"({rel_fault:.4g} <= {SUBLAYER_REL})")
+    return acc_masked
+
+
+def phase_compress(cfg, dev, kernels, card):
+    """The launcher's HQP pipeline at full width on the card, from launch
+    counts at 0: a one-batch Fisher pass and PRUNE_STEPS conditional prune
+    steps (each forward through the flash kernel, 28 launches), compaction
+    and PTQ. The masked model and the compacted one must compute the same
+    function (``_mask_vs_compact``).
+
+    On random weights the Fisher ranking drops no unit of the first layers
+    in 15 %, so the uniform keep count leaves every width whole. A second
+    artifact, cut from the same ranking per layer (1-2 KV heads and
+    37 + 3·layer FFN columns each), gives ragged widths: Hkv 7 of 8 and
+    d_ff 3035 of 3072. Returns (the launcher's manifest, its INT8 params,
+    the per-layer cut's INT8 params, the flash kernel's launches)."""
+    import torch
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.core import pruning as pr
+    from repro_torch.launch.serve import _calib_batch, build_artifact
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    art = build_artifact(params, cfg, PRUNE_STEPS, log=print)
+    wall = time.monotonic() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    m, sec = art.manifest, art.seconds
+    print(m.summary())
+    n_forward = 1 + len(sec["evals"])          # the Fisher pass + each eval
+    print(f"[hqp] {cfg.name} full width, random weights (seed 0), batch "
+          f"({CALIB_B}, {CALIB_S}): {wall:.2f} s in all; Fisher "
+          f"{sec['fisher']:.3f} s, evals "
+          f"{', '.join(f'{t:.3f}' for t in sec['evals'])} s (baseline, then "
+          f"one a prune step), compact {sec['compact']:.3f} s, PTQ "
+          f"{sec['ptq']:.3f} s; flash kernel launches "
+          f"{launches['flash_attention']} over {n_forward} forwards, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    if launches["flash_attention"] != cfg.n_layers * n_forward:
+        fail(f"compress: {launches['flash_attention']} flash launches, "
+             f"expected {cfg.n_layers} x {n_forward}")
+    stray = [n for n, c in launches.items()
+             if c and n != "flash_attention"]
+    if stray:
+        fail(f"compress: serving kernels launched on the train route: "
+             f"{stray}")
+    if not m.pruned or not (len(m.history) == PRUNE_STEPS
+                            or not m.history[-1]["accepted"]):
+        fail(f"compress: {len(m.history)} conditional steps, the last "
+             f"accepted, of {PRUNE_STEPS}")
+    batch = _calib_batch(cfg, CALIB_B, CALIB_S, device=dev)
+    res = art.prune
+    acc = _mask_vs_compact(cfg, res.params_sparse, res.params_compact, batch,
+                           "launcher's artifact", card)
+    if acc != m.a_final:
+        fail(f"compress: masked accuracy {acc}, the pipeline's {m.a_final}")
+
+    kv_heads = lambda g: 1 + g % 2
+    ranked, n = _per_layer_ranking(res.ranked, lambda i, spec: (
+        kv_heads(i // 2) if spec.kind == "kv_head" else 37 + 3 * (i // 2)))
+    manifest, deploy = m, art.params
+    del art, res                             # free the FP trees
+    masked = pr.apply_prune_masks(params, ranked, n)
+    compact = pr.compact_params(masked, ranked, n)
+    del params
+    _mask_vs_compact(cfg, masked, compact, batch, "per-layer cut", card)
+    return (manifest, deploy, quantize_lm_params(compact),
+            launches["flash_attention"])
 
 
 def shared_prompt_load(cfg):
@@ -682,8 +972,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from repro_torch.kernels import build
-    from repro_torch.kernels import (decode_attention, int8_matmul,
-                                     prefill_attention, quantize)
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     int8_matmul, prefill_attention, quantize)
     t0 = time.monotonic()
     took = build.build()
     print(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s: "
@@ -693,10 +983,12 @@ def main() -> int:
                "decode_attention": decode_attention.KERNEL,
                "prefill_attention": prefill_attention.KERNEL,
                "paged_decode_attention": decode_attention.PAGED_KERNEL,
-               "paged_prefill_attention": prefill_attention.PAGED_KERNEL}
+               "paged_prefill_attention": prefill_attention.PAGED_KERNEL,
+               "flash_attention": flash_attention.KERNEL}
     report = {}
     for phase in (phase_quantize, phase_int8_matmul, phase_decode,
-                  phase_prefill, phase_paged_decode, phase_paged_prefill):
+                  phase_prefill, phase_paged_decode, phase_paged_prefill,
+                  phase_flash):
         phase(dev, report)
     for name, r in report.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -704,14 +996,22 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}  [{card}]")
-        if "bf16_kv" in r:
-            o = r["bf16_kv"]
-            print(f"[kernel] {name} with bf16 KV: kernel {o['ms']:.4f} ms, "
-                  f"plain {o['plain_ms']:.4f} ms, library "
-                  f"({o.get('library', 'SDPA')}) {o['library_ms']:.4f} ms, "
-                  f"bound {o['bound_ms']:.6f} ms ({o['bound_by']})  [{card}]")
+        if "max_row_rel" in r:
+            print(f"[kernel] {name} output rows over the {len(FLASH_SHAPES)} "
+                  f"checked shapes: max ||kernel - plain|| / ||plain|| "
+                  f"{r['max_row_rel']:.4g} (limit {ATTN_ROW_REL})  [{card}]")
+        for key, label in (("bf16_kv", "with bf16 KV"), ("long_s", "")):
+            if key in r:
+                o = r[key]
+                print(f"[kernel] {name} {label or 'at ' + o['shape']}: "
+                      f"kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} "
+                      f"ms, library ({o.get('library', 'SDPA')}) "
+                      f"{o['library_ms']:.4f} ms, bound {o['bound_ms']:.6f} "
+                      f"ms ({o['bound_by']})  [{card}]")
+    e2e, h_err, loss_dev, loss_cpu = phase_small_e2e(dev)
     print(f"[e2e] smoke model, card vs CPU plain path: max |logit diff| "
-          f"{phase_small_e2e(dev):.4g}")
+          f"{e2e:.4g}; train route max |hidden diff| {h_err:.4g}, loss "
+          f"{loss_dev:.6f} (card) vs {loss_cpu:.6f} (CPU)")
 
     from repro_torch import configs
     from repro_torch.compress.quantize import quantize_lm_params
@@ -789,6 +1089,25 @@ def main() -> int:
           f"{st['pages_peak']}, kv_bytes_peak {st['kv_bytes_peak']} B against "
           f"the contiguous pool's {kv_bytes} B, {cached} pages cached after "
           f"the run, 0 after clearing the cache  [{card}]")
+
+    # the HQP path: compress at full width, then serve the pruned artifact
+    manifest, pruned_params, ragged, main_launches["flash_attention"] = \
+        phase_compress(cfg, dev, kernels, card)
+    pruned_reqs, pruned_arrivals = synth_requests(
+        cfg, PRUNED_REQUESTS, SERVE_PROMPT, PRUNED_NEW)
+    for label, pruned in ((f"HQP artifact (θ={manifest.theta:.1%})",
+                           pruned_params), ("per-layer cut, ragged", ragged)):
+        for page_size, must, must_not in (
+                (None, dense + contiguous, paged),
+                (SERVE_PAGE, dense + paged, contiguous)):
+            summary, eng, launches = serve_once(
+                pruned, cfg, dev, kernels, pruned_reqs, must, must_not,
+                arrivals_s=pruned_arrivals, quantized_kv=True,
+                page_size=page_size)
+            line(summary, eng, launches, f"pruned {label}, kv=int8"
+                 + (f" page={page_size}" if page_size else " contiguous"))
+    del pruned_params, ragged
+
     for layout, prof in phase_profile(params, cfg, dev, kernels).items():
         print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots, "
               f"{layout}: {json.dumps(prof)}  [{card}]")
@@ -798,7 +1117,8 @@ def main() -> int:
                 "decode_attention": "decode_attention.py:109",
                 "prefill_attention": "prefill_attention.py:122",
                 "paged_decode_attention": "decode_attention.py:155",
-                "paged_prefill_attention": "prefill_attention.py:180"}
+                "paged_prefill_attention": "prefill_attention.py:180",
+                "flash_attention": "flash_attention.py:64"}
     entries = []
     for name, r in report.items():
         entries.append({
@@ -809,7 +1129,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **({"bf16_kv": r["bf16_kv"]} if "bf16_kv" in r else {})})
+            **{k: r[k] for k in ("bf16_kv", "long_s") if k in r}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

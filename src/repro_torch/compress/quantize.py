@@ -1,13 +1,12 @@
-"""Symmetric INT8 post-training quantization of the LM's linears.
-
-Fisher sensitivity and structural pruning are not ported yet; artifacts
-pruned by the JAX package load through ``repro_torch.weights``."""
+"""Symmetric INT8 post-training quantization of the LM's linears, and the
+byte accounting of the HQP manifest."""
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.compress.qtypes import QuantizedLinear
 from repro_torch.kernels.ref import ieee_div
 
@@ -61,3 +60,19 @@ def quantize_lm_params(params: Any, bits: int = 8,
                               for i, v in enumerate(tree))
         return tree
     return walk(params)
+
+
+# ------------------------------------------------------------------ accounting
+def quantized_fraction(params: Any) -> float:
+    """Fraction of parameter *bytes* held in int8."""
+    int8 = total = 0
+    for leaf in tree.leaves(params):
+        b = leaf.numel() * leaf.element_size()
+        total += b
+        if leaf.dtype == torch.int8:
+            int8 += b
+    return int8 / max(total, 1)
+
+
+def model_bytes(params: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.leaves(params))

@@ -23,6 +23,7 @@ class ModelConfig:
     use_bias: bool = False
     norm_eps: float = 1e-5
     block_pattern: Tuple[str, ...] = ()   # () -> all "attn"
+    attn_chunk_kv: int = 1024   # KV chunk of the train route's CPU flash
     max_seq_len: int = 32_768
 
     @property

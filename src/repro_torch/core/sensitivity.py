@@ -1,0 +1,185 @@
+"""Structure sensitivity from the diagonal Fisher approximation (§II-B).
+
+    S_g = (1/|D_calib|) Σ_i || ∂L(W, x_i, y_i)/∂W_g ||²
+
+One backward pass per calibration batch accumulates squared gradients (the
+diagonal FIM estimate); a structural unit's sensitivity is the sum of that
+diagonal over the unit's parameter slices. The LM's units are the KV heads
+(with their query heads) and the FFN columns of every layer.
+
+Member encoding
+---------------
+A *member* is (path, axis, block, offset): the leaf at ``path`` holds
+``size`` units along ``axis``, unit ``u`` occupying rows/cols
+``[offset + u*block, offset + (u+1)*block)``. The JAX package addresses
+layer ``g`` of its stacked layout as ``("__stack__", g, "blocks", 0, ...)``;
+the port's ``blocks`` is a list of per-layer dicts, so the same member is
+``("blocks", g, ...)``, with the same axes (those of one layer's leaf).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterable, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+Member = Tuple[Tuple, int, int, int]     # (path, axis, block, offset)
+
+
+# ------------------------------------------------------------------ FIM diag
+def fisher_diag(grad_fn: Callable[[Any, Any], Any], params: Any,
+                calib_batches: Iterable[Any]) -> Tuple[Any, int]:
+    """E[g²] over the calibration set, f32. ``grad_fn(params, batch)`` ->
+    a gradient tree shaped like ``params``."""
+    acc = None
+    n = 0
+    for batch in calib_batches:
+        sq = tree.map_(lambda t: t.float().square(), grad_fn(params, batch))
+        acc = sq if acc is None else tree.map_(torch.add, acc, sq)
+        n += 1
+    if n == 0:
+        raise ValueError("empty calibration set")
+    return tree.map_(lambda t: t / n, acc), n
+
+
+def loss_grad_fn(loss: Callable[[Any, Any], torch.Tensor]
+                 ) -> Callable[[Any, Any], Any]:
+    """``grad_fn`` for ``fisher_diag``: the gradient of the scalar
+    ``loss(params, batch)`` with respect to every leaf of ``params``, by
+    ``torch.autograd.grad``. The params are not modified, and the autograd
+    graph is freed when the gradients are returned."""
+    def grad_fn(params, batch):
+        leaves = tree.leaves(params)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        it = iter(live)
+        with torch.enable_grad():
+            value = loss(tree.map_(lambda _: next(it), params), batch)
+            grads = torch.autograd.grad(value, live)
+        it = iter(grads)
+        return tree.map_(lambda _: next(it), params)
+    return grad_fn
+
+
+# ------------------------------------------------------------------ groups
+@dataclasses.dataclass
+class GroupSpec:
+    name: str
+    members_grad: List[Member]   # leaves contributing to S
+    members_all: List[Member]    # every leaf to zero/remove on pruning
+    size: int                    # number of units (channels/heads/experts)
+    kind: str = "channel"
+
+
+def m(path, axis, block=1, offset=0) -> Member:
+    return (tuple(path), axis, block, offset)
+
+
+def _get(params, path):
+    for p in path:
+        params = params[p]
+    return params
+
+
+def _set(params, path, value):
+    """A copy of ``params`` with the leaf at ``path`` replaced: the dicts
+    and lists along the path are copied, every other node is shared."""
+    key = path[0]
+    sub = value if len(path) == 1 else _set(params[key], path[1:], value)
+    if isinstance(params, (list, tuple)):
+        out = list(params)
+        out[key] = sub
+        return type(params)(out)
+    return {**params, key: sub}
+
+
+def group_sensitivity(sq_grads: Any, spec: GroupSpec) -> torch.Tensor:
+    """S per unit (size,) f32: the sum of E[g²] over each unit's slices
+    across the members. Summed in f64, so the result is the correctly
+    rounded f32 of the sum whatever the device."""
+    s = None
+    for path, axis, block, offset in spec.members_grad:
+        leaf = torch.movedim(_get(sq_grads, path), axis, 0)
+        sl = leaf[offset:offset + spec.size * block]
+        part = sl.double().reshape(spec.size, -1).sum(-1)
+        s = part if s is None else s + part
+    return s.float()
+
+
+def _axis_mask(keep: torch.Tensor, length: int, block: int,
+               offset: int) -> torch.Tensor:
+    vec = torch.ones((length,), dtype=torch.float32, device=keep.device)
+    vec[offset:offset + keep.numel() * block] = torch.repeat_interleave(
+        keep.float(), block)
+    return vec
+
+
+def mask_group(params: Any, spec: GroupSpec, drop: torch.Tensor) -> Any:
+    """Zero the units selected by boolean ``drop`` (size,). Shape-preserving;
+    ``params`` is not modified."""
+    keep = ~drop
+    for path, axis, block, offset in spec.members_all:
+        leaf = _get(params, path)
+        vec = _axis_mask(keep.to(leaf.device), leaf.shape[axis], block,
+                         offset)
+        shape = [1] * leaf.ndim
+        shape[axis] = leaf.shape[axis]
+        params = _set(params, path,
+                      leaf * vec.reshape(shape).to(leaf.dtype))
+    return params
+
+
+def compact_group(params: Any, spec: GroupSpec,
+                  keep_units: np.ndarray) -> Any:
+    """Physically remove the units not in ``keep_units`` (the deployment
+    artifact). Members sharing a (leaf, axis) are compacted in ONE gather,
+    since removing the first member's slices would shift the second
+    member's offsets."""
+    by_leaf = {}
+    for path, axis, block, offset in spec.members_all:
+        by_leaf.setdefault((tuple(path), axis), []).append((block, offset))
+    drop_units = np.setdiff1d(np.arange(spec.size), keep_units)
+    for (path, axis), members in by_leaf.items():
+        leaf = _get(params, path)
+        keep_mask = np.ones(leaf.shape[axis], bool)
+        for block, offset in members:
+            idx = (offset + drop_units[:, None] * block
+                   + np.arange(block)[None, :]).reshape(-1)
+            keep_mask[idx] = False
+        index = torch.as_tensor(np.nonzero(keep_mask)[0], device=leaf.device)
+        params = _set(params, path,
+                      torch.index_select(leaf, axis, index).contiguous())
+    return params
+
+
+# ------------------------------------------------------------------ LM specs
+def lm_prune_groups(cfg) -> List[GroupSpec]:
+    """Structural families of the dense LM, one per (layer, kind), in the
+    JAX package's order, names and sizes: ``L{i}/kv_heads`` (a KV head with
+    its G query heads: blocks of G·hd columns of wq and rows of wo, hd
+    columns of wk and wv) and ``L{i}/ffn`` (one column of gate and up, one
+    row of down). Masks are per layer, so the conditional loop can give the
+    paper's non-uniform layer-wise sparsity."""
+    if any(kind != "attn" for kind in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: only the all-attn pattern is ported so far")
+    hd = cfg.resolved_head_dim
+    g_ratio = cfg.n_heads // cfg.n_kv_heads
+    out: List[GroupSpec] = []
+    for g in range(cfg.n_layers):
+        st = ("blocks", g)
+        mm = [m(st + ("attn", "wq", "w"), 1, g_ratio * hd),
+              m(st + ("attn", "wk", "w"), 1, hd),
+              m(st + ("attn", "wv", "w"), 1, hd),
+              m(st + ("attn", "wo", "w"), 0, g_ratio * hd)]
+        out.append(GroupSpec(f"L{g}/kv_heads", mm, list(mm),
+                             cfg.n_kv_heads, kind="kv_head"))
+        if cfg.d_ff > 0:
+            mm = [m(st + ("mlp", "gate", "w"), 1),
+                  m(st + ("mlp", "up", "w"), 1),
+                  m(st + ("mlp", "down", "w"), 0)]
+            out.append(GroupSpec(f"L{g}/ffn", mm, list(mm), cfg.d_ff,
+                                 kind="ffn_col"))
+    return out

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels.decode_attention import (
     decode_attention as _decode_attention,
     paged_decode_attention as _paged_decode_attention)
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_attention)
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.kv_layout import window_pages
 from repro_torch.kernels.prefill_attention import (
@@ -43,6 +45,14 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         x_q, x_scale = x2, x_scale.reshape(-1).contiguous()
     out = _int8_matmul(x_q, w_q, x_scale, w_scale)
     return out.reshape(*shp[:-1], w_q.shape[1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Causal attention of the train route, differentiable: q (B, S, Hq,
+    hd) against k, v (B, S, Hkv, hd), Hq a multiple of Hkv -> (B, S, Hq,
+    hd); query i sees positions <= i."""
+    return _flash_attention(q, k, v)
 
 
 # ------------------------------------------------------------- KV-cache attn

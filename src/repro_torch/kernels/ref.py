@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path and of the
+train route's causal flash attention.
 
 They keep the staging of the JAX package's xla oracles: q scaled in f32 then
 rounded to bf16; scores in f32 with ``k_s`` applied to the scores; the mask
@@ -48,6 +49,42 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     int32 -> f32 conversion of the reference."""
     acc = (x_q.double() @ w_q.double()).float()
     return ((acc * x_scale[:, None]) * w_scale[None, :]).to(torch.bfloat16)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialized-scores attention: q (B, Sq, Hq, hd), k and v (B, Skv,
+    Hkv, hd) with Hq a multiple of Hkv (query head h reads kv head h // G).
+    Returns (out (B, Sq, Hq, hd) in q's dtype, f32 log-sum-exp (B, Hq, Sq)
+    of the scaled, masked scores).
+
+    Causality is absolute: query i sits at position ``q_offset + i`` and
+    sees ``kv_pos <= q_offset + i``. Scores, softmax and PV are f32, as in
+    the JAX package's ``flash_attention_ref``."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * hd ** -0.5
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        mask = torch.arange(skv, device=q.device)[None, :] <= q_pos[:, None]
+        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
+                       v.float())
+    return (out.reshape(b, sq, hq, hd).to(q.dtype),
+            lse.reshape(b, hq, sq))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """The output of ``flash_attention_lse_ref``: the plain version of the
+    causal flash kernel (B7), and the oracle of the model's chunked
+    flash."""
+    return flash_attention_lse_ref(q, k, v, causal, q_offset)[0]
 
 
 def cached_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

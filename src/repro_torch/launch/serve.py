@@ -1,14 +1,16 @@
-"""Serving launcher: a fresh or PTQ-quantized model, or a saved artifact,
-through the lockstep loop or the continuous-batching engine.
+"""Serving launcher: a fresh model, an HQP artifact built here, or a saved
+artifact, through the lockstep loop or the continuous-batching engine.
 
-  python -m repro_torch.launch.serve --smoke --device cpu --engine --verify
+  python -m repro_torch.launch.serve --smoke --device cpu --engine --hqp
   python -m repro_torch.launch.serve --engine --hqp --verify   # on the card
   python -m repro_torch.launch.serve --engine --hqp --page-size 16  # paged KV
 
-``--hqp`` here is post-training INT8 quantization of the linears plus the
-INT8 KV cache (``--prune-steps 0``); Fisher-guided pruning is ROADMAP A7.
-``--load-artifact`` serves an artifact the JAX package saved (pruned ones
-included) with the INT8 KV cache."""
+``--hqp`` runs the whole HQP pipeline on the fresh model: a one-batch
+Fisher pass (autograd through the train route), ``--prune-steps`` steps of
+conditional pruning judged by next-token accuracy on the same batch,
+compaction, INT8 PTQ of the linears; it prints the manifest and serves the
+artifact with the INT8 KV cache. ``--load-artifact`` serves an artifact the
+JAX package saved (pruned ones included) with the INT8 KV cache."""
 from __future__ import annotations
 
 import argparse
@@ -17,12 +19,15 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
-from repro_torch.compress.quantize import quantize_lm_params
+from repro_torch import configs, resolve_device, tree
+from repro_torch.compress.artifact import HQPArtifact, compress
+from repro_torch.core.pipeline import HQPConfig
+from repro_torch.core.sensitivity import fisher_diag, loss_grad_fn
 from repro_torch.models import lm
 from repro_torch.serving import (Engine, Request, SchedulerConfig,
                                  serial_decode, summarize_results)
 from repro_torch.serving import sampling as smp
+from repro_torch.train.train_step import make_eval_step
 from repro_torch.weights import load_artifact
 
 N_REQUESTS = 4
@@ -39,9 +44,50 @@ def synth_requests(cfg, n: int, prompt_len: int, max_new_tokens: int,
     return reqs, [i * gap_s for i in range(n)]
 
 
+def _calib_batch(cfg, batch: int, seq: int, device, seed: int = 17) -> dict:
+    rng = np.random.RandomState(seed)
+    return {"tokens": torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (batch, seq)), dtype=torch.long,
+        device=device)}
+
+
+def build_artifact(params, cfg, prune_steps: int,
+                   log=print) -> HQPArtifact:
+    """HQP artifact for serving, as the JAX package's launcher builds it: a
+    one-batch Fisher pass and a next-token-accuracy eval on the same batch
+    drive the conditional prune (δ = 5 % of the units a step, at most
+    ``prune_steps`` steps), then compaction and PTQ. The artifact's
+    ``seconds`` hold each stage's time: "fisher", "evals" (the baseline,
+    then one per prune step), "compact", "ptq"."""
+    device = tree.leaves(params)[0].device
+    batch = _calib_batch(cfg, batch=2, seq=32, device=device)
+    t0 = time.time()
+    sq, _ = fisher_diag(loss_grad_fn(lambda p, b: lm.loss_fn(p, cfg, b)),
+                        params, [batch])
+    tree.synchronize(sq)
+    fisher_s = time.time() - t0
+    eval_step = make_eval_step(cfg)
+    evals = []
+
+    def eval_fn(p):
+        t0 = time.time()
+        acc = float(eval_step(p, batch))
+        evals.append(time.time() - t0)
+        return acc
+
+    hqp = HQPConfig(step_frac=0.05, max_steps=prune_steps)
+    art = compress(params, cfg, sq_grads=sq, eval_fn=eval_fn, hqp=hqp,
+                   log=log)
+    art.seconds.update(fisher=fisher_s, evals=evals)
+    log(f"[hqp] stage seconds: Fisher {fisher_s:.2f}, evals "
+        f"{' '.join(f'{t:.2f}' for t in evals)}, compact "
+        f"{art.seconds['compact']:.2f}, PTQ {art.seconds['ptq']:.2f}")
+    return art
+
+
 def acquire_params(args, cfg, device, log=print):
-    """(params, quantized_kv): a loaded artifact, a PTQ'd fresh init
-    (``--hqp``), or a fresh bf16 init."""
+    """(params, quantized_kv): a loaded artifact, an HQP artifact built from
+    a fresh init (``--hqp``), or a fresh bf16 init."""
     if args.load_artifact:
         params, manifest = load_artifact(args.load_artifact, device=device)
         if manifest["arch"] != cfg.name:
@@ -53,14 +99,9 @@ def acquire_params(args, cfg, device, log=print):
         return params, True
     params = lm.init_params(cfg, seed=0, device=device)
     if args.hqp:
-        if args.prune_steps:
-            raise NotImplementedError(
-                "--prune-steps > 0 needs Fisher sensitivity and conditional "
-                "pruning, not ported yet (ROADMAP A7); use --prune-steps 0 "
-                "or serve an artifact built by the JAX package")
-        params = quantize_lm_params(params)
-        log("[serve] PTQ: INT8 linears, INT8 KV cache")
-        return params, True
+        art = build_artifact(params, cfg, args.prune_steps, log=log)
+        log(art.manifest.summary())
+        return art.params, True
     return params, False
 
 
@@ -144,9 +185,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--hqp", action="store_true",
-                    help="INT8 PTQ of the linears + INT8 KV cache")
-    ap.add_argument("--prune-steps", type=int, default=0,
-                    help="only 0 is supported (pruning is ROADMAP A7)")
+                    help="HQP: Fisher pass, conditional pruning, "
+                         "compaction, INT8 PTQ; INT8 KV cache")
+    ap.add_argument("--prune-steps", type=int, default=3,
+                    help="at most this many conditional prune steps of 5 %% "
+                         "of the units each (--hqp)")
     ap.add_argument("--load-artifact", default=None,
                     help="serve an artifact saved by the JAX package")
     ap.add_argument("--max-seq", type=int, default=128)

@@ -13,7 +13,12 @@ thread split, and so their summation order, from the number of rows, and
 cuBLAS may pick another algorithm for another M. So the norms sum squares
 with ``row_sum`` (a fixed pairwise tree of elementwise adds), and the bf16
 products (``unembed`` and the FP ``dense``) go through ``matmul_rows``, one
-row at a time."""
+row at a time.
+
+The train route (``lm.forward``, ``lm.loss_fn``) has no such contract, and
+autograd through ``matmul_rows`` would cost a launch per row per projection
+in both directions, so it passes ``batch_invariant=False``: one
+``torch.matmul`` per product and a plain sum in the norms."""
 from __future__ import annotations
 
 import torch
@@ -73,26 +78,38 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            batch_invariant: bool) -> torch.Tensor:
+    return matmul_rows(x, w) if batch_invariant else x @ w
+
+
+def _sum_last(x: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
+    return row_sum(x) if batch_invariant else x.sum(-1, keepdim=True)
+
+
 # ---------------------------------------------------------------- dense
-def dense(x: torch.Tensor, p) -> torch.Tensor:
+def dense(x: torch.Tensor, p, batch_invariant: bool = True) -> torch.Tensor:
     """FP weight dict, or a ``QuantizedLinear`` (W8A8: the activations are
     quantized per row and the dequant runs in the matmul epilogue)."""
     if isinstance(p, QuantizedLinear):
         return ops.int8_matmul(x, p.w_q, p.scale)
-    return matmul_rows(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE))
+    return _matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE),
+                   batch_invariant)
 
 
 # ---------------------------------------------------------------- norms
-def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5,
+            batch_invariant: bool = True) -> torch.Tensor:
     xf = x.float()
-    var = row_sum(xf * xf) / xf.shape[-1]
+    var = _sum_last(xf * xf, batch_invariant) / xf.shape[-1]
     return (xf * torch.rsqrt(var + eps) * p["g"]).to(COMPUTE_DTYPE)
 
 
-def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def l2norm(x: torch.Tensor, eps: float = 1e-6,
+           batch_invariant: bool = True) -> torch.Tensor:
     """Per-head qk-norm (qwen3 style), no learned scale."""
     xf = x.float()
-    var = row_sum(xf * xf) / xf.shape[-1]
+    var = _sum_last(xf * xf, batch_invariant) / xf.shape[-1]
     return (xf * torch.rsqrt(var + eps)).to(COMPUTE_DTYPE)
 
 
@@ -121,10 +138,11 @@ def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens].to(COMPUTE_DTYPE)
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+def unembed(p: dict, x: torch.Tensor,
+            batch_invariant: bool = True) -> torch.Tensor:
     """Logits in f32 (from the bf16 product, as the reference)."""
-    return matmul_rows(x.to(COMPUTE_DTYPE),
-                       p["table"].to(COMPUTE_DTYPE).t()).float()
+    return _matmul(x.to(COMPUTE_DTYPE), p["table"].to(COMPUTE_DTYPE).t(),
+                   batch_invariant).float()
 
 
 # ---------------------------------------------------------------- MLP (SwiGLU)
@@ -134,9 +152,11 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
             "down": linear_init(gen, d_ff, d_model)}
 
 
-def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: dict, batch_invariant: bool = True
+        ) -> torch.Tensor:
     """SwiGLU in bf16: silu(a) = a * (1 / (1 + exp(-a))), rounded to bf16
     after every op, as the reference's compiled program computes it."""
-    a = dense(x, p["gate"])
+    a = dense(x, p["gate"], batch_invariant)
     silu = a * (1.0 / (1.0 + torch.exp(-a)))
-    return dense(silu * dense(x, p["up"]), p["down"])
+    return dense(silu * dense(x, p["up"], batch_invariant), p["down"],
+                 batch_invariant)

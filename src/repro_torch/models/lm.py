@@ -3,7 +3,12 @@
 Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
 "final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
 JAX package stacks the layers and scans them; here ``blocks`` is a list and
-the forward pass is a Python loop over it."""
+the forward pass is a Python loop over it.
+
+Two kinds of pass: ``forward`` / ``loss_fn`` run the whole sequence on the
+train route (no cache, differentiable: the HQP Fisher pass and the prune
+evaluations), ``decode_step`` runs prefill chunks and decode steps against
+the KV cache (serving)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -62,13 +67,57 @@ def unembed_params(params: dict, cfg) -> dict:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
-def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    logits = L.unembed(unembed_params(params, cfg), hidden)
+def logits_fn(params: dict, cfg, hidden: torch.Tensor,
+              batch_invariant: bool = True) -> torch.Tensor:
+    """f32 logits over the padded vocab, the padding masked to -1e30."""
+    logits = L.unembed(unembed_params(params, cfg), hidden, batch_invariant)
     v_pad = logits.shape[-1]
     if v_pad == cfg.vocab_size:
         return logits
     mask = torch.arange(v_pad, device=logits.device) < cfg.vocab_size
     return torch.where(mask, logits, torch.tensor(-1e30, device=logits.device))
+
+
+# ------------------------------------------------------------------ train
+def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
+    train route: every layer attends its own fresh K/V causally. The dense
+    family has no auxiliary losses and no frontend, so unlike the JAX
+    package's ``forward`` this returns the hidden states alone."""
+    _check_pattern(cfg)
+    tokens = batch["tokens"]
+    x = L.embed_lookup(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for p in params["blocks"]:
+        h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, batch_invariant=False)
+        x = x + A.attention_forward(p["attn"], cfg, h, positions,
+                                    route=A.TRAIN)
+        h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, batch_invariant=False)
+        x = x + L.mlp(h, p["mlp"], batch_invariant=False)
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
+                     batch_invariant=False)
+
+
+def loss_fn(params: dict, cfg, batch: dict,
+            ce_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy: hidden position i predicts token
+    i + 1. The sequence is cut into chunks of ``ce_chunk`` positions, so the
+    (B, S, V) logits are never whole (peak (B, ce_chunk, V)); the padded
+    vocab is masked."""
+    hidden = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    b, st = tokens.shape
+    h, targets = hidden[:, :st - 1], tokens[:, 1:]
+    n_tok = h.shape[1]
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, n_tok, ce_chunk):
+        lg = logits_fn(params, cfg, h[:, c0:c0 + ce_chunk],
+                       batch_invariant=False)
+        gold = torch.gather(lg, -1,
+                            targets[:, c0:c0 + ce_chunk, None].long())
+        total = total + (torch.logsumexp(lg, -1) - gold[..., 0]).sum()
+    return total / (b * n_tok)
 
 
 # ------------------------------------------------------------------ decode

@@ -173,8 +173,11 @@ def test_serve_cli_engine_verifies_on_cpu(capsys):
     stats = serve.main(["--smoke", "--device", "cpu", "--engine", "--hqp",
                         "--tokens", "6", "--prompt-len", "9",
                         "--max-seq", "32"])
+    out = capsys.readouterr().out
     assert stats["n_requests"] == 4
-    assert "token-identical to serial decode" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve.main(["--smoke", "--device", "cpu", "--hqp",
-                    "--prune-steps", "2"])
+    assert "token-identical to serial decode" in out
+    # --hqp runs the whole pipeline, 3 conditional prune steps by default
+    assert "over 3 conditional steps" in out
+    serve.main(["--smoke", "--device", "cpu", "--hqp", "--prune-steps", "2",
+                "--tokens", "4", "--prompt-len", "9", "--max-seq", "32"])
+    assert "over 2 conditional steps" in capsys.readouterr().out
