@@ -18,7 +18,11 @@ on the card).
 Needs one CUDA card and ``nvcc``; exits nonzero on any failure, and when
 there is no card or no ``src/repro_torch`` beside this file. The last line
 of standard output is ``{"ok": true, "device": {...}}``; the line before it
-is the ``kernels`` JSON (times, bounds, launches on the serving run).
+is the ``kernels`` JSON (times, bounds, launches on the serving run). A
+kernel's ``ms`` is its device time per launch, free of host overhead: CUDA
+events around replays of a CUDA graph that captured a run of its wrapper's
+launches (``device_ms``); ``plain_ms`` and ``library_ms`` are timed the
+same way, and ``wrapper_ms`` is the host-issued rate of the wrapper.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ SERVE_PAGE = 16             # page size of the paged serve phase
 SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
 PAGE_SIZES = (16, 32, 48, 256)  # paged kernel checks
 PROFILE_TICKS = 10          # decode dispatches timed in the profile phase
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 10   # device timing: calls a graph, replays
 
 # Attention tolerance, |kernel - plain| <= ATOL + RTOL * |plain|: the plain
 # version rounds p to bf16 before PV (relative error <= 2^-9 per term), the
@@ -71,9 +76,15 @@ ATTN_ROW_REL = 1e-2
 SUBLAYER_REL = 2e-2
 # The launcher's calibration batch and HQP run at full width.
 CALIB_B, CALIB_S, PRUNE_STEPS = 2, 32, 3
-FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8), (1, 2048, 16, 8), (1, 1000, 16, 8),
-                (2, 256, 8, 8))            # (B, S, Hq, Hkv), hd 64
+FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
+                (1, 1000, 16, 8, 64), (2, 256, 8, 8, 64),
+                (2, 256, 16, 8, 128))      # (B, S, Hq, Hkv, hd)
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
+# B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
+# gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
+GEMM_M = (1, 4, 13, 16, 17, 64)
+GEMM_KN = ((1024, 512), (1024, 1024), (1024, 3072), (3072, 1024),
+           (3035, 1024), (1024, 3035), (1024, 448))
 
 
 def fail(msg: str) -> None:
@@ -81,7 +92,51 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def device_ms(fn, calls: int = GRAPH_CALLS) -> float:
+    """Device time per call, free of host overhead: CUDA events around
+    GRAPH_REPLAYS replays of a CUDA graph that captured ``calls`` calls of
+    ``fn`` (each a wrapper's launch on the current stream, or a plain
+    version's or a library call's kernels). ``fn`` runs three times on a side
+    stream first (kernel builds, workspaces, shared-memory attributes,
+    allocator pools), as capture requires."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (GRAPH_REPLAYS * calls)
+
+
+def timed(kernel, plain, library=None, calls: int = GRAPH_CALLS) -> dict:
+    """A kernel's device time (``ms``), its wrapper's time on the host's
+    launch rate (``wrapper_ms``), and the device times of its plain version
+    and of the library call, all from ``device_ms`` but the wrapper's."""
+    return dict(ms=device_ms(kernel, calls), wrapper_ms=time_ms(kernel),
+                plain_ms=device_ms(plain, calls),
+                library_ms=None if library is None
+                else device_ms(library, calls))
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """CUDA events around ``iters`` back-to-back calls from the host: for a
+    wrapper, the rate at which the host issues it (checks, allocation,
+    ctypes), which hides a kernel of a few microseconds."""
     import torch
     for _ in range(warmup):
         fn()
@@ -120,48 +175,85 @@ def phase_quantize(dev, report):
                       (s - sr).abs().max().item())
     m, k = SERVE_SLOTS, 1024
     x = torch.randn(m, k, device=dev).to(torch.bfloat16)
-    ms = time_ms(lambda: kq.quantize_rowwise(x))
-    plain = time_ms(lambda: ref.quantize_ref(x))
     b, by = bound(m * k * 3 + m * 4, 0, "bf16")
     report["quantize_rowwise"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=f"x ({m}, {k}) bf16")
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        **timed(lambda: kq.quantize_rowwise(x), lambda: ref.quantize_ref(x)),
+        shape=f"x ({m}, {k}) bf16")
+
+
+def _gemm_bound(m, k, n):
+    return bound(m * k + k * n + (m + n) * 4 + m * n * 2, 2 * m * n * k,
+                 "int8")
 
 
 def phase_int8_matmul(dev, report):
+    """B1 bit for bit against its plain version at every M the serving path
+    and the tiling meet (1 and 4 slots, 13, one 16-row tile, past it, four
+    tiles) on the model's four (K, N), the ragged ones of a per-layer cut
+    (d_ff 3,035, 7 kv heads) and two N that take the 8- and 4-byte copies:
+    every copy width and a range of split-K factors. The split-K workspace
+    must be zero again after them. Then the device time of each decode
+    shape, weights rotated through > 50 MB so that, as in a decode step,
+    each launch reads its weight from device memory."""
     import torch
     from repro_torch.kernels import int8_matmul as km, ref
     gen = lambda *shape: torch.randint(-127, 128, shape, device=dev,
                                        dtype=torch.int8)
     err = 0.0
-    for m in (1, 4, 13, 16):
-        for k, n in ((1024, 1024), (1024, 512), (1024, 3072), (3072, 1024)):
-            xq, wq = gen(m, k), gen(k, n)
-            xs = torch.rand(m, device=dev) * 0.05 + 1e-3
-            ws = torch.rand(n, device=dev) * 0.05 + 1e-3
-            out = km.int8_matmul(xq, wq, xs, ws)
-            want = ref.int8_matmul_ref(xq, wq, xs, ws)
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                fail(f"int8_matmul M={m} K={k} N={n} differs from plain")
-            err = max(err, (out.float() - want.float()).abs().max().item())
-    # decode's gate/up shape; weights rotate through > 50 MB so that, as in
-    # a decode step, each call reads its weight from device memory
-    m, k, n = SERVE_SLOTS, 1024, 3072
-    xq = gen(m, k)
-    xs = torch.rand(m, device=dev) * 0.05
-    ws = torch.rand(n, device=dev) * 0.05
-    weights = [gen(k, n) for _ in range(24)]
-    it = iter(range(10 ** 9))
-    ms = time_ms(lambda: km.int8_matmul(xq, weights[next(it) % 24], xs, ws))
-    plain = time_ms(lambda: ref.int8_matmul_ref(xq, weights[next(it) % 24],
-                                                xs, ws))
-    b, by = bound(m * k + k * n + (m + n) * 4 + m * n * 2, 2 * m * n * k,
-                  "int8")
+    seen = set()
+    shapes = [(m, k, n) for m in GEMM_M for k, n in GEMM_KN]
+    shapes += [(m, 1024, n) for m in (4, 16) for n in (1000, 1012)]
+    for m, k, n in shapes:
+        xq, wq = gen(m, k), gen(k, n)
+        xs = torch.rand(m, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, device=dev) * 0.05 + 1e-3
+        plan = km.gemm_plan(m, n, k, wq.data_ptr(), xq.data_ptr())
+        seen.add((plan.vec, plan.x_vec, plan.split))
+        out = km.int8_matmul(xq, wq, xs, ws)
+        want = ref.int8_matmul_ref(xq, wq, xs, ws)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail(f"int8_matmul M={m} K={k} N={n} ({plan}) differs from "
+                 f"plain")
+        err = max(err, (out.float() - want.float()).abs().max().item())
+    widths = {v for v, _, _ in seen}
+    if widths != {16, 8, 4, 1} or {xv for _, xv, _ in seen} != {4, 1}:
+        fail(f"int8_matmul: copy widths checked {sorted(widths)}")
+    ws_left = sum(w.abs().sum().item() for w in km.workspaces(dev))
+    if ws_left:
+        fail(f"int8_matmul: split-K workspace not reset ({ws_left})")
+    splits = sorted({sp for _, _, sp in seen})
+    print(f"[kernel] int8_matmul bit-identical at {len(shapes)} shapes: copy "
+          f"widths {sorted(widths)}, split-K factors {splits}")
+
+    def rotating(m, k, n):
+        xq = gen(m, k)
+        xs = torch.rand(m, device=dev) * 0.05
+        ws = torch.rand(n, device=dev) * 0.05
+        weights = [gen(k, n) for _ in range(max(2, -(-60_000_000 // (k * n))))]
+        it = iter(range(10 ** 9))
+        pick = lambda: weights[next(it) % len(weights)]
+        return (lambda: km.int8_matmul(xq, pick(), xs, ws),
+                lambda: ref.int8_matmul_ref(xq, pick(), xs, ws),
+                len(weights))
+
+    per_shape = {}
+    for m in (SERVE_SLOTS, SERVE_CHUNK):
+        for k, n in GEMM_KN[:4]:
+            kern, _, calls = rotating(m, k, n)
+            b, by = _gemm_bound(m, k, n)
+            per_shape[f"({m}, {k}) x ({k}, {n})"] = dict(
+                ms=device_ms(kern, calls), bound_ms=b, bound_by=by,
+                plan=str(km.gemm_plan(m, n, k)))
+    m, k, n = SERVE_SLOTS, 1024, 3072            # decode's gate/up shape
+    kern, plain, calls = rotating(m, k, n)
+    b, by = _gemm_bound(m, k, n)
     # torch._int_mm needs M > 16: no library call at decode's M
     report["int8_matmul"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=f"({m}, {k}) x ({k}, {n}) int8")
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        **timed(kern, plain, calls=calls),
+        shape=f"({m}, {k}) x ({k}, {n}) int8", shapes=per_shape)
 
 
 def _kv(dev, b, w, hkv, hd, quantized):
@@ -187,9 +279,10 @@ def _attn_err(out, want, what):
     return d.max().item()
 
 
-def _sdpa_ms(q, k, v, start, sq):
+def _sdpa(q, k, v, start, sq):
     """scaled_dot_product_attention on GQA heads expanded to Hq, with the
-    per-row causal mask: the library yardstick for bf16 attention."""
+    per-row causal mask: the library yardstick for bf16 attention (a call
+    to time; the expansion is made once, outside it)."""
     import torch
     import torch.nn.functional as F
     b, w, hkv, hd = k.shape
@@ -200,8 +293,7 @@ def _sdpa_ms(q, k, v, start, sq):
     lim = start[:, None] + torch.arange(sq, device=q.device)[None]
     mask = (torch.arange(w, device=q.device)[None, None]
             <= lim[..., None])[:, None]
-    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          attn_mask=mask))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
 def phase_decode(dev, report):
@@ -247,19 +339,16 @@ def phase_decode(dev, report):
     io = b * hq * hd * 2 * 2 + b * 4                   # q, out, start
     b_ms, by = bound(n_kv * 2 + b * w * hkv * 4 * 2 + io, n_ops, "int8")
     b16_ms, b16_by = bound(n_kv * 2 * 2 + io, n_ops, "bf16")
+    kern = lambda: kd.decode_attention(q, kq, vq, ks, vs, start)
+    plain = lambda: ref.decode_attention_ref(q, kq, vq, ks, vs, start)
+    kern16 = lambda: kd.decode_attention(q, k, v, None, None, start)
+    plain16 = lambda: ref.decode_attention_ref(q, k, v, None, None, start)
     report["decode_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kd.decode_attention(q, kq, vq, ks, vs, start)),
-        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kq, vq, ks, vs,
-                                                          start)),
-        bound_ms=b_ms, bound_by=by, library_ms=None,
-        bf16_kv=dict(
-            ms=time_ms(lambda: kd.decode_attention(q, k, v, None, None,
-                                                   start)),
-            plain_ms=time_ms(lambda: ref.decode_attention_ref(
-                q, k, v, None, None, start)),
-            bound_ms=b16_ms, bound_by=b16_by,
-            library_ms=_sdpa_ms(q[:, None], k, v, start, 1)),
+        max_abs_err=err, bound_ms=b_ms, bound_by=by,
+        **timed(kern, plain),
+        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
+                     **timed(kern16, plain16,
+                             _sdpa(q[:, None], k, v, start, 1))),
         shape=f"q ({b}, {hq}, {hd}) vs INT8 KV ({b}, {w}, {hkv}, {hd})")
 
 
@@ -320,19 +409,16 @@ def phase_prefill(dev, report):
     io = sq * hq * hd * 2 * 2 + 4                   # q, out, start
     b_ms, by = bound(seen * hd * 2 + seen * 4 * 2 + io, n_ops, "int8")
     b16_ms, b16_by = bound(seen * hd * 2 * 2 + io, n_ops, "bf16")
+    kern = lambda: kp.prefill_attention(q, kq, vq, ks, vs, start)
+    plain = lambda: ref.cached_attention_ref(q, kq, vq, ks, vs, start)
+    kern16 = lambda: kp.prefill_attention(q, k, v, None, None, start)
+    plain16 = lambda: ref.cached_attention_ref(q, k, v, None, None, start)
     report["prefill_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kp.prefill_attention(q, kq, vq, ks, vs, start)),
-        plain_ms=time_ms(lambda: ref.cached_attention_ref(q, kq, vq, ks, vs,
-                                                          start)),
-        bound_ms=b_ms, bound_by=by, library_ms=None,
-        bf16_kv=dict(
-            ms=time_ms(lambda: kp.prefill_attention(q, k, v, None, None,
-                                                    start)),
-            plain_ms=time_ms(lambda: ref.cached_attention_ref(
-                q, k, v, None, None, start)),
-            bound_ms=b16_ms, bound_by=b16_by,
-            library_ms=_sdpa_ms(q, k, v, start, sq)),
+        max_abs_err=err, bound_ms=b_ms, bound_by=by,
+        **timed(kern, plain),
+        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
+                     **timed(kern16, plain16,
+                             _sdpa(q, k, v, start, sq))),
         shape=f"q (1, {sq}, {hq}, {hd}) at {st} vs INT8 KV (1, {w}, {hkv}, "
               f"{hd})")
 
@@ -405,21 +491,18 @@ def phase_paged_decode(dev, report):
     b_ms, by = bound(n_kv * 2 + b * w * hkv * 4 * 2 + io, n_ops, "int8")
     b16_ms, b16_by = bound(n_kv * 2 * 2 + io, n_ops, "bf16")
     gk, gv, _, _ = _gathered(arena_b, idx)
+    kern = lambda: kd.paged_decode_attention(q, *arena_q, start, idx)
+    plain = lambda: ref.paged_decode_attention_ref(q, *arena_q, start, idx)
+    kern16 = lambda: kd.paged_decode_attention(q, *arena_b, start, idx)
+    plain16 = lambda: ref.paged_decode_attention_ref(q, *arena_b, start, idx)
     report["paged_decode_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kd.paged_decode_attention(q, *arena_q, start,
-                                                     idx)),
-        plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(
-            q, *arena_q, start, idx)),
-        bound_ms=b_ms, bound_by=by, library_ms=None,
-        bf16_kv=dict(
-            ms=time_ms(lambda: kd.paged_decode_attention(q, *arena_b, start,
-                                                         idx)),
-            plain_ms=time_ms(lambda: ref.paged_decode_attention_ref(
-                q, *arena_b, start, idx)),
-            bound_ms=b16_ms, bound_by=b16_by,
-            library_ms=_sdpa_ms(q[:, None], gk, gv, start, 1),
-            library="SDPA on the gathered window, gather not timed"),
+        max_abs_err=err, bound_ms=b_ms, bound_by=by,
+        **timed(kern, plain),
+        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
+                     **timed(kern16, plain16,
+                             _sdpa(q[:, None], gk, gv, start, 1)),
+                     library="SDPA on the gathered window, gather not "
+                             "timed"),
         shape=f"q ({b}, {hq}, {hd}) vs INT8 arena, pages of {ps}, window "
               f"{w}")
 
@@ -480,62 +563,59 @@ def phase_paged_prefill(dev, report):
     b_ms, by = bound(seen * hd * 2 + seen * 4 * 2 + io, n_ops, "int8")
     b16_ms, b16_by = bound(seen * hd * 2 * 2 + io, n_ops, "bf16")
     gk, gv, _, _ = _gathered(arena_b, idx)
+    kern = lambda: kp.paged_prefill_attention(q, *arena_q, start, idx)
+    plain = lambda: ref.paged_prefill_attention_ref(q, *arena_q, start, idx)
+    kern16 = lambda: kp.paged_prefill_attention(q, *arena_b, start, idx)
+    plain16 = lambda: ref.paged_prefill_attention_ref(q, *arena_b, start, idx)
     report["paged_prefill_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kp.paged_prefill_attention(q, *arena_q, start,
-                                                      idx)),
-        plain_ms=time_ms(lambda: ref.paged_prefill_attention_ref(
-            q, *arena_q, start, idx)),
-        bound_ms=b_ms, bound_by=by, library_ms=None,
-        bf16_kv=dict(
-            ms=time_ms(lambda: kp.paged_prefill_attention(q, *arena_b, start,
-                                                          idx)),
-            plain_ms=time_ms(lambda: ref.paged_prefill_attention_ref(
-                q, *arena_b, start, idx)),
-            bound_ms=b16_ms, bound_by=b16_by,
-            library_ms=_sdpa_ms(q, gk, gv, start, sq),
-            library="SDPA on the gathered window, gather not timed"),
+        max_abs_err=err, bound_ms=b_ms, bound_by=by,
+        **timed(kern, plain),
+        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
+                     **timed(kern16, plain16,
+                             _sdpa(q, gk, gv, start, sq)),
+                     library="SDPA on the gathered window, gather not "
+                             "timed"),
         shape=f"q (1, {sq}, {hq}, {hd}) at {st} vs INT8 arena, pages of "
               f"{ps}, window {w}")
 
 
 # ------------------------------------------------------------ flash (train)
-def _flash_case(dev, b, s, hq, hkv, hd=64):
+def _flash_case(dev, b, s, hq, hkv, hd):
     import torch
     return [torch.randn(b, s, h, hd, device=dev).to(torch.bfloat16)
             for h in (hq, hkv, hkv)]
 
 
-def _flash_bound(b, s, hq, hkv, hd=64):
+def _flash_bound(b, s, hq, hkv, hd):
     """q, k, v, out and lse moved once; 4·hd operations per visible causal
     (query, key) pair, s(s+1)/2 of them per (batch, head)."""
     n_bytes = b * s * (2 * hq + 2 * hkv) * hd * 2 + b * hq * s * 4
     return bound(n_bytes, 4 * hd * b * hq * s * (s + 1) // 2, "bf16")
 
 
-def _sdpa_causal_ms(q, k, v):
+def _sdpa_causal(q, k, v):
     """scaled_dot_product_attention(is_causal=True) on K/V expanded to Hq
-    heads: the library yardstick of the flash kernel."""
+    heads: the library yardstick of the flash kernel (a call to time; the
+    expansion is made once, outside it)."""
     import torch.nn.functional as F
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
-    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
 
 def phase_flash(dev, report):
     """The causal flash kernel (B7) against its plain version: output and
-    log-sum-exp at the calibration shape, a long S, a ragged S and G = 1;
-    q read through strides; the backward (autograd through the kernel's
+    log-sum-exp at the calibration shape, a long S, a ragged S, G = 1 and
+    hd 128; q read through strides; the backward (autograd through the kernel's
     Function) against autograd through the plain version."""
     import torch
     from repro_torch.kernels import flash_attention as kf, ref
     err = row_rel = 0.0
-    for b, s, hq, hkv in FLASH_SHAPES:
-        what = f"flash B={b} S={s} Hq={hq} Hkv={hkv}"
-        q, k, v = _flash_case(dev, b, s, hq, hkv)
+    for b, s, hq, hkv, hd in FLASH_SHAPES:
+        what = f"flash B={b} S={s} Hq={hq} Hkv={hkv} hd={hd}"
+        q, k, v = _flash_case(dev, b, s, hq, hkv, hd)
         out, lse = kf.flash_attention_fwd(q, k, v)
         want, want_lse = ref.flash_attention_lse_ref(q, k, v)
         err = max(err, _attn_err(out, want, what))
@@ -566,14 +646,16 @@ def phase_flash(dev, report):
                 fail(f"{what}: d{name} max |kernel - plain| {e:.4g} over "
                      f"{GRAD_FRAC} x {top:.4g}")
     timing = {}
-    for b, s, hq, hkv in FLASH_SHAPES[:2]:
-        q, k, v = _flash_case(dev, b, s, hq, hkv)
-        b_ms, by = _flash_bound(b, s, hq, hkv)
+    for b, s, hq, hkv, hd in FLASH_SHAPES[:2]:
+        q, k, v = _flash_case(dev, b, s, hq, hkv, hd)
+        b_ms, by = _flash_bound(b, s, hq, hkv, hd)
         timing[(b, s)] = dict(
-            ms=time_ms(lambda: kf.flash_attention_fwd(q, k, v)),
-            plain_ms=time_ms(lambda: ref.flash_attention_lse_ref(q, k, v)),
-            bound_ms=b_ms, bound_by=by, library_ms=_sdpa_causal_ms(q, k, v),
-            shape=f"q ({b}, {s}, {hq}, 64) vs k/v ({b}, {s}, {hkv}, 64) bf16")
+            bound_ms=b_ms, bound_by=by,
+            **timed(lambda: kf.flash_attention_fwd(q, k, v),
+                    lambda: ref.flash_attention_lse_ref(q, k, v),
+                    _sdpa_causal(q, k, v), calls=10),
+            shape=f"q ({b}, {s}, {hq}, {hd}) vs k/v ({b}, {s}, {hkv}, "
+                  f"{hd}) bf16")
     main, long = timing.values()
     report["flash_attention"] = dict(max_abs_err=err, max_row_rel=row_rel,
                                      **main, long_s=long)
@@ -635,8 +717,10 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                arrivals_s=None, arrival_ticks=None, **engine_kw):
     """One engine run from launch counts at 0: every request must equal
     serial decode token for token, every kernel in ``must`` must have
-    launched and none in ``must_not``. Returns (summary, engine, launches)."""
+    launched and none in ``must_not``, and the B1 split-K workspace must
+    neither move nor be left nonzero. Returns (summary, engine, launches)."""
     import torch
+    from repro_torch.kernels import int8_matmul as km
     from repro_torch.serving import (Engine, SchedulerConfig, serial_decode,
                                      summarize_results)
     qkv = engine_kw.get("quantized_kv", False)
@@ -645,6 +729,7 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                                        decode_steps=SERVE_STEPS),
                  device=dev, **engine_kw)
     what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}")
+    workspaces = [w.data_ptr() for w in km.workspaces(dev)]
     torch.cuda.synchronize()
     for kern in kernels.values():
         kern.launches = 0
@@ -654,6 +739,11 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
+    # the B1 split-K workspace: made by the kernel checks, kept by the run
+    if [w.data_ptr() for w in km.workspaces(dev)] != workspaces or any(
+            w.any().item() for w in km.workspaces(dev)):
+        fail(f"{what}: the int8_matmul split-K workspace moved or was left "
+             f"nonzero by the serving run")
     if len(results) != len(reqs):
         fail(f"{what}: engine finished {len(results)} of {len(reqs)} "
              f"requests")
@@ -978,6 +1068,10 @@ def main() -> int:
     took = build.build()
     print(f"[build] {len(took)} libraries in {time.monotonic() - t0:.1f}s: "
           + ", ".join(f"{n} {s:.1f}s" for n, s in sorted(took.items())))
+    for lib, log in sorted(build.logs.items()):
+        print(f"[ptxas] {lib}: " + "; ".join(
+            f"{k} {regs} registers, spill stores/loads {st}/{ld} B"
+            for k, regs, st, ld in build.ptxas_summary(log)))
     kernels = {"quantize_rowwise": quantize.KERNEL,
                "int8_matmul": int8_matmul.KERNEL,
                "decode_attention": decode_attention.KERNEL,
@@ -991,9 +1085,10 @@ def main() -> int:
                   phase_flash):
         phase(dev, report)
     for name, r in report.items():
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[kernel] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        print(f"[kernel] {name} at {r['shape']}: kernel {r['ms']:.5f} ms "
+              f"(device), wrapper {r['wrapper_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}  [{card}]")
         if "max_row_rel" in r:
@@ -1004,10 +1099,15 @@ def main() -> int:
             if key in r:
                 o = r[key]
                 print(f"[kernel] {name} {label or 'at ' + o['shape']}: "
-                      f"kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} "
+                      f"kernel {o['ms']:.5f} ms (device), wrapper "
+                      f"{o['wrapper_ms']:.4f} ms, plain {o['plain_ms']:.4f} "
                       f"ms, library ({o.get('library', 'SDPA')}) "
-                      f"{o['library_ms']:.4f} ms, bound {o['bound_ms']:.6f} "
+                      f"{o['library_ms']:.5f} ms, bound {o['bound_ms']:.6f} "
                       f"ms ({o['bound_by']})  [{card}]")
+        for shape, o in r.get("shapes", {}).items():
+            print(f"[kernel] {name} at {shape}: kernel {o['ms']:.5f} ms "
+                  f"(device), bound {o['bound_ms']:.6f} ms ({o['bound_by']}), "
+                  f"{o['plan']}  [{card}]")
     e2e, h_err, loss_dev, loss_cpu = phase_small_e2e(dev)
     print(f"[e2e] smoke model, card vs CPU plain path: max |logit diff| "
           f"{e2e:.4g}; train route max |hidden diff| {h_err:.4g}, loss "
@@ -1126,10 +1226,11 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{kernels[name].source}.cu",
             "replaces": f"src/repro/kernels/{replaces[name]}",
             "launches": main_launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("bf16_kv", "long_s") if k in r}})
+            **{k: r[k] for k in ("bf16_kv", "long_s", "shapes") if k in r}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

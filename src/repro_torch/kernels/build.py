@@ -6,7 +6,8 @@ ints and the CUDA stream, launch one kernel, and return
 library under ``build/repro_torch/`` at the repo root (``.gitignore`` lists
 ``build/``), at first use, keyed by a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
-``build`` starts one ``nvcc`` per missing library, all at once.
+``build`` starts one ``nvcc`` per missing library, all at once, and keeps
+each one's ``-Xptxas -v`` report in ``logs``.
 
 No module of the port imports this at load time for a CUDA reason: nothing
 here runs until a kernel is launched on a CUDA tensor."""
@@ -16,17 +17,22 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the compiler's output (ptxas: registers, shared memory, spills per kernel)
+# of each library built by this process
+logs: Dict[str, str] = {}
 
 _lock = threading.Lock()
 
@@ -41,6 +47,27 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path
+
+
+def ptxas_summary(log: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel symbol, registers, spill store bytes, spill load bytes) of
+    each entry function in an ``nvcc -Xptxas -v`` report."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return out
 
 
 def library_path(name: str) -> pathlib.Path:
@@ -75,6 +102,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failed.append(f"--- {n}.cu (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)
+        logs[n] = log
         took[n] = time.monotonic() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

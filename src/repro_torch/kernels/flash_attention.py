@@ -14,6 +14,7 @@ through its tensor ops."""
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -24,28 +25,56 @@ KERNEL = build.Kernel("flash_attention", "flash_attention",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_longlong] * 9 + [ctypes.c_float])
 
-G_MAX, HD_MAX = 32, 128
+G_MAX = 64                  # query heads per kv head: a block's 64 rows
+HEAD_DIMS = (16, 64, 128)   # the kernel's instances (smoke, repo, Qwen3)
 BACKWARD_BLOCK_Q = 512      # query rows per block of the backward
+ROWS = 64                   # a block's rows, as in csrc/flash_attention.cu
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    queries: int        # queries a block takes (its rows are their G heads)
+    grid: Tuple[int, int, int]      # (Hkv, query tiles, B)
+
+
+def flash_plan(b: int, s: int, hq: int, hkv: int) -> FlashPlan:
+    """The kernel's grid, which the kernel forms the same way: blocks of
+    the G = hq / hkv query heads of floor(64 / G) queries, one per (kv head,
+    query tile, batch)."""
+    bq = ROWS // (hq // hkv)
+    return FlashPlan(queries=bq, grid=(hkv, -(-s // bq), b))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: q (B, S, Hq, hd), k and v (B, S, Hkv, hd), bf16 on
-    one CUDA device, the last dim contiguous (other strides are free) ->
-    (out (B, S, Hq, hd) bf16, lse (B, Hq, S) f32)."""
+    one CUDA device, hd in HEAD_DIMS, the last dim contiguous and the other
+    strides multiples of 8 elements from a 16-byte aligned start (the
+    kernel copies 16 bytes at a time) -> (out (B, S, Hq, hd) bf16, lse
+    (B, Hq, S) f32)."""
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.check(f"flash_attention {name}", t, torch.bfloat16, 4, dev)
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last dim must be "
                              f"contiguous")
+        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s strides "
+                             f"{t.stride()} must be multiples of 8 elements "
+                             f"from a 16-byte aligned start")
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     if (k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd
-            or hkv < 1 or hq % hkv or hq // hkv > G_MAX or hd > HD_MAX):
+            or hkv < 1 or hq % hkv or hq // hkv > G_MAX):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd}; the kernel takes "
+                         f"{HEAD_DIMS}")
     build.check_int32("flash_attention", b * s * hq * hd)
+    if max(flash_plan(b, s, hq, hkv).grid) > 65535:
+        raise ValueError(f"flash_attention: grid over 65535 for q "
+                         f"{tuple(q.shape)}")
     out = torch.empty((b, s, hq, hd), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

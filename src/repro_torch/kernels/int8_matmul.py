@@ -1,15 +1,128 @@
 """W8A8 matmul with the dequant epilogue: the wrapper of
-``csrc/int8_matmul.cu`` (replaces ``int8_matmul_pallas``)."""
+``csrc/int8_matmul.cu`` (replaces ``int8_matmul_pallas``), and its launch
+plan.
+
+``gemm_plan`` is the host side of the kernel's tiling, in plain Python so
+that the CPU tests reach it: 16-row M tiles, 32-column N tiles, K split over
+``grid.z`` so that a decode shape fills the card's 132 SMs, the weight copy
+width from the alignment of N and of the pointer, and the dynamic shared
+memory. A split K reduces its int32 partial sums inside the one launch,
+through a per-device workspace that the kernel leaves zeroed after every
+launch. The workspace is made once, with ``torch.zeros``, at a size that
+holds every product of fewer tiles than the card has SMs (every split of the
+model's shapes), and no buffer is ever freed, so a CUDA graph that captured
+a launch keeps a valid pointer. Launches on one device share it, so they
+must run in stream order, as the port's single stream does."""
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 KERNEL = build.Kernel("int8_matmul", "int8_matmul",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+                      [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 8)
+
+# Mirrors csrc/int8_matmul.cu: tile rows and columns, k rows a warp takes
+# per step, warps, ring stages. The kernel refuses a plan whose K ranges,
+# shared memory or workspace do not match its own tiling.
+BM, BN, KSTEP, WARPS, STAGES = 16, 32, 32, 4, 4
+RING_BYTES = STAGES * KSTEP * WARPS * BN
+N_SMS = 132                 # H100 SXM
+X_TILE_MAX = 64 * 1024      # bytes of x a block stages; longer K ranges split
+# int32 elements of the first workspace: the sums and counters of any
+# product of fewer than N_SMS tiles
+WORKSPACE_MIN = N_SMS * (BM * BN + 1)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def copy_width(pitch: int, ptr: int) -> int:
+    """The widest copy (16, 8 or 4 bytes, else 1) that divides a row pitch
+    and the pointer, so that each copy starts on its own alignment."""
+    for v in (16, 8, 4):
+        if pitch % v == 0 and ptr % v == 0:
+            return v
+    return 1
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    m_tiles: int
+    n_tiles: int
+    split: int          # K ranges (grid.z)
+    ksteps: int         # 32-row steps in each K range (the last may be short)
+    vec: int            # weight copy width, bytes
+    x_vec: int          # x load width, 4 or 1 bytes
+    smem: int           # dynamic shared memory, bytes
+    workspace: int      # int32 elements of the split-K workspace (0: none)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return self.n_tiles, self.m_tiles, self.split
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.m_tiles * self.split
+
+    def k_ranges(self, k: int) -> List[Tuple[int, int]]:
+        step = self.ksteps * KSTEP
+        return [(z * step, min(k, (z + 1) * step)) for z in range(self.split)]
+
+
+def gemm_plan(m: int, n: int, k: int, w_ptr: int = 0, x_ptr: int = 0
+              ) -> GemmPlan:
+    """The launch of an (m, k) x (k, n) product. K is cut into as many
+    ranges of whole 32-row steps as it takes to give at least N_SMS
+    blocks (rounding the steps a range takes down, so the count errs high),
+    and never so long that x's staged tile passes X_TILE_MAX."""
+    m_tiles, n_tiles = _cdiv(m, BM), _cdiv(n, BN)
+    ksteps_all = max(1, _cdiv(k, KSTEP))
+    want = _cdiv(N_SMS, m_tiles * n_tiles)
+    per = max(1, ksteps_all // want)
+    per = min(per, (X_TILE_MAX // BM - 16) // KSTEP)
+    split = _cdiv(ksteps_all, per)
+    x_pitch = per * KSTEP + 16
+    return GemmPlan(
+        m_tiles=m_tiles, n_tiles=n_tiles, split=split, ksteps=per,
+        vec=copy_width(n, w_ptr),
+        x_vec=4 if k % 4 == 0 and x_ptr % 4 == 0 else 1,
+        smem=RING_BYTES + BM * x_pitch,
+        workspace=m * n + m_tiles * n_tiles if split > 1 else 0)
+
+
+# every workspace made on each device, the one in use last; none is freed
+_workspaces: Dict[torch.device, List[torch.Tensor]] = {}
+
+
+def workspaces(dev: torch.device) -> List[torch.Tensor]:
+    """The workspaces made on ``dev`` so far, oldest first."""
+    return list(_workspaces.get(dev, ()))
+
+
+def workspace(dev: torch.device, n: int,
+              capturing: Callable[[], bool]) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` elements on ``dev``: the
+    device's current one, or, when that is too small, a new one of at least
+    WORKSPACE_MIN elements. Making one while a CUDA graph is being captured
+    (``capturing()``, asked only then) raises: the graph would hold a buffer
+    that its replays, not the launches before them, zero."""
+    bufs = _workspaces.setdefault(dev, [])
+    if not bufs or bufs[-1].numel() < n:
+        if capturing():
+            raise RuntimeError(
+                f"int8_matmul: a split-K workspace of {n} elements on {dev} "
+                f"is first needed inside a CUDA graph capture; run the "
+                f"product once before capturing it")
+        bufs.append(torch.zeros(max(n, WORKSPACE_MIN), dtype=torch.int32,
+                                device=dev))
+    return bufs[-1]
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
@@ -33,8 +146,15 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     if not all(t.is_contiguous() for t in (x_q, w_q, x_scale, w_scale)):
         raise ValueError("int8_matmul: inputs must be contiguous")
     build.check_int32("int8_matmul", m, n, k)
+    plan = gemm_plan(m, n, k, w_q.data_ptr(), x_q.data_ptr())
+    ws = (workspace(dev, plan.workspace,
+                    torch.cuda.is_current_stream_capturing)
+          if plan.workspace else None)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
-                  w_scale.data_ptr(), out.data_ptr(), m, n, k,
+                  w_scale.data_ptr(), out.data_ptr(),
+                  0 if ws is None else ws.data_ptr(),
+                  0 if ws is None else ws.numel(), m, n, k,
+                  plan.ksteps, plan.split, plan.vec, plan.x_vec, plan.smem,
                   stream=build.stream_of(x_q))
     return out

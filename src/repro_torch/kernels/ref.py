@@ -70,7 +70,7 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     if causal:
         q_pos = q_offset + torch.arange(sq, device=q.device)
         mask = torch.arange(skv, device=q.device)[None, :] <= q_pos[:, None]
-        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+        s = torch.where(mask, s, s.new_full((), NEG_INF))
     lse = torch.logsumexp(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
                        v.float())
@@ -109,9 +109,7 @@ def cached_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     limit = start.to(q.device).long()[:, None] + torch.arange(
         sq, device=q.device)[None, :]                          # (B, Sq)
     mask = torch.arange(w, device=q.device)[None, None, :] <= limit[..., None]
-    s = torch.where(mask[:, :, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=torch.float32,
-                                 device=q.device))
+    s = torch.where(mask[:, :, None, None, :], s, s.new_full((), NEG_INF))
     p = torch.softmax(s, dim=-1)
     if v_s is not None:
         p = p * v_s.permute(0, 2, 1)[:, None, :, None, :]

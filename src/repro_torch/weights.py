@@ -69,10 +69,13 @@ def to_device(tree: Any, device) -> Any:
     return tree.to(device)
 
 
-def from_jax_params(tree: Any, device="cpu") -> dict:
-    """JAX LM params with numpy leaves -> the port's params on ``device``.
-    A quantized linear (any object with ``w_q``, ``scale`` and ``bits``)
+def from_jax_params(tree: Any, device=None) -> dict:
+    """JAX LM params with numpy leaves -> the port's params on ``device``
+    (default the card, as ``resolve_device`` says). A quantized linear
+    (any object with ``w_q``, ``scale`` and ``bits``)
     becomes the port's ``QuantizedLinear``."""
+    device = resolve_device(device)
+
     def conv(t):
         if all(hasattr(t, a) for a in ("w_q", "scale", "bits")):
             return QuantizedLinear(_tensor(np.asarray(t.w_q)),
@@ -82,7 +85,7 @@ def from_jax_params(tree: Any, device="cpu") -> dict:
         if isinstance(t, (tuple, list)):
             return [conv(v) for v in t]
         return _tensor(np.asarray(t))
-    return to_device(_unstack_blocks(conv(tree)), torch.device(device))
+    return to_device(_unstack_blocks(conv(tree)), device)
 
 
 def _spec_to_tree(spec: Any, arrays: List[np.ndarray]) -> Any:

@@ -77,6 +77,22 @@ def test_plain_flash_vs_oracle_and_pallas(bh, s, hd, bq, bk):
                                **PALLAS)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+def test_plain_flash_bf16_gqa_vs_oracle(hd):
+    """The plain version at the card's GQA shapes, bf16, hd 64 (the repo's
+    qwen3-0.6b) and 128 (the published one's): against the JAX oracle on
+    the heads repeated, both in f32 from the same bf16 values, then rounded
+    to bf16 (one bf16 ulp)."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(hd, 2, 40, 8, 4, hd, "bf16")
+    out, lse = ref.flash_attention_lse_ref(qt, kt, vt)
+    kr, vr = (jnp.repeat(t, 2, axis=2) for t in (kj, vj))
+    want = jref.flash_attention_ref(*(t.astype(jnp.float32)
+                                      for t in (qj, kr, vr)))
+    np.testing.assert_allclose(_f32(out), _f32(want), rtol=2 ** -8,
+                               atol=2 ** -8)
+    assert lse.shape == (2, 8, 40) and np.isfinite(_f32(lse)).all()
+
+
 @pytest.mark.parametrize("q_offset", [0, 7])
 def test_plain_flash_gqa_and_lse(q_offset):
     """GQA without a copy (query head h reads kv head h // G) equals the

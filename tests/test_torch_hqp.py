@@ -78,10 +78,10 @@ def ref():
     to_np = lambda t: jax.tree.map(np.asarray, t)
     return dict(
         jcfg=jcfg, cfg=configs.get_smoke_config(ARCH), ctx=ctx, jp=jp,
-        tp=from_jax_params(to_np(jp)), jb=jb,
+        tp=from_jax_params(to_np(jp), device="cpu"), jb=jb,
         tb=serve._calib_batch(configs.get_smoke_config(ARCH), 2, 32,
                               device="cpu"),
-        jsq=jsq, tsq=from_jax_params(to_np(jsq)))
+        jsq=jsq, tsq=from_jax_params(to_np(jsq), device="cpu"))
 
 
 def _f32(x):

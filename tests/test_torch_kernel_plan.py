@@ -1,0 +1,147 @@
+"""The host side of the port's redesigned kernels, on the CPU: the launch
+plans that ``kernels/int8_matmul.py`` (B1) and ``kernels/flash_attention.py``
+(B7) hand to their CUDA kernels. The kernels themselves run only on the
+card (``chip_smoke.py``); these tests hold the plans to what the kernels
+assume: every output tile and every K row covered exactly once, enough
+blocks to fill the H100's 132 SMs at decode shapes, shared memory within a
+Hopper block's 232,448 bytes, copy widths that divide the row pitch, and a
+split-K workspace that the model's shapes never outgrow."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
+from repro_torch.kernels import int8_matmul as km  # noqa: E402
+
+D_MODEL, D_FF, KV = 1024, 3072, 512       # qwen3-0.6b at the repo's hd 64
+DECODE_KN = [(D_MODEL, KV), (D_MODEL, D_MODEL), (D_MODEL, D_FF),
+             (D_FF, D_MODEL)]
+# a per-layer cut: d_ff 3,035 and 7 kv heads (448 columns)
+RAGGED_KN = [(3035, D_MODEL), (D_MODEL, 3035), (D_MODEL, 448)]
+M_ROWS = [1, 4, 13, 16, 17, 64]
+SMEM_MAX = 232_448          # dynamic shared memory a block may use on Hopper
+
+
+def _covers(plan, m, n, k):
+    assert (plan.m_tiles - 1) * km.BM < m <= plan.m_tiles * km.BM
+    assert (plan.n_tiles - 1) * km.BN < n <= plan.n_tiles * km.BN
+    ranges = plan.k_ranges(k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+        assert hi == lo2
+    assert all(lo < hi for lo, hi in ranges)
+    assert plan.grid == (plan.n_tiles, plan.m_tiles, plan.split)
+
+
+@pytest.mark.parametrize("k,n", DECODE_KN + RAGGED_KN)
+@pytest.mark.parametrize("m", M_ROWS)
+def test_gemm_plan_covers_the_product(m, k, n):
+    plan = km.gemm_plan(m, n, k)
+    _covers(plan, m, n, k)
+    assert plan.smem <= SMEM_MAX
+    assert n % plan.vec == 0 and k % plan.x_vec == 0
+    # the split-K workspace: the (M, N) sums and one counter per tile
+    want = m * n + plan.m_tiles * plan.n_tiles if plan.split > 1 else 0
+    assert plan.workspace == want <= km.WORKSPACE_MIN
+
+
+@pytest.mark.parametrize("k,n", DECODE_KN + RAGGED_KN)
+@pytest.mark.parametrize("m", [4, 16])
+def test_gemm_plan_fills_the_card_at_decode_and_prefill(m, k, n):
+    """Decode (M = 4 slots) and a prefill chunk (M = 16) launch at least
+    one block per SM, N = 512 included, with whole 32-row K steps."""
+    plan = km.gemm_plan(m, n, k)
+    assert plan.blocks >= km.N_SMS
+    assert plan.m_tiles == 1
+
+
+@pytest.mark.parametrize("n,ptr,want", [(1024, 0, 16), (448, 0, 16),
+                                        (1000, 0, 8), (1012, 0, 4),
+                                        (3035, 0, 1), (1024, 8, 8),
+                                        (1024, 4, 4), (1024, 3, 1)])
+def test_gemm_copy_width_follows_alignment(n, ptr, want):
+    plan = km.gemm_plan(4, n, 1024, w_ptr=ptr)
+    assert plan.vec == want
+    assert n % plan.vec == 0 and ptr % plan.vec == 0
+
+
+def test_gemm_plan_x_width_and_long_k():
+    assert km.gemm_plan(4, 1024, 3035).x_vec == 1
+    assert km.gemm_plan(4, 1024, 1024, x_ptr=2).x_vec == 1
+    assert km.gemm_plan(4, 1024, 1024).x_vec == 4
+    # a K too long for one block's x tile is split however many tiles N has
+    m, n, k = 64, 8192, 65536
+    plan = km.gemm_plan(m, n, k)
+    _covers(plan, m, n, k)
+    assert plan.split > 1 and plan.smem <= SMEM_MAX
+    # K = 0 still launches one range, which writes zeros
+    assert km.gemm_plan(4, 64, 0).k_ranges(0) == [(0, 0)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv", [(2, 32, 16, 8), (1, 2048, 16, 8),
+                                        (1, 1000, 16, 8), (2, 256, 8, 8),
+                                        (2, 67, 6, 2), (1, 5, 24, 1)])
+def test_flash_plan_covers_every_row(b, s, hq, hkv):
+    plan = kf.flash_plan(b, s, hq, hkv)
+    g = hq // hkv
+    assert plan.queries * g <= kf.ROWS
+    assert plan.queries * g > kf.ROWS - g          # at most G - 1 idle rows
+    heads, tiles, batch = plan.grid
+    assert (heads, batch) == (hkv, b)
+    assert (tiles - 1) * plan.queries < s <= tiles * plan.queries
+
+
+def test_gemm_workspace_is_made_once_and_never_freed():
+    """The split-K workspace: the first one holds every split of the
+    model's shapes, a smaller need takes the same buffer (its pointer stays
+    put), a larger one adds a buffer and keeps the old one alive, for a
+    CUDA graph that captured it."""
+    dev = torch.device("cpu")
+    km._workspaces.pop(dev, None)
+    try:
+        first = km.workspace(dev, 100, capturing=lambda: False)
+        assert first.numel() == km.WORKSPACE_MIN and not first.any()
+        need = max(km.gemm_plan(m, n, k).workspace for m in M_ROWS
+                   for k, n in DECODE_KN + RAGGED_KN)
+        again = km.workspace(dev, need, capturing=lambda: False)
+        assert again.data_ptr() == first.data_ptr()
+        big = km.workspace(dev, km.WORKSPACE_MIN + 1, capturing=lambda: False)
+        assert big.numel() == km.WORKSPACE_MIN + 1
+        bufs = km.workspaces(dev)
+        assert len(bufs) == 2 and bufs[0] is first and bufs[1] is big
+    finally:
+        km._workspaces.pop(dev, None)
+
+
+def test_gemm_workspace_does_not_grow_inside_a_capture():
+    dev = torch.device("cpu")
+    km._workspaces.pop(dev, None)
+    try:
+        with pytest.raises(RuntimeError, match="capture"):
+            km.workspace(dev, 10, capturing=lambda: True)
+        ws = km.workspace(dev, 10, capturing=lambda: False)
+        assert km.workspace(dev, 10, capturing=lambda: True) is ws
+        with pytest.raises(RuntimeError, match="capture"):
+            km.workspace(dev, km.WORKSPACE_MIN + 1, capturing=lambda: True)
+        bufs = km.workspaces(dev)
+        assert len(bufs) == 1 and bufs[0] is ws
+    finally:
+        km._workspaces.pop(dev, None)
+
+
+def test_ptxas_summary_reads_each_kernel():
+    """The build keeps nvcc's -Xptxas -v report; its summary names each
+    entry function, as the compiler's symbol, with registers and spills."""
+    from repro_torch.kernels import build
+    gemm = ("_ZN47_GLOBAL__N__d8a7533a_14_int8_matmul_cu_0898312c18int8_"
+            "matmul_kernelILi16EEEvPKaS2_")
+    quant = "_ZN12_GLOBAL__N_123quantize_rowwise_kernelEPK13__nv_bfloat16"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{gemm}' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers, 16 bytes smem",
+        f"ptxas info    : Compiling entry function '{quant}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 30 registers, used 1 barriers",
+    ])
+    assert build.ptxas_summary(log) == [(gemm, 56, 8, 4), (quant, 30, 0, 0)]

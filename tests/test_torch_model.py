@@ -66,7 +66,8 @@ def models(tmp_path_factory):
     tp_art, manifest = load_artifact(art_dir, device="cpu")
     assert manifest["arch"] == cfg.name
     return cfg, configs.get_smoke_config(ARCH), {
-        "fp": (jp, from_jax_params(jax.tree.map(np.asarray, jp))),
+        "fp": (jp, from_jax_params(jax.tree.map(np.asarray, jp),
+                                   device="cpu")),
         "hqp": (art.params, tp_art),
     }, art_dir
 

@@ -473,7 +473,7 @@ def test_paged_engine_tokens_equal_the_reference_paged_engine(kind):
     if kind == "ptq":
         jp = compress(jp, jcfg, log=lambda s: None).params
         ctx = dataclasses.replace(ctx, quantized_kv=True)
-    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     head, tails = _prompts(cfg, [16], seed=8)[0], _prompts(cfg, [3, 7, 5],
                                                           seed=9)
     prompts = [head + tails[0], tails[1], head + tails[2]]

@@ -130,7 +130,7 @@ def test_engine_tokens_equal_the_reference_engine(kind):
     if kind == "ptq":
         jp = compress(jp, jcfg, log=lambda s: None).params
         ctx = dataclasses.replace(ctx, quantized_kv=True)
-    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     prompts = _prompts(cfg, [9, 14, 5], seed=3)
     sched = dict(prefill_chunk=4, decode_steps=4)
     jres = JEngine(jp, jcfg, ctx=ctx, n_slots=2, max_seq=48,
@@ -165,6 +165,8 @@ def test_entry_points_default_to_the_card(setup, monkeypatch):
         serial_decode(params, cfg, [1, 2, 3], 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_params({"w": np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match="params lie on"):
         Engine(params, cfg, device="meta")
 
