@@ -41,6 +41,7 @@ SERVE_PAGE = 16             # page size of the paged serve phase
 SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
 PAGE_SIZES = (16, 32, 48, 256)  # paged kernel checks
 PROFILE_TICKS = 10          # decode dispatches timed in the profile phase
+PREFILL_PROFILE_PROMPT = 4 * SERVE_CHUNK   # prompt of the prefill profile
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10   # device timing: calls a graph, replays
 
 # Attention tolerance, |kernel - plain| <= ATOL + RTOL * |plain|: the plain
@@ -60,11 +61,13 @@ TRAIN_HIDDEN_ATOL, TRAIN_LOSS_RTOL = 6.25e-2, 1e-3
 # order (|lse| <~ 10); each gradient (bf16, from bf16 p in the kernel's PV
 # against f32 p in the plain version) within 2 % of its largest magnitude.
 LSE_ATOL, GRAD_FRAC = 1e-4, 2e-2
-# Flash output row by row, ||kernel - plain|| / ||plain|| over each (batch,
-# query, head) row: both round to bf16 (2^-9 relative each), the plain
-# version's bf16 p averages out over the row. At long S a causal row is the
-# mean of many v rows (|o| ~ 0.05), where ATTN_ATOL alone would pass a
-# PV-side fault of several percent; this holds every row to 1 %.
+# Flash and prefill output row by row, ||kernel - plain|| / ||plain|| over
+# each (batch, query, head) row: both round the output to bf16 (2^-9
+# relative each); for PV the plain versions round the normalized p to
+# bf16, B7 the unnormalized p, B4/B6 keep p to ~16 bits (two bf16 terms),
+# which averages out over the row. At long S or W a row is the mean of
+# many v rows (|o| ~ 0.05), where ATTN_ATOL alone would pass a PV-side
+# fault of several percent; this holds every row to 1 %.
 ATTN_ROW_REL = 1e-2
 # Masked vs compacted model, each layer's attention and FFN output fed the
 # same input: cuBLAS sums the products that lose pruned terms (wo, down)
@@ -76,6 +79,16 @@ ATTN_ROW_REL = 1e-2
 SUBLAYER_REL = 2e-2
 # The launcher's calibration batch and HQP run at full width.
 CALIB_B, CALIB_S, PRUNE_STEPS = 2, 32, 3
+# B4/B6 at other head groupings and widths than the model's (Hq, Hkv, hd):
+# G = 1, 3 and 4, and hd 16 (the smoke config) and 128 (the published
+# Qwen3-0.6B)
+PREFILL_HEADS = ((8, 8, 64), (12, 4, 64), (16, 4, 64), (16, 8, 16),
+                 (16, 8, 128))
+# B4/B6 timed at the serve chunk (16 queries at 37 against a 64-position
+# window), a late chunk of a long prompt (16 at 240 against 256) and a
+# whole 256-token prompt (serial_decode's prefill): (Sq, start, W)
+PREFILL_TIMED = ((SERVE_CHUNK, 37, 64), (SERVE_CHUNK, 240, 256),
+                 (256, 0, 256))
 FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
                 (1, 1000, 16, 8, 64), (2, 256, 8, 8, 64),
                 (2, 256, 16, 8, 128))      # (B, S, Hq, Hkv, hd)
@@ -279,6 +292,25 @@ def _attn_err(out, want, what):
     return d.max().item()
 
 
+def _attn_rows(out, want, what):
+    """The worst ||kernel - plain|| / ||plain|| over the output rows; fails
+    over ATTN_ROW_REL."""
+    rows = ((out.float() - want.float()).norm(dim=-1)
+            / want.float().norm(dim=-1)).max().item()
+    if not rows <= ATTN_ROW_REL:
+        fail(f"{what}: a row of the output {rows:.4g} off the plain "
+             f"version's, over {ATTN_ROW_REL}")
+    return rows
+
+
+def _prefill_check(out, want, what, errs):
+    """B4/B6 against the plain version: the elementwise tolerance and every
+    row within ATTN_ROW_REL. ``errs`` keeps the largest |err| and the worst
+    row seen."""
+    errs[0] = max(errs[0], _attn_err(out, want, what))
+    errs[1] = max(errs[1], _attn_rows(out, want, what))
+
+
 def _sdpa(q, k, v, start, sq):
     """scaled_dot_product_attention on GQA heads expanded to Hq, with the
     per-row causal mask: the library yardstick for bf16 attention (a call
@@ -352,11 +384,75 @@ def phase_decode(dev, report):
         shape=f"q ({b}, {hq}, {hd}) vs INT8 KV ({b}, {w}, {hkv}, {hd})")
 
 
+def _prefill_bound(sq, st, w, quantized, n_table=0, hq=16, hkv=8, hd=64):
+    """q, out and start moved once; the KV prefix the chunk sees (with its
+    scales, INT8) and the table prefix (paged) read once; 4·hd operations
+    per visible causal (query, key) pair."""
+    visible = sum(min(st + i, w - 1) + 1 for i in range(sq))
+    seen = min(st + sq, w) * hkv
+    io = sq * hq * hd * 2 * 2 + 4 + n_table * 4
+    kv = seen * hd * 2 + seen * 4 * 2 if quantized else seen * hd * 2 * 2
+    return bound(kv + io, 4 * hq * hd * visible,
+                 "int8" if quantized else "bf16")
+
+
+def _prefill_times(dev, sq, st, w, page_size=None):
+    """B4 (or B6, through pages of ``page_size``) at q (1, sq, 16, 64) from
+    position st against a w-position window: device ms of the kernel and of
+    its plain version with INT8 and with bf16 KV, SDPA's on the bf16 KV
+    (paged: on the gathered window, the gather not timed), and the
+    bounds."""
+    import torch
+    from repro_torch.kernels import prefill_attention as kp, ref
+    from repro_torch.kernels.kv_layout import window_pages
+    hq, hkv, hd = 16, 8, 64
+    q = torch.randn(1, sq, hq, hd, device=dev).to(torch.bfloat16)
+    start = torch.full((1,), st, dtype=torch.int32, device=dev)
+    out = {}
+    for quantized in (True, False):
+        if page_size is None:
+            kv = _kv(dev, 1, w, hkv, hd, quantized)
+            n_table = 0
+            kern = lambda: kp.prefill_attention(q, *kv, start)
+            plain = lambda: ref.cached_attention_ref(q, *kv, start)
+        else:
+            arena, table = _paged_case(dev, page_size, quantized,
+                                       [st + sq - 1])
+            idx = window_pages(table, page_size, w).contiguous()
+            kv = _gathered(arena, idx)
+            n_table = idx.numel()
+            kern = lambda: kp.paged_prefill_attention(q, *arena, start, idx)
+            plain = lambda: ref.paged_prefill_attention_ref(q, *arena, start,
+                                                            idx)
+        b_ms, by = _prefill_bound(sq, st, w, quantized, n_table, hq, hkv, hd)
+        sdpa = None if quantized else _sdpa(q, kv[0], kv[1], start, sq)
+        r = out["int8" if quantized else "bf16"] = dict(
+            bound_ms=b_ms, bound_by=by, **timed(kern, plain, sdpa))
+        if page_size is not None and not quantized:
+            r["library"] = "SDPA on the gathered window, gather not timed"
+    return out
+
+
+def _prefill_report(errs, times, layout):
+    """The kernels-line entry of B4 or B6: the serve chunk's INT8 times at
+    the top, its bf16 ones under ``bf16_kv``, the longer shapes under
+    ``shapes``."""
+    (label, serve), *longer = times.items()
+    return dict(max_abs_err=errs[0], max_row_rel=errs[1], **serve["int8"],
+                bf16_kv=serve["bf16"], shape=f"{label}, INT8 KV{layout}",
+                shapes={k: v for k, v in longer})
+
+
 def phase_prefill(dev, report):
+    """B4 against its plain version (the tolerance, and every output row
+    within ATTN_ROW_REL) at ragged chunks, per-slot starts, queries past the
+    window's end and the PREFILL_HEADS groupings and widths; chunked ==
+    whole-prompt prefill bit for bit against one KV tile (53 tokens) and
+    against four (200); then the device times at PREFILL_TIMED."""
     import torch
     from repro_torch.kernels import prefill_attention as kp, ref
     hq, hkv, hd = 16, 8, 64
-    err = 0.0
+    errs = [0.0, 0.0]
     for quantized in (False, True):
         for sq in (16, 5, 1):
             for st in (0, 16, 37):
@@ -364,63 +460,54 @@ def phase_prefill(dev, report):
                 k, v, ks, vs = _kv(dev, 2, w, hkv, hd, quantized)
                 q = torch.randn(2, sq, hq, hd, device=dev).to(torch.bfloat16)
                 start = torch.tensor([st, 0], dtype=torch.int32, device=dev)
-                out = kp.prefill_attention(q, k, v, ks, vs, start)
-                want = ref.cached_attention_ref(q, k, v, ks, vs, start)
-                err = max(err, _attn_err(
-                    out, want, f"prefill Sq={sq} start={st} int8={quantized}"))
+                _prefill_check(kp.prefill_attention(q, k, v, ks, vs, start),
+                               ref.cached_attention_ref(q, k, v, ks, vs,
+                                                        start),
+                               f"prefill Sq={sq} start={st} int8={quantized}",
+                               errs)
         # queries at or past the window's end see the whole window
         for st, sq, w in ((15, 5, 16), (40, 3, 32)):
             k, v, ks, vs = _kv(dev, 2, w, hkv, hd, quantized)
             q = torch.randn(2, sq, hq, hd, device=dev).to(torch.bfloat16)
             start = torch.tensor([st, w - 2], dtype=torch.int32, device=dev)
-            err = max(err, _attn_err(
+            _prefill_check(
                 kp.prefill_attention(q, k, v, ks, vs, start),
                 ref.cached_attention_ref(q, k, v, ks, vs, start),
-                f"prefill W={w} start={st} past the window int8={quantized}"))
-        # chunk == whole on the kernel itself: a 53-token prompt in chunks of
-        # 16, each against its own 16-bucketed window
-        n, w = 53, 64
-        k, v, ks, vs = _kv(dev, 1, w, hkv, hd, quantized)
-        q = torch.randn(1, n, hq, hd, device=dev).to(torch.bfloat16)
-        zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        whole = kp.prefill_attention(q, k, v, ks, vs, zero)
-        win = lambda t, c: None if t is None else t[:, :c]
-        for lo in range(0, n, 16):
-            hi = min(n, lo + 16)
-            c = -(-hi // 16) * 16
-            part = kp.prefill_attention(
-                q[:, lo:hi].contiguous(), win(k, c), win(v, c), win(ks, c),
-                win(vs, c), torch.full((1,), lo, dtype=torch.int32,
-                                       device=dev))
-            torch.cuda.synchronize()
-            if not torch.equal(part, whole[:, lo:hi]):
-                fail(f"prefill chunk [{lo}, {hi}) int8={quantized} is not "
-                     f"bitwise equal to whole-prompt prefill")
-    # serve's prefill chunk: 16 queries at 37.. against a 64-token window,
-    # INT8 KV (the main path's) in the kernels line, bf16 KV beside it
-    sq, st, w = 16, 37, 64
-    k, v, _, _ = _kv(dev, 1, w, hkv, hd, False)
-    kq, vq, ks, vs = _kv(dev, 1, w, hkv, hd, True)
-    q = torch.randn(1, sq, hq, hd, device=dev).to(torch.bfloat16)
-    start = torch.full((1,), st, dtype=torch.int32, device=dev)
-    visible = sum(st + i + 1 for i in range(sq))    # causal (query, kv) pairs
-    n_ops = 4 * hq * hd * visible
-    seen = (st + sq) * hkv                          # the prefix the chunk sees
-    io = sq * hq * hd * 2 * 2 + 4                   # q, out, start
-    b_ms, by = bound(seen * hd * 2 + seen * 4 * 2 + io, n_ops, "int8")
-    b16_ms, b16_by = bound(seen * hd * 2 * 2 + io, n_ops, "bf16")
-    kern = lambda: kp.prefill_attention(q, kq, vq, ks, vs, start)
-    plain = lambda: ref.cached_attention_ref(q, kq, vq, ks, vs, start)
-    kern16 = lambda: kp.prefill_attention(q, k, v, None, None, start)
-    plain16 = lambda: ref.cached_attention_ref(q, k, v, None, None, start)
-    report["prefill_attention"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=by,
-        **timed(kern, plain),
-        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
-                     **timed(kern16, plain16,
-                             _sdpa(q, k, v, start, sq))),
-        shape=f"q (1, {sq}, {hq}, {hd}) at {st} vs INT8 KV (1, {w}, {hkv}, "
-              f"{hd})")
+                f"prefill W={w} start={st} past the window int8={quantized}",
+                errs)
+        # other head groupings and widths
+        for hq_, hkv_, hd_ in PREFILL_HEADS:
+            for sq, st, w in ((16, 37, 64), (5, 200, 256), (53, 0, 64)):
+                k, v, ks, vs = _kv(dev, 2, w, hkv_, hd_, quantized)
+                q = torch.randn(2, sq, hq_, hd_, device=dev).to(
+                    torch.bfloat16)
+                start = torch.tensor([st, 0], dtype=torch.int32, device=dev)
+                _prefill_check(
+                    kp.prefill_attention(q, k, v, ks, vs, start),
+                    ref.cached_attention_ref(q, k, v, ks, vs, start),
+                    f"prefill Hq={hq_} Hkv={hkv_} hd={hd_} Sq={sq} "
+                    f"start={st} int8={quantized}", errs)
+        # chunk == whole on the kernel itself: a prompt in chunks of 16,
+        # each against its own 16-bucketed window
+        for n, w in ((53, 64), (200, 256)):
+            k, v, ks, vs = _kv(dev, 1, w, hkv, hd, quantized)
+            q = torch.randn(1, n, hq, hd, device=dev).to(torch.bfloat16)
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            whole = kp.prefill_attention(q, k, v, ks, vs, zero)
+            win = lambda t, c: None if t is None else t[:, :c]
+            for lo in range(0, n, 16):
+                hi = min(n, lo + 16)
+                c = -(-hi // 16) * 16
+                part = kp.prefill_attention(
+                    q[:, lo:hi].contiguous(), win(k, c), win(v, c),
+                    win(ks, c), win(vs, c),
+                    torch.full((1,), lo, dtype=torch.int32, device=dev))
+                _equal(part, whole[:, lo:hi],
+                       f"prefill chunk [{lo}, {hi}) of {n} int8={quantized} "
+                       f"vs whole-prompt prefill")
+    times = {f"q (1, {sq}, {hq}, {hd}) at {st} vs KV (1, {w}, {hkv}, {hd})":
+             _prefill_times(dev, sq, st, w) for sq, st, w in PREFILL_TIMED}
+    report["prefill_attention"] = _prefill_report(errs, times, "")
 
 
 # ------------------------------------------------------------ paged kernels
@@ -508,75 +595,60 @@ def phase_paged_decode(dev, report):
 
 
 def phase_paged_prefill(dev, report):
+    """B6 against its plain version (as B4) and bit for bit against B4 on
+    the gathered window, at pages of PAGE_SIZES, ragged chunks and the
+    PREFILL_HEADS groupings and widths; chunked == whole-prompt prefill
+    against one KV tile and against four; then the device times at
+    PREFILL_TIMED through pages of SERVE_PAGE."""
     import torch
     from repro_torch.kernels import prefill_attention as kp, ref
     from repro_torch.kernels.kv_layout import page_count, window_pages
     b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
-    err = 0.0
+    errs = [0.0, 0.0]
     for quantized in (False, True):
         for ps in PAGE_SIZES:
-            for sq in (16, 5, 1):
+            heads = [(hq, hkv, hd, sq) for sq in (16, 5, 1)]
+            heads += [(hq_, hkv_, hd_, 16) for hq_, hkv_, hd_ in PREFILL_HEADS]
+            for hq_, hkv_, hd_, sq in heads:
                 starts = [0, 16, 37, 200 - sq]
                 window = -(-(max(starts) + sq) // 16) * 16
                 arena, table = _paged_case(
-                    dev, ps, quantized, [s + sq - 1 for s in starts])
+                    dev, ps, quantized, [s + sq - 1 for s in starts],
+                    hkv=hkv_, hd=hd_)
                 idx = window_pages(table, ps, window).contiguous()
                 start = torch.tensor(starts, dtype=torch.int32, device=dev)
-                q = torch.randn(b, sq, hq, hd, device=dev).to(torch.bfloat16)
-                what = f"paged prefill page={ps} Sq={sq} int8={quantized}"
+                q = torch.randn(b, sq, hq_, hd_, device=dev).to(
+                    torch.bfloat16)
+                what = (f"paged prefill page={ps} Hq={hq_} Hkv={hkv_} "
+                        f"hd={hd_} Sq={sq} int8={quantized}")
                 out = kp.paged_prefill_attention(q, *arena, start, idx)
-                err = max(err, _attn_err(
-                    out, ref.paged_prefill_attention_ref(q, *arena, start,
-                                                         idx), what))
+                _prefill_check(out, ref.paged_prefill_attention_ref(
+                    q, *arena, start, idx), what, errs)
                 _equal(out, kp.prefill_attention(q, *_gathered(arena, idx),
                                                  start), what + " vs B4")
-            # chunk == whole: a 53-token prompt in chunks of 16, each chunk
-            # against the page-rounded window the engine would give it
-            n = 53
-            arena, table = _paged_case(dev, ps, quantized, [n - 1])
-            q = torch.randn(1, n, hq, hd, device=dev).to(torch.bfloat16)
-            zero = torch.zeros(1, dtype=torch.int32, device=dev)
-            whole = kp.paged_prefill_attention(
-                q, *arena, zero, window_pages(table, ps, 64).contiguous())
-            for lo in range(0, n, 16):
-                hi = min(n, lo + 16)
-                c = page_count(-(-hi // 16) * 16, ps) * ps
-                part = kp.paged_prefill_attention(
-                    q[:, lo:hi].contiguous(), *arena,
-                    torch.full((1,), lo, dtype=torch.int32, device=dev),
-                    window_pages(table, ps, c).contiguous())
-                _equal(part, whole[:, lo:hi],
-                       f"paged prefill page={ps} chunk [{lo}, {hi}) "
-                       f"int8={quantized} vs whole prompt")
-    # serve's paged prefill chunk: 16 queries at 37.. against a 64-token
-    # window in pages of 16, INT8 KV (the main path's), bf16 KV beside it
-    sq, st, w, ps = 16, 37, 64, SERVE_PAGE
-    arena_q, table = _paged_case(dev, ps, True, [st + sq - 1])
-    arena_b, _ = _paged_case(dev, ps, False, [st + sq - 1])
-    idx = window_pages(table, ps, w).contiguous()
-    q = torch.randn(1, sq, hq, hd, device=dev).to(torch.bfloat16)
-    start = torch.full((1,), st, dtype=torch.int32, device=dev)
-    visible = sum(st + i + 1 for i in range(sq))    # causal (query, kv) pairs
-    n_ops = 4 * hq * hd * visible
-    seen = (st + sq) * hkv                          # the prefix the chunk sees
-    io = sq * hq * hd * 2 * 2 + 4 + idx.numel() * 4  # q, out, start, table
-    b_ms, by = bound(seen * hd * 2 + seen * 4 * 2 + io, n_ops, "int8")
-    b16_ms, b16_by = bound(seen * hd * 2 * 2 + io, n_ops, "bf16")
-    gk, gv, _, _ = _gathered(arena_b, idx)
-    kern = lambda: kp.paged_prefill_attention(q, *arena_q, start, idx)
-    plain = lambda: ref.paged_prefill_attention_ref(q, *arena_q, start, idx)
-    kern16 = lambda: kp.paged_prefill_attention(q, *arena_b, start, idx)
-    plain16 = lambda: ref.paged_prefill_attention_ref(q, *arena_b, start, idx)
-    report["paged_prefill_attention"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=by,
-        **timed(kern, plain),
-        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
-                     **timed(kern16, plain16,
-                             _sdpa(q, gk, gv, start, sq)),
-                     library="SDPA on the gathered window, gather not "
-                             "timed"),
-        shape=f"q (1, {sq}, {hq}, {hd}) at {st} vs INT8 arena, pages of "
-              f"{ps}, window {w}")
+            # chunk == whole: a prompt in chunks of 16, each chunk against
+            # the page-rounded window the engine would give it
+            for n, w in ((53, 64), (200, 256)):
+                arena, table = _paged_case(dev, ps, quantized, [n - 1])
+                q = torch.randn(1, n, hq, hd, device=dev).to(torch.bfloat16)
+                zero = torch.zeros(1, dtype=torch.int32, device=dev)
+                whole = kp.paged_prefill_attention(
+                    q, *arena, zero, window_pages(table, ps, w).contiguous())
+                for lo in range(0, n, 16):
+                    hi = min(n, lo + 16)
+                    c = page_count(-(-hi // 16) * 16, ps) * ps
+                    part = kp.paged_prefill_attention(
+                        q[:, lo:hi].contiguous(), *arena,
+                        torch.full((1,), lo, dtype=torch.int32, device=dev),
+                        window_pages(table, ps, c).contiguous())
+                    _equal(part, whole[:, lo:hi],
+                           f"paged prefill page={ps} chunk [{lo}, {hi}) of "
+                           f"{n} int8={quantized} vs whole prompt")
+    times = {f"q (1, {sq}, {hq}, {hd}) at {st} vs window {w}":
+             _prefill_times(dev, sq, st, w, SERVE_PAGE)
+             for sq, st, w in PREFILL_TIMED}
+    report["paged_prefill_attention"] = _prefill_report(
+        errs, times, f" arena, pages of {SERVE_PAGE}")
 
 
 # ------------------------------------------------------------ flash (train)
@@ -619,12 +691,7 @@ def phase_flash(dev, report):
         out, lse = kf.flash_attention_fwd(q, k, v)
         want, want_lse = ref.flash_attention_lse_ref(q, k, v)
         err = max(err, _attn_err(out, want, what))
-        rows = ((out.float() - want.float()).norm(dim=-1)
-                / want.float().norm(dim=-1)).max().item()
-        row_rel = max(row_rel, rows)
-        if not rows <= ATTN_ROW_REL:
-            fail(f"{what}: a row of the output {rows:.4g} off the plain "
-                 f"version's, over {ATTN_ROW_REL}")
+        row_rel = max(row_rel, _attn_rows(out, want, what))
         d = (lse - want_lse).abs().max().item()
         if not d <= LSE_ATOL:
             fail(f"{what}: max |lse - plain| = {d:.4g} over {LSE_ATOL}")
@@ -1003,40 +1070,110 @@ def phase_profile(params, cfg, dev, kernels):
                 launches[layout][n] += kern.launches
     steps = PROFILE_TICKS * SERVE_STEPS
     out = {}
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for layout, eng in engines.items():
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            for _ in range(2):
-                tick(eng)
-            prof_wall_ms = (time.monotonic() - t0) * 1e3
-        groups, n_kernels = {}, 0
-        for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                g = _group(evt.name, kernels)
-                groups[g] = (groups.get(g, 0.0)
-                             + evt.time_range.elapsed_us() / 1e3)
-                n_kernels += 1
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=15))
-        busy_ms = sum(groups.values())
         prof_steps = 2 * SERVE_STEPS
+        prof = _profiled(lambda: [tick(eng) for _ in range(2)], kernels)
         step_ms = wall[layout] / steps * 1e3
         out[layout] = {
             "decode_step_ms": step_ms,
             "tokens_per_s": SERVE_SLOTS / step_ms * 1e3,
             "port_launches_per_step": {n: c / steps for n, c
                                        in launches[layout].items()},
-            "profiled_device_kernels_per_step": n_kernels / prof_steps,
-            "profiled_wall_ms_per_step": prof_wall_ms / prof_steps,
-            "device_busy_ms_per_step": busy_ms / prof_steps,
-            "device_idle_share": (1 - busy_ms / prof_wall_ms if busy_ms
-                                  else None),
-            "device_ms_per_step_by_group": {
-                g: v / prof_steps for g, v in sorted(groups.items())},
+            **_per(prof, prof_steps, "step"),
         }
     return out
+
+
+def _profiled(run, kernels):
+    """``run`` under torch.profiler: the host wall ms around it, the number
+    of device kernels and their device ms summed by group. Prints the
+    profiler's table."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        run()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    groups, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            g = _group(evt.name, kernels)
+            groups[g] = groups.get(g, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=15))
+    return dict(wall_ms=wall_ms, n_kernels=n_kernels, groups=groups)
+
+
+def _per(prof, n, unit):
+    """A ``_profiled`` result per ``unit`` (n of them), with the device busy
+    ms over the host wall ms as the idle share."""
+    busy_ms = sum(prof["groups"].values())
+    return {
+        f"profiled_device_kernels_per_{unit}": prof["n_kernels"] / n,
+        f"profiled_wall_ms_per_{unit}": prof["wall_ms"] / n,
+        f"device_busy_ms_per_{unit}": busy_ms / n,
+        "device_idle_share": (1 - busy_ms / prof["wall_ms"] if busy_ms
+                              else None),
+        f"device_ms_per_{unit}_by_group": {
+            g: v / n for g, v in sorted(prof["groups"].items())},
+    }
+
+
+def phase_profile_prefill(params, cfg, dev, kernels):
+    """Where a full-width prefill chunk's time goes: one request with a
+    PREFILL_PROFILE_PROMPT-token prompt, INT8 KV, chunks of SERVE_CHUNK,
+    contiguous and paged (pages of SERVE_PAGE). The first chunk warms the
+    path, the second is timed on the host clock, and the last two run under
+    torch.profiler, whose device kernel time is summed by group (B4/B6 are
+    ``prefill_attention`` / ``paged_prefill_attention``). Device busy over
+    host wall gives the idle share."""
+    import torch
+    from repro_torch.serving import Engine, Request, SchedulerConfig
+    prompt = _tokens(cfg, PREFILL_PROFILE_PROMPT,
+                     torch.Generator().manual_seed(2))
+    out = {}
+    for layout, page_size in (("contiguous", None), ("paged", SERVE_PAGE)):
+        eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                     sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
+                                           decode_steps=SERVE_STEPS),
+                     quantized_kv=True, device=dev, page_size=page_size)
+        eng.submit(Request(prompt, 8))
+
+        def tick():
+            eng.step()
+            torch.cuda.synchronize(dev)
+
+        tick()
+        t0 = time.monotonic()
+        tick()
+        host_ms = (time.monotonic() - t0) * 1e3
+        for kern in kernels.values():
+            kern.launches = 0
+        prof = _profiled(lambda: [tick() for _ in range(2)], kernels)
+        kern = "paged_prefill_attention" if page_size else "prefill_attention"
+        if (eng.stats["prefill_ticks"] != 4 or eng.stats["decode_ticks"]
+                or kernels[kern].launches != 2 * cfg.n_layers):
+            fail(f"prefill profile {layout}: {eng.stats['prefill_ticks']} "
+                 f"prefill ticks, {eng.stats['decode_ticks']} decode ticks, "
+                 f"{kernels[kern].launches} {kern} launches in the profiled "
+                 f"two; expected 4, 0 and {2 * cfg.n_layers}")
+        out[layout] = {
+            "chunk_host_ms": host_ms,
+            "port_launches_per_chunk": {n: k.launches / 2
+                                        for n, k in kernels.items()},
+            **_per(prof, 2, "chunk"),
+        }
+    return out
+
+
+def _times(o) -> str:
+    lib = ("n/a" if o["library_ms"] is None else
+           f"({o.get('library', 'SDPA')}) {o['library_ms']:.5f}")
+    return (f"kernel {o['ms']:.5f} ms (device), wrapper {o['wrapper_ms']:.4f} "
+            f"ms, plain {o['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{o['bound_ms']:.6f} ms ({o['bound_by']})")
 
 
 def main() -> int:
@@ -1085,29 +1222,25 @@ def main() -> int:
                   phase_flash):
         phase(dev, report)
     for name, r in report.items():
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
-        print(f"[kernel] {name} at {r['shape']}: kernel {r['ms']:.5f} ms "
-              f"(device), wrapper {r['wrapper_ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-              f"{r['bound_ms']:.6f} ms ({r['bound_by']}), max |err| "
-              f"{r['max_abs_err']:.3g}  [{card}]")
+        print(f"[kernel] {name} at {r['shape']}: " + _times(r)
+              + f", max |err| {r['max_abs_err']:.3g}  [{card}]")
         if "max_row_rel" in r:
-            print(f"[kernel] {name} output rows over the {len(FLASH_SHAPES)} "
-                  f"checked shapes: max ||kernel - plain|| / ||plain|| "
+            print(f"[kernel] {name} output rows over its checked shapes: "
+                  f"max ||kernel - plain|| / ||plain|| "
                   f"{r['max_row_rel']:.4g} (limit {ATTN_ROW_REL})  [{card}]")
         for key, label in (("bf16_kv", "with bf16 KV"), ("long_s", "")):
             if key in r:
-                o = r[key]
-                print(f"[kernel] {name} {label or 'at ' + o['shape']}: "
-                      f"kernel {o['ms']:.5f} ms (device), wrapper "
-                      f"{o['wrapper_ms']:.4f} ms, plain {o['plain_ms']:.4f} "
-                      f"ms, library ({o.get('library', 'SDPA')}) "
-                      f"{o['library_ms']:.5f} ms, bound {o['bound_ms']:.6f} "
-                      f"ms ({o['bound_by']})  [{card}]")
+                print(f"[kernel] {name} {label or 'at ' + r[key]['shape']}: "
+                      + _times(r[key]) + f"  [{card}]")
         for shape, o in r.get("shapes", {}).items():
-            print(f"[kernel] {name} at {shape}: kernel {o['ms']:.5f} ms "
-                  f"(device), bound {o['bound_ms']:.6f} ms ({o['bound_by']}), "
-                  f"{o['plan']}  [{card}]")
+            if "plan" in o:
+                print(f"[kernel] {name} at {shape}: kernel {o['ms']:.5f} ms "
+                      f"(device), bound {o['bound_ms']:.6f} ms "
+                      f"({o['bound_by']}), {o['plan']}  [{card}]")
+                continue
+            for kv, t in o.items():
+                print(f"[kernel] {name} at {shape}, {kv} KV: " + _times(t)
+                      + f"  [{card}]")
     e2e, h_err, loss_dev, loss_cpu = phase_small_e2e(dev)
     print(f"[e2e] smoke model, card vs CPU plain path: max |logit diff| "
           f"{e2e:.4g}; train route max |hidden diff| {h_err:.4g}, loss "
@@ -1211,6 +1344,11 @@ def main() -> int:
     for layout, prof in phase_profile(params, cfg, dev, kernels).items():
         print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots, "
               f"{layout}: {json.dumps(prof)}  [{card}]")
+    for layout, prof in phase_profile_prefill(params, cfg, dev,
+                                              kernels).items():
+        print(f"[profile] prefill chunk, {SERVE_CHUNK} queries at positions "
+              f"{2 * SERVE_CHUNK}-{PREFILL_PROFILE_PROMPT - 1}, INT8 KV, "
+              f"{layout}: {json.dumps(prof)}  [{card}]")
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
@@ -1230,7 +1368,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("bf16_kv", "long_s", "shapes") if k in r}})
+            **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s", "shapes")
+               if k in r}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

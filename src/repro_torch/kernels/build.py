@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports plain C functions that take device pointers,
 ints and the CUDA stream, launch one kernel, and return
 ``cudaGetLastError()``. ``nvcc`` compiles each source into its own shared
 library under ``build/repro_torch/`` at the repo root (``.gitignore`` lists
-``build/``), at first use, keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+``build/``), at first use, keyed by a hash of the source, the ``csrc``
+headers it includes and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 ``build`` starts one ``nvcc`` per missing library, all at once, and keeps
 each one's ``-Xptxas -v`` report in ``logs``.
 
@@ -70,10 +71,28 @@ def ptxas_summary(log: str) -> List[Tuple[str, int, int, int]]:
     return out
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[pathlib.Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes (``#include
+    "..."``), transitively, each once."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

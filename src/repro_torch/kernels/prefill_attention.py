@@ -1,10 +1,15 @@
 """Chunked-prefill attention over a slotted KV window or a paged KV arena:
 the wrappers of ``csrc/prefill_attention.cu`` (replace
-``prefill_attention_pallas`` and ``paged_prefill_attention_pallas``)."""
+``prefill_attention_pallas`` and ``paged_prefill_attention_pallas``).
+
+``prefill_plan`` is the host side of the kernel's tiling: the warps a block
+and the grid, which is all the launch passes. The kernel keeps its own tile
+constants and shared-memory size."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -14,13 +19,52 @@ from repro_torch.kernels.decode_attention import kv_args, paged_kv_args
 KERNEL = build.Kernel("prefill_attention", "prefill_attention",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                       + [ctypes.c_longlong] * 2
-                      + [ctypes.c_int, ctypes.c_float])
+                      + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2)
 
 PAGED_KERNEL = build.Kernel("prefill_attention", "paged_prefill_attention",
                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                            + [ctypes.c_float])
+                            + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 G_MAX = 32
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instances: 16 the smoke config,
+                                # 64 the repo's qwen3-0.6b, 128 the published
+ROWS_PER_WARP = 16              # one m16 MMA tile, as in the kernel
+MAX_WARPS = 4
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    warps: int                      # a block's warps: 16 rows each
+    grid: Tuple[int, int, int]      # (Hkv, query tiles, B)
+
+
+def prefill_plan(b: int, sq: int, hkv: int, g: int) -> PrefillPlan:
+    """The launch: as few warps as hold the chunk's Sq * G rows (at least
+    ceil(G / 16), so that a block takes one whole query, at most 4), a block
+    taking floor(16 * warps / G) queries; one block per (kv head, query
+    tile, slot). The serve chunk (16 queries, G = 2) is one 2-warp block a
+    kv head."""
+    need = -(-sq * g // ROWS_PER_WARP)
+    warps = min(MAX_WARPS, max(need, -(-g // ROWS_PER_WARP)))
+    bq = ROWS_PER_WARP * warps // g
+    return PrefillPlan(warps=warps, grid=(hkv, -(-sq // bq), b))
+
+
+def _check_launch(name: str, q: torch.Tensor, k: torch.Tensor, g: int,
+                  hd: int) -> None:
+    """What the kernel takes beyond the KV checks: its head dims, G, q
+    read two values at a time and K/V copied 16 bytes at a time."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd}; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if g > G_MAX:
+        raise ValueError(f"{name}: {g} query heads a kv head, at most "
+                         f"{G_MAX}")
+    if q.data_ptr() % 4:
+        raise ValueError(f"{name}: q must start 4-byte aligned")
+    if k.data_ptr() % 16 or (k.stride(0) * k.element_size()) % 16:
+        raise ValueError(f"{name}: k/v must start 16-byte aligned with a "
+                         f"batch stride of a multiple of 16 bytes")
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,14 +82,17 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs, (b, w, hkv, g, hd), strides, quantized = kv_args(
         "prefill_attention", q.shape[2], k, v, k_s, v_s, start)
     sq = q.shape[1]
-    if q.shape != (b, sq, hkv * g, hd) or g > G_MAX:
+    if q.shape != (b, sq, hkv * g, hd):
         raise ValueError(f"prefill_attention: q {tuple(q.shape)} against "
                          f"k {tuple(k.shape)}")
+    _check_launch("prefill_attention", q, k, g, hd)
     build.check_int32("prefill_attention", sq)
+    plan = prefill_plan(b, sq, hkv, g)
     out = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), *ptrs, start.data_ptr(), out.data_ptr(),
                   b, sq, w, hkv, g, hd, *strides, quantized,
-                  float(hd ** -0.5), stream=build.stream_of(q))
+                  float(hd ** -0.5), plan.warps, plan.grid[1],
+                  stream=build.stream_of(q))
     return out
 
 
@@ -66,13 +113,15 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     ptrs, (b, n_blk, ps, hkv, g, hd), quantized = paged_kv_args(
         "paged_prefill_attention", q.shape[2], k, v, k_s, v_s, start, pages)
     sq = q.shape[1]
-    if q.shape != (b, sq, hkv * g, hd) or g > G_MAX:
+    if q.shape != (b, sq, hkv * g, hd):
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} "
                          f"against k {tuple(k.shape)}, pages "
                          f"{tuple(pages.shape)}")
+    _check_launch("paged_prefill_attention", q, k, g, hd)
     build.check_int32("paged_prefill_attention", sq)
+    plan = prefill_plan(b, sq, hkv, g)
     out = torch.empty_like(q)
     PAGED_KERNEL.launch(q.data_ptr(), *ptrs, out.data_ptr(), b, sq, n_blk,
                         ps, hkv, g, hd, quantized, float(hd ** -0.5),
-                        stream=build.stream_of(q))
+                        plan.warps, plan.grid[1], stream=build.stream_of(q))
     return out

@@ -1,17 +1,20 @@
 """The host side of the port's redesigned kernels, on the CPU: the launch
-plans that ``kernels/int8_matmul.py`` (B1) and ``kernels/flash_attention.py``
-(B7) hand to their CUDA kernels. The kernels themselves run only on the
-card (``chip_smoke.py``); these tests hold the plans to what the kernels
-assume: every output tile and every K row covered exactly once, enough
-blocks to fill the H100's 132 SMs at decode shapes, shared memory within a
-Hopper block's 232,448 bytes, copy widths that divide the row pitch, and a
-split-K workspace that the model's shapes never outgrow."""
+plans that ``kernels/int8_matmul.py`` (B1), ``kernels/flash_attention.py``
+(B7) and ``kernels/prefill_attention.py`` (B4, B6) hand to their CUDA
+kernels, and the build key. The kernels themselves run only on the card
+(``chip_smoke.py``); these tests hold the plans to what the kernels assume:
+every output tile, every K row and every (query, head) row covered exactly
+once, enough blocks to fill the H100's 132 SMs at decode shapes, shared
+memory within a Hopper block's 232,448 bytes, copy widths that divide the
+row pitch, and a split-K workspace that the model's shapes never outgrow;
+and a library rebuilt when a header it includes changes."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import int8_matmul as km  # noqa: E402
+from repro_torch.kernels import prefill_attention as kp  # noqa: E402
 
 D_MODEL, D_FF, KV = 1024, 3072, 512       # qwen3-0.6b at the repo's hd 64
 DECODE_KN = [(D_MODEL, KV), (D_MODEL, D_MODEL), (D_MODEL, D_FF),
@@ -89,6 +92,68 @@ def test_flash_plan_covers_every_row(b, s, hq, hkv):
     heads, tiles, batch = plan.grid
     assert (heads, batch) == (hkv, b)
     assert (tiles - 1) * plan.queries < s <= tiles * plan.queries
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("sq", [1, 5, 16, 53, 256])
+def test_prefill_plan_covers_every_row(sq, g):
+    """Every (query, head) row of a chunk falls in exactly one block, row
+    r of tile y being query y * bq + r // G of head r % G, with bq =
+    floor(16 * warps / G) as in the kernel; no tile starts past Sq."""
+    b, hkv = 2, 3
+    plan = kp.prefill_plan(b, sq, hkv, g)
+    assert 1 <= plan.warps <= kp.MAX_WARPS
+    heads, tiles, batch = plan.grid
+    assert (heads, batch) == (hkv, b)
+    rows = kp.ROWS_PER_WARP * plan.warps
+    bq = rows // g
+    assert bq >= 1
+    seen = {}
+    for y in range(tiles):
+        assert y * bq < sq                      # no tile starts past Sq
+        for r in range(bq * g):
+            qi, head = y * bq + r // g, r % g
+            if qi < sq:
+                seen[qi, head] = seen.get((qi, head), 0) + 1
+    assert seen == {(qi, head): 1 for qi in range(sq) for head in range(g)}
+
+
+def test_prefill_plan_sizes_the_block_to_the_chunk():
+    """The serve chunk (16 queries, G = 2) is one 2-warp block a kv head; a
+    whole 256-token prompt takes 64-row blocks; one query of G = 32 heads
+    needs two warps."""
+    assert kp.prefill_plan(1, 16, 8, 2) == kp.PrefillPlan(2, (8, 1, 1))
+    assert kp.prefill_plan(1, 256, 8, 2) == kp.PrefillPlan(4, (8, 8, 1))
+    assert kp.prefill_plan(4, 1, 8, 2) == kp.PrefillPlan(1, (8, 1, 4))
+    assert kp.prefill_plan(1, 1, 1, 32) == kp.PrefillPlan(2, (1, 1, 1))
+    assert kp.prefill_plan(1, 3, 1, 32) == kp.PrefillPlan(4, (1, 2, 1))
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A library is keyed on its source and every csrc header it includes:
+    an edited header gives a new path (a rebuild), an unrelated one does
+    not."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// v1\n")
+    (csrc / "other.cuh").write_text("// v1\n")
+    (csrc / "kern.cu").write_text('#include <stdint.h>\n'
+                                  '  #include "outer.cuh"\n')
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    assert [p.name for p in build.source_files("kern")] == [
+        "kern.cu", "outer.cuh", "inner.cuh"]
+    first = build.library_path("kern")
+    assert first.parent == tmp_path / "build"
+    (csrc / "other.cuh").write_text("// v2\n")
+    assert build.library_path("kern") == first
+    (csrc / "inner.cuh").write_text("// v2\n")
+    second = build.library_path("kern")
+    assert second != first
+    (csrc / "kern.cu").write_text('#include "outer.cuh"\n')
+    assert build.library_path("kern") not in (first, second)
 
 
 def test_gemm_workspace_is_made_once_and_never_freed():

@@ -127,18 +127,18 @@ def test_ops_int8_matmul_quantizes_activations():
 B, HQ, HKV, HD = 3, 8, 4, 32
 
 
-def _cache(seed, w, quantized):
+def _cache(seed, w, quantized, hkv=HKV, hd=HD):
     rng = np.random.RandomState(seed)
     if quantized:
-        kq = rng.randint(-127, 128, (B, w, HKV, HD)).astype(np.int8)
-        vq = rng.randint(-127, 128, (B, w, HKV, HD)).astype(np.int8)
-        ks = (rng.rand(B, w, HKV) * 0.02 + 0.005).astype(np.float32)
-        vs = (rng.rand(B, w, HKV) * 0.02 + 0.005).astype(np.float32)
+        kq = rng.randint(-127, 128, (B, w, hkv, hd)).astype(np.int8)
+        vq = rng.randint(-127, 128, (B, w, hkv, hd)).astype(np.int8)
+        ks = (rng.rand(B, w, hkv) * 0.02 + 0.005).astype(np.float32)
+        vs = (rng.rand(B, w, hkv) * 0.02 + 0.005).astype(np.float32)
         arrays = {"k_q": kq, "v_q": vq, "k_s": ks, "v_s": vs}
         return ({k: jnp.asarray(a) for k, a in arrays.items()},
                 {k: torch.from_numpy(a) for k, a in arrays.items()})
-    kj, kt = _bf16(rng.randn(B, w, HKV, HD))
-    vj, vt = _bf16(rng.randn(B, w, HKV, HD))
+    kj, kt = _bf16(rng.randn(B, w, hkv, hd))
+    vj, vt = _bf16(rng.randn(B, w, hkv, hd))
     return {"k": kj, "v": vj}, {"k": kt, "v": vt}
 
 
@@ -162,6 +162,22 @@ def test_prefill_attention_vs_oracle_and_pallas(quantized, sq, starts,
                                            jnp.asarray(start), bq=8, bk=16,
                                            interpret=True)
     np.testing.assert_allclose(_f32(out), _f32(pallas), **ATTN_PALLAS)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hq,hkv,hd", [(4, 4, 64), (6, 2, 16), (8, 2, 128)])
+def test_prefill_attention_heads_and_widths_vs_oracle(quantized, hq, hkv,
+                                                      hd):
+    """The plain prefill at the other head groupings (G = 1, 3, 4) and
+    widths (hd 16, 64, 128) that the card holds its kernel to."""
+    sq = 7
+    cj, ct = _cache(hq * 100 + hd, 48, quantized, hkv, hd)
+    qj, qt = _bf16(np.random.RandomState(hd).randn(B, sq, hq, hd))
+    start = np.asarray([40, 3, 17], np.int32)
+    out = ops.prefill_attention(qt, ct, torch.from_numpy(start))
+    want = jops.cached_attention(qj, cj, jnp.asarray(start), None)
+    assert out.shape == (B, sq, hq, hd)
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
