@@ -2,16 +2,17 @@
 """Quickest proof that the PyTorch port runs on the card: build the CUDA
 kernels, hold each against its plain PyTorch version at the shapes of the
 serving path (the paged ones also bit for bit against their contiguous
-twins on the gathered window) and of the train route (the causal flash
-kernel, its backward too), then serve the full-width qwen3-0.6b (random
-weights from a seed, INT8 PTQ) through the continuous-batching engine, with
-a contiguous KV pool and with a paged KV arena and its prefix cache, and
-check every request against serial decode; then run the HQP compression
-path at full width (Fisher pass, conditional pruning, compaction, PTQ)
-through the causal flash kernel, hold the masked model against the
-compacted one, and serve the pruned artifact, contiguous and paged, against
-serial decode; last, profile a steady decode dispatch (where its time goes
-on the card).
+twins on the gathered window; decode attention also across its split-KV
+segments, windowed == full, and up to 40,960 positions) and of the train
+route (the causal flash kernel, its backward too), then serve the
+full-width qwen3-0.6b (random weights from a seed, INT8 PTQ) through the
+continuous-batching engine, with a contiguous KV pool and with a paged KV
+arena and its prefix cache, and check every request against serial decode;
+then run the HQP compression path at full width (Fisher pass, conditional
+pruning, compaction, PTQ) through the causal flash kernel, hold the masked
+model against the compacted one, and serve the pruned artifact, contiguous
+and paged, against serial decode; last, profile a steady decode dispatch
+(where its time goes on the card).
 
     python3 chip_smoke.py
 
@@ -26,6 +27,7 @@ same way, and ``wrapper_ms`` is the host-issued rate of the wrapper.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import pathlib
 import subprocess
@@ -39,6 +41,9 @@ SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_CHUNK, SERVE_STEPS = 4, 256, 16, 4
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 6, 48, 32
 SERVE_PAGE = 16             # page size of the paged serve phase
 SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
+# long-prompt load: one prompt that decodes across the first split-KV
+# segment boundary (256), one past it, at a larger max_seq
+LONG_PROMPTS, LONG_NEW, LONG_MAX_SEQ = (250, 300), 16, 512
 PAGE_SIZES = (16, 32, 48, 256)  # paged kernel checks
 PROFILE_TICKS = 10          # decode dispatches timed in the profile phase
 PREFILL_PROFILE_PROMPT = 4 * SERVE_CHUNK   # prompt of the prefill profile
@@ -92,6 +97,15 @@ PREFILL_TIMED = ((SERVE_CHUNK, 37, 64), (SERVE_CHUNK, 240, 256),
 FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
                 (1, 1000, 16, 8, 64), (2, 256, 8, 8, 64),
                 (2, 256, 16, 8, 128))      # (B, S, Hq, Hkv, hd)
+# B3/B5 checked at these windows, and at other head groupings and widths
+# than the model's: those of B4/B6, and G = 16 (the kernel's most, one m16
+# tile)
+DECODE_WINDOWS = (16, 64, 256, 1024, 4096)
+DECODE_HEADS = ((16, 8, 64),) + PREFILL_HEADS + ((16, 1, 64),)
+# B3/B5 timed beyond the serve shape, every slot at W - 1: (W, bytes of KV
+# the calls rotate through; 0: one set, already past the 50 MB L2)
+DECODE_TIMED = ((4096, 100_000_000), (32768, 0))
+B5_LONG = 40960      # qwen3-0.6b's max_seq_len: 2,560 pages of 16 a slot
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
@@ -233,7 +247,7 @@ def phase_int8_matmul(dev, report):
     widths = {v for v, _, _ in seen}
     if widths != {16, 8, 4, 1} or {xv for _, xv, _ in seen} != {4, 1}:
         fail(f"int8_matmul: copy widths checked {sorted(widths)}")
-    ws_left = sum(w.abs().sum().item() for w in km.workspaces(dev))
+    _, ws_left = _scratch(dev)
     if ws_left:
         fail(f"int8_matmul: split-K workspace not reset ({ws_left})")
     splits = sorted({sp for _, _, sp in seen})
@@ -303,8 +317,8 @@ def _attn_rows(out, want, what):
     return rows
 
 
-def _prefill_check(out, want, what, errs):
-    """B4/B6 against the plain version: the elementwise tolerance and every
+def _attn_check(out, want, what, errs):
+    """B3-B6 against the plain version: the elementwise tolerance and every
     row within ATTN_ROW_REL. ``errs`` keeps the largest |err| and the worst
     row seen."""
     errs[0] = max(errs[0], _attn_err(out, want, what))
@@ -328,60 +342,153 @@ def _sdpa(q, k, v, start, sq):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
-def phase_decode(dev, report):
+def _decode_starts(w, seg):
+    """Six slots: at 0, around the first segment boundary, at the window's
+    last position and past it (which sees the whole window)."""
+    return [0, seg - 1, seg, seg + 1, w - 1, w + 5]
+
+
+def _decode_bound(b, w, quantized, n_table=0, hq=16, hkv=8, hd=64):
+    """q, out and start moved once; each slot's w visible positions of KV
+    (with their scales, INT8) and its table entries (paged) read once;
+    4·hd operations per (query head, visible position)."""
+    n_kv = b * w * hkv * hd
+    io = b * hq * hd * 2 * 2 + b * 4 + n_table * 4
+    kv = n_kv * 2 + b * w * hkv * 4 * 2 if quantized else n_kv * 2 * 2
+    return bound(kv + io, 4 * b * hq * hd * w, "int8" if quantized else "bf16")
+
+
+def _rotating(fns):
+    """One call that runs the next of ``fns`` each time, in turn."""
+    it = itertools.count()
+    return lambda: fns[next(it) % len(fns)]()
+
+
+def _decode_times(dev, w, rotate_bytes=0, page_size=None):
+    """B3 (or B5, through pages of ``page_size``) at q (4, 16, 64), every
+    slot at w - 1 against a w-position window: device ms of the kernel and
+    of its plain version with INT8 and with bf16 KV, SDPA's on the bf16 KV
+    (paged: on the gathered window, the gather not timed), and the bounds.
+    With ``rotate_bytes``, each call takes the next of as many KV sets as
+    hold that many bytes, so that a launch reads its KV from device memory
+    and not from the 50 MB L2."""
     import torch
     from repro_torch.kernels import decode_attention as kd, ref
+    from repro_torch.kernels.kv_layout import page_count, window_pages
     b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
-    err = 0.0
-    for quantized in (False, True):
-        for w in (16, 64, 256):
-            k, v, ks, vs = _kv(dev, b, 256, hkv, hd, quantized)
-            start = torch.tensor([0, w - 1, w // 3, (2 * w) // 3],
-                                 dtype=torch.int32, device=dev)
-            q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
-            win = lambda t: None if t is None else t[:, :w]
-            out = kd.decode_attention(q, win(k), win(v), win(ks), win(vs),
-                                      start)
-            want = ref.decode_attention_ref(q, win(k), win(v), win(ks),
-                                            win(vs), start)
-            err = max(err, _attn_err(out, want,
-                                     f"decode W={w} int8={quantized}"))
-            full = kd.decode_attention(q, k, v, ks, vs, start)
-            torch.cuda.synchronize()
-            if not torch.equal(out, full):
-                fail(f"decode W={w} int8={quantized}: windowed != full")
-        # slots at or past the window's end see the whole window
-        w = 16
-        k, v, ks, vs = _kv(dev, b, w, hkv, hd, quantized)
-        start = torch.tensor([w - 1, w, w + 7, 3 * w], dtype=torch.int32,
-                             device=dev)
-        q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
-        err = max(err, _attn_err(
-            kd.decode_attention(q, k, v, ks, vs, start),
-            ref.decode_attention_ref(q, k, v, ks, vs, start),
-            f"decode W={w} starts past the window int8={quantized}"))
-    # serve's decode at a 64-token window, every slot at position 63: INT8 KV
-    # (the main path's) in the kernels line, bf16 KV beside it
-    w = 64
-    k, v, _, _ = _kv(dev, b, w, hkv, hd, False)
-    kq, vq, ks, vs = _kv(dev, b, w, hkv, hd, True)
     q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
     start = torch.full((b,), w - 1, dtype=torch.int32, device=dev)
-    n_kv, n_ops = b * w * hkv * hd, 4 * b * hq * hd * w
-    io = b * hq * hd * 2 * 2 + b * 4                   # q, out, start
-    b_ms, by = bound(n_kv * 2 + b * w * hkv * 4 * 2 + io, n_ops, "int8")
-    b16_ms, b16_by = bound(n_kv * 2 * 2 + io, n_ops, "bf16")
-    kern = lambda: kd.decode_attention(q, kq, vq, ks, vs, start)
-    plain = lambda: ref.decode_attention_ref(q, kq, vq, ks, vs, start)
-    kern16 = lambda: kd.decode_attention(q, k, v, None, None, start)
-    plain16 = lambda: ref.decode_attention_ref(q, k, v, None, None, start)
-    report["decode_attention"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=by,
-        **timed(kern, plain),
-        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
-                     **timed(kern16, plain16,
-                             _sdpa(q[:, None], k, v, start, 1))),
-        shape=f"q ({b}, {hq}, {hd}) vs INT8 KV ({b}, {w}, {hkv}, {hd})")
+    out = {}
+    for quantized in (True, False):
+        per_set = b * w * hkv * (hd * 2 + 8 if quantized else hd * 4)
+        n_sets = max(1, -(-rotate_bytes // per_set))
+        kern, plain, lib = [], [], []
+        for _ in range(n_sets):
+            if page_size is None:
+                kv = _kv(dev, b, w, hkv, hd, quantized)
+                kern.append(lambda kv=kv: kd.decode_attention(q, *kv, start))
+                plain.append(lambda kv=kv: ref.decode_attention_ref(q, *kv,
+                                                                    start))
+            else:
+                arena, table = _paged_case(dev, page_size, quantized,
+                                           [w - 1] * b, max_seq=w)
+                idx = window_pages(table, page_size, w).contiguous()
+                kern.append(lambda a=arena, i=idx: kd.paged_decode_attention(
+                    q, *a, start, i))
+                plain.append(lambda a=arena, i=idx:
+                             ref.paged_decode_attention_ref(q, *a, start, i))
+                kv = _gathered(arena, idx)
+            if not quantized:
+                lib.append(_sdpa(q[:, None], kv[0], kv[1], start, 1))
+        n_table = 0 if page_size is None else b * page_count(w, page_size)
+        b_ms, by = _decode_bound(b, w, quantized, n_table, hq, hkv, hd)
+        calls = n_sets * max(1, GRAPH_CALLS // n_sets)
+        r = out["int8" if quantized else "bf16"] = dict(
+            bound_ms=b_ms, bound_by=by,
+            **timed(_rotating(kern), _rotating(plain),
+                    _rotating(lib) if lib else None, calls=calls))
+        if n_sets > 1:
+            r["kv_sets"] = n_sets
+        if page_size is not None and not quantized:
+            r["library"] = "SDPA on the gathered window, gather not timed"
+    return out
+
+
+def _decode_timed_shapes(dev, page_size=None):
+    """``_decode_times`` at the serve shape (a 64-position window), then at
+    DECODE_TIMED, keyed by shape."""
+    b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
+    times = {}
+    for w, rot in ((64, 0),) + DECODE_TIMED:
+        kv = (f"KV ({b}, {w}, {hkv}, {hd})" if page_size is None
+              else f"window {w}")
+        label = (f"q ({b}, {hq}, {hd}) at {w - 1} vs {kv}"
+                 + (f", KV rotated through {rot // 10**6} MB" if rot else ""))
+        times[label] = _decode_times(dev, w, rot, page_size)
+    return times
+
+
+def phase_decode(dev, report):
+    """B3 against its plain version (the tolerance, and every output row
+    within ATTN_ROW_REL) at windows of DECODE_WINDOWS, slots at 0, around
+    the first segment boundary, at W - 1 and past W, at the DECODE_HEADS
+    groupings and widths; windowed == full bit for bit against a
+    4,096-position buffer (up to four live segments); the split-KV tickets
+    back at zero; then the device times at the serve shape and at
+    DECODE_TIMED."""
+    import torch
+    from repro_torch.kernels import decode_attention as kd, ref
+    errs = [0.0, 0.0]
+    for quantized in (False, True):
+        for hq, hkv, hd in DECODE_HEADS:
+            for w in DECODE_WINDOWS:
+                starts = _decode_starts(w, kd.SEG)
+                k, v, ks, vs = _kv(dev, len(starts), w, hkv, hd, quantized)
+                q = torch.randn(len(starts), hq, hd, device=dev).to(
+                    torch.bfloat16)
+                start = torch.tensor(starts, dtype=torch.int32, device=dev)
+                _attn_check(kd.decode_attention(q, k, v, ks, vs, start),
+                            ref.decode_attention_ref(q, k, v, ks, vs, start),
+                            f"decode Hq={hq} Hkv={hkv} hd={hd} W={w} "
+                            f"int8={quantized}", errs)
+        # windowed == full: slots against a prefix of a longer buffer
+        b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
+        full_w = DECODE_WINDOWS[-1]
+        k, v, ks, vs = _kv(dev, b, full_w, hkv, hd, quantized)
+        q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
+        for w in DECODE_WINDOWS[:-1]:
+            start = torch.tensor([0, min(kd.SEG, w - 1), w // 3, w - 1],
+                                 dtype=torch.int32, device=dev)
+            win = lambda t: None if t is None else t[:, :w]
+            _equal(kd.decode_attention(q, win(k), win(v), win(ks), win(vs),
+                                       start),
+                   kd.decode_attention(q, k, v, ks, vs, start),
+                   f"decode W={w} int8={quantized} vs the {full_w}-position "
+                   f"buffer")
+    _tickets_back(dev, "decode_attention")
+    report["decode_attention"] = _attn_report(errs, _decode_timed_shapes(dev),
+                                              "")
+
+
+def _scratch(dev):
+    """The split-K (B1) and split-KV (B3/B5) workspaces of ``dev``: their
+    pointers, and the count of nonzero elements where the kernels must find
+    zeros between launches (all of B1's, B3/B5's tickets)."""
+    from repro_torch.kernels import decode_attention as kd, int8_matmul as km
+    bufs = ([(w, w) for w in km.WORKSPACES.made(dev)]
+            + [(w, w[:kd.TICKETS]) for w in kd.WORKSPACES.made(dev)])
+    return ([w.data_ptr() for w, _ in bufs],
+            sum(int(z.count_nonzero().item()) for _, z in bufs))
+
+
+def _tickets_back(dev, what):
+    """The multi-segment checks made a split-KV workspace and left its
+    tickets at zero."""
+    from repro_torch.kernels import decode_attention as kd
+    _, left = _scratch(dev)
+    if not kd.WORKSPACES.made(dev) or left:
+        fail(f"{what}: split-KV workspace missing or its tickets not reset "
+             f"({left} nonzero)")
 
 
 def _prefill_bound(sq, st, w, quantized, n_table=0, hq=16, hkv=8, hd=64):
@@ -433,9 +540,9 @@ def _prefill_times(dev, sq, st, w, page_size=None):
     return out
 
 
-def _prefill_report(errs, times, layout):
-    """The kernels-line entry of B4 or B6: the serve chunk's INT8 times at
-    the top, its bf16 ones under ``bf16_kv``, the longer shapes under
+def _attn_report(errs, times, layout):
+    """The kernels-line entry of B3-B6: the serve shape's INT8 times at the
+    top, its bf16 ones under ``bf16_kv``, the longer shapes under
     ``shapes``."""
     (label, serve), *longer = times.items()
     return dict(max_abs_err=errs[0], max_row_rel=errs[1], **serve["int8"],
@@ -460,7 +567,7 @@ def phase_prefill(dev, report):
                 k, v, ks, vs = _kv(dev, 2, w, hkv, hd, quantized)
                 q = torch.randn(2, sq, hq, hd, device=dev).to(torch.bfloat16)
                 start = torch.tensor([st, 0], dtype=torch.int32, device=dev)
-                _prefill_check(kp.prefill_attention(q, k, v, ks, vs, start),
+                _attn_check(kp.prefill_attention(q, k, v, ks, vs, start),
                                ref.cached_attention_ref(q, k, v, ks, vs,
                                                         start),
                                f"prefill Sq={sq} start={st} int8={quantized}",
@@ -470,7 +577,7 @@ def phase_prefill(dev, report):
             k, v, ks, vs = _kv(dev, 2, w, hkv, hd, quantized)
             q = torch.randn(2, sq, hq, hd, device=dev).to(torch.bfloat16)
             start = torch.tensor([st, w - 2], dtype=torch.int32, device=dev)
-            _prefill_check(
+            _attn_check(
                 kp.prefill_attention(q, k, v, ks, vs, start),
                 ref.cached_attention_ref(q, k, v, ks, vs, start),
                 f"prefill W={w} start={st} past the window int8={quantized}",
@@ -482,7 +589,7 @@ def phase_prefill(dev, report):
                 q = torch.randn(2, sq, hq_, hd_, device=dev).to(
                     torch.bfloat16)
                 start = torch.tensor([st, 0], dtype=torch.int32, device=dev)
-                _prefill_check(
+                _attn_check(
                     kp.prefill_attention(q, k, v, ks, vs, start),
                     ref.cached_attention_ref(q, k, v, ks, vs, start),
                     f"prefill Hq={hq_} Hkv={hkv_} hd={hd_} Sq={sq} "
@@ -507,7 +614,7 @@ def phase_prefill(dev, report):
                        f"vs whole-prompt prefill")
     times = {f"q (1, {sq}, {hq}, {hd}) at {st} vs KV (1, {w}, {hkv}, {hd})":
              _prefill_times(dev, sq, st, w) for sq, st, w in PREFILL_TIMED}
-    report["prefill_attention"] = _prefill_report(errs, times, "")
+    report["prefill_attention"] = _attn_report(errs, times, "")
 
 
 # ------------------------------------------------------------ paged kernels
@@ -544,54 +651,51 @@ def _equal(a, b, what):
 
 
 def phase_paged_decode(dev, report):
+    """B5 against its plain version (as B3) and bit for bit against B3 on
+    the gathered window, at pages of PAGE_SIZES, windows of 64 and 1,024
+    positions and B3's starts; then INT8 at B5_LONG positions in pages of
+    SERVE_PAGE, a table longer than the 2,048 entries B5 once held in
+    shared memory; the tickets back at zero; then the device times as B3's
+    through pages of SERVE_PAGE."""
     import torch
     from repro_torch.kernels import decode_attention as kd, ref
     from repro_torch.kernels.kv_layout import window_pages
-    b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
-    err = 0.0
+    hq, hkv, hd = 16, 8, 64
+    errs = [0.0, 0.0]
     for quantized in (False, True):
         for ps in PAGE_SIZES:
-            for window in (64, 256):
-                starts = [0, window - 1, window // 3, window + 5]
-                arena, table = _paged_case(dev, ps, quantized, starts)
+            for window in (64, 1024):
+                starts = _decode_starts(window, kd.SEG)
+                arena, table = _paged_case(dev, ps, quantized, starts,
+                                           max_seq=window + kd.SEG)
                 idx = window_pages(table, ps, window).contiguous()
                 start = torch.tensor(starts, dtype=torch.int32, device=dev)
-                q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
+                q = torch.randn(len(starts), hq, hd, device=dev).to(
+                    torch.bfloat16)
                 what = f"paged decode page={ps} W={window} int8={quantized}"
                 out = kd.paged_decode_attention(q, *arena, start, idx)
-                err = max(err, _attn_err(
-                    out, ref.paged_decode_attention_ref(q, *arena, start,
-                                                        idx), what))
+                _attn_check(out, ref.paged_decode_attention_ref(
+                    q, *arena, start, idx), what, errs)
                 _equal(out, kd.decode_attention(q, *_gathered(arena, idx),
                                                 start), what + " vs B3")
-    # serve's paged decode: 64-token window in pages of 16, every slot at
-    # position 63, INT8 KV (the main path's), bf16 KV beside it
-    w, ps = 64, SERVE_PAGE
-    starts = [w - 1] * b
+    w, ps = B5_LONG, SERVE_PAGE
+    starts = [w - 1, w - 1000, 33000, kd.SEG]
+    arena, table = _paged_case(dev, ps, True, starts, max_seq=w)
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
-    arena_q, table = _paged_case(dev, ps, True, starts)
-    arena_b, _ = _paged_case(dev, ps, False, starts)
-    idx = window_pages(table, ps, w).contiguous()
-    n_kv, n_ops = b * w * hkv * hd, 4 * b * hq * hd * w
-    io = b * hq * hd * 2 * 2 + b * 4 + idx.numel() * 4  # q, out, start, table
-    b_ms, by = bound(n_kv * 2 + b * w * hkv * 4 * 2 + io, n_ops, "int8")
-    b16_ms, b16_by = bound(n_kv * 2 * 2 + io, n_ops, "bf16")
-    gk, gv, _, _ = _gathered(arena_b, idx)
-    kern = lambda: kd.paged_decode_attention(q, *arena_q, start, idx)
-    plain = lambda: ref.paged_decode_attention_ref(q, *arena_q, start, idx)
-    kern16 = lambda: kd.paged_decode_attention(q, *arena_b, start, idx)
-    plain16 = lambda: ref.paged_decode_attention_ref(q, *arena_b, start, idx)
-    report["paged_decode_attention"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=by,
-        **timed(kern, plain),
-        bf16_kv=dict(bound_ms=b16_ms, bound_by=b16_by,
-                     **timed(kern16, plain16,
-                             _sdpa(q[:, None], gk, gv, start, 1)),
-                     library="SDPA on the gathered window, gather not "
-                             "timed"),
-        shape=f"q ({b}, {hq}, {hd}) vs INT8 arena, pages of {ps}, window "
-              f"{w}")
+    q = torch.randn(len(starts), hq, hd, device=dev).to(torch.bfloat16)
+    what = f"paged decode page={ps} W={w} ({table.shape[1]} pages) int8=True"
+    out = kd.paged_decode_attention(q, *arena, start, table)
+    _attn_check(out, ref.paged_decode_attention_ref(q, *arena, start, table),
+                what, errs)
+    _equal(out, kd.decode_attention(q, *_gathered(arena, table), start),
+           what + " vs B3")
+    print(f"[kernel] {what}: within tolerance of the plain version, equal "
+          f"to B3 on the gathered window")
+    del arena, table, out
+    _tickets_back(dev, "paged_decode_attention")
+    report["paged_decode_attention"] = _attn_report(
+        errs, _decode_timed_shapes(dev, SERVE_PAGE),
+        f" arena, pages of {SERVE_PAGE}")
 
 
 def phase_paged_prefill(dev, report):
@@ -622,7 +726,7 @@ def phase_paged_prefill(dev, report):
                 what = (f"paged prefill page={ps} Hq={hq_} Hkv={hkv_} "
                         f"hd={hd_} Sq={sq} int8={quantized}")
                 out = kp.paged_prefill_attention(q, *arena, start, idx)
-                _prefill_check(out, ref.paged_prefill_attention_ref(
+                _attn_check(out, ref.paged_prefill_attention_ref(
                     q, *arena, start, idx), what, errs)
                 _equal(out, kp.prefill_attention(q, *_gathered(arena, idx),
                                                  start), what + " vs B4")
@@ -647,7 +751,7 @@ def phase_paged_prefill(dev, report):
     times = {f"q (1, {sq}, {hq}, {hd}) at {st} vs window {w}":
              _prefill_times(dev, sq, st, w, SERVE_PAGE)
              for sq, st, w in PREFILL_TIMED}
-    report["paged_prefill_attention"] = _prefill_report(
+    report["paged_prefill_attention"] = _attn_report(
         errs, times, f" arena, pages of {SERVE_PAGE}")
 
 
@@ -781,22 +885,30 @@ def phase_small_e2e(dev):
 
 
 def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
-               arrivals_s=None, arrival_ticks=None, **engine_kw):
+               arrivals_s=None, arrival_ticks=None, max_seq=SERVE_MAX_SEQ,
+               split_kv=False, **engine_kw):
     """One engine run from launch counts at 0: every request must equal
     serial decode token for token, every kernel in ``must`` must have
-    launched and none in ``must_not``, and the B1 split-K workspace must
-    neither move nor be left nonzero. Returns (summary, engine, launches)."""
+    launched and none in ``must_not``, and the B1 split-K and B3/B5
+    split-KV workspaces must neither move nor be left nonzero where the
+    kernels must find zeros (``_scratch``). With ``split_kv`` the run must
+    also have written split-KV records (B3/B5 folded several segments):
+    they are zeroed before it and read after it, before serial decode.
+    Returns (summary, engine, launches)."""
     import torch
-    from repro_torch.kernels import int8_matmul as km
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.serving import (Engine, SchedulerConfig, serial_decode,
                                      summarize_results)
     qkv = engine_kw.get("quantized_kv", False)
-    eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+    eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=max_seq,
                  sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
                                        decode_steps=SERVE_STEPS),
                  device=dev, **engine_kw)
     what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}")
-    workspaces = [w.data_ptr() for w in km.workspaces(dev)]
+    workspaces, _ = _scratch(dev)
+    records = kd.WORKSPACES.made(dev)[-1][kd.TICKETS:] if split_kv else None
+    if split_kv:
+        records.zero_()
     torch.cuda.synchronize()
     for kern in kernels.values():
         kern.launches = 0
@@ -806,10 +918,13 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
-    # the B1 split-K workspace: made by the kernel checks, kept by the run
-    if [w.data_ptr() for w in km.workspaces(dev)] != workspaces or any(
-            w.any().item() for w in km.workspaces(dev)):
-        fail(f"{what}: the int8_matmul split-K workspace moved or was left "
+    if split_kv and not records.count_nonzero().item():
+        fail(f"{what}: no split-KV record written: the decode windows never "
+             f"spanned two segments")
+    # the B1 and B3/B5 workspaces: made by the kernel checks, kept by the run
+    ptrs, left = _scratch(dev)
+    if ptrs != workspaces or left:
+        fail(f"{what}: a split-K or split-KV workspace moved or was left "
              f"nonzero by the serving run")
     if len(results) != len(reqs):
         fail(f"{what}: engine finished {len(results)} of {len(reqs)} "
@@ -820,7 +935,7 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                 0 <= t < cfg.vocab_size for t in res.tokens):
             fail(f"{what} request {i}: bad tokens {res.tokens}")
         want = serial_decode(params, cfg, reqs[i].prompt, n_new,
-                             max_seq=SERVE_MAX_SEQ, quantized_kv=qkv,
+                             max_seq=max_seq, quantized_kv=qkv,
                              device=dev)
         if res.tokens != want:
             fail(f"{what} request {i}: engine tokens differ from serial "
@@ -1008,6 +1123,16 @@ def shared_prompt_load(cfg):
                     max_new_tokens=SERVE_NEW) for i in range(SHARED_N)]
     first = -(-len(reqs[0].prompt) // SERVE_CHUNK)
     return reqs, [0] + [first] * (SHARED_N - 1)
+
+
+def long_prompt_load(cfg):
+    """LONG_PROMPTS-token random prompts of LONG_NEW new tokens each,
+    arriving together."""
+    import torch
+    from repro_torch.serving import Request
+    gen = torch.Generator().manual_seed(3)
+    return [Request(_tokens(cfg, n, gen), max_new_tokens=LONG_NEW)
+            for n in LONG_PROMPTS]
 
 
 def _tokens(cfg, n, gen):
@@ -1322,6 +1447,21 @@ def main() -> int:
           f"{st['pages_peak']}, kv_bytes_peak {st['kv_bytes_peak']} B against "
           f"the contiguous pool's {kv_bytes} B, {cached} pages cached after "
           f"the run, 0 after clearing the cache  [{card}]")
+
+    # decode windows over two split-KV segments: B3/B5 fold them in the
+    # launch through their workspace, and engine == serial still holds
+    long_reqs = long_prompt_load(cfg)
+    for page_size, must, must_not in (
+            (None, dense + contiguous, paged),
+            (SERVE_PAGE, dense + paged, contiguous)):
+        summary, eng, launches = serve_once(
+            params, cfg, dev, kernels, long_reqs, must, must_not,
+            max_seq=LONG_MAX_SEQ, split_kv=True, quantized_kv=True,
+            page_size=page_size)
+        line(summary, eng, launches,
+             f"prompts {'/'.join(map(str, LONG_PROMPTS))} + {LONG_NEW} "
+             f"across split-KV segments, max_seq {LONG_MAX_SEQ}, kv=int8"
+             + (f" page={page_size}" if page_size else " contiguous"))
 
     # the HQP path: compress at full width, then serve the pruned artifact
     manifest, pruned_params, ragged, main_launches["flash_attention"] = \

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the attention kernels on the bf16 tensor
-// cores (flash_attention.cu, prefill_attention.cu): asynchronous copies into
-// shared memory, ldmatrix, and mma.sync m16n8k16 with f32 accumulators.
-// build.py keys each library on its .cu and the headers it includes, so an
-// edit here rebuilds both.
+// cores (flash_attention.cu, and prefill_attention.cu and decode_attention.cu
+// through attn_tile.cuh): asynchronous copies into shared memory, ldmatrix,
+// and mma.sync m16n8k16 with f32 accumulators. build.py keys each library
+// on its .cu and the headers it includes, transitively, so an edit here
+// rebuilds all three.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -83,13 +83,12 @@
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int BKV = 64;          // KV positions a tile
 constexpr int STAGES = 3;        // K/V tiles in flight
 constexpr int MAX_WARPS = 4;     // 16 rows each
 constexpr int TBL_MAX = 2048;    // page-table entries a row (shared memory)
@@ -189,25 +188,6 @@ __device__ __forceinline__ void widen(__nv_bfloat16* dst, const int8_t* src) {
     *reinterpret_cast<uint4*>(dst + j * P + c + 8) =
         make_uint4(o[4], o[5], o[6], o[7]);
   }
-}
-
-// Two q values, scaled in f32 and rounded to bf16 (the plain version's
-// staging), packed as an MMA operand word.
-__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p,
-                                           float scale) {
-  const float2 x = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(p));
-  return pack_bf16(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale));
-}
-
-// Two f32 values as hi = bf16(x) and lo = bf16(x - hi), each packed as an
-// MMA operand word: hi + lo holds x to ~16 bits.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // One block a query tile; 1 is the least a block needs of an SM, so ptxas

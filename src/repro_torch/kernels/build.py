@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -162,6 +162,41 @@ class Kernel:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{code} ({self._err(code).decode()})")
         self.launches += 1
+
+
+class Workspaces:
+    """The zeroed int32 scratch buffers of one kernel, per device: made at
+    ``minimum`` elements or more, grown by adding a larger buffer, and never
+    freed, so a CUDA graph that captured a launch keeps a valid pointer. The
+    kernel leaves what it must find zeroed at zero after every launch.
+    Launches on one device share the newest buffer, so they must run in
+    stream order, as the port's single stream does."""
+
+    def __init__(self, what: str, minimum: int):
+        self.what, self.minimum = what, minimum
+        self._bufs: Dict = {}
+
+    def get(self, dev, n: int, capturing: Callable[[], bool]):
+        """A buffer of at least ``n`` elements on ``dev``: the newest one,
+        or, when that is too small, a new zeroed one of at least
+        ``minimum``. Making one while a CUDA graph is being captured
+        (``capturing()``, asked only then) raises: the graph would hold a
+        buffer that its replays, not the launches before them, zero."""
+        import torch
+        bufs = self._bufs.setdefault(dev, [])
+        if not bufs or bufs[-1].numel() < n:
+            if capturing():
+                raise RuntimeError(
+                    f"{self.what} of {n} elements on {dev} is first needed "
+                    f"inside a CUDA graph capture; run the op once before "
+                    f"capturing it")
+            bufs.append(torch.zeros(max(n, self.minimum), dtype=torch.int32,
+                                    device=dev))
+        return bufs[-1]
+
+    def made(self, dev) -> list:
+        """The buffers made on ``dev`` so far, oldest first."""
+        return list(self._bufs.get(dev, ()))
 
 
 # ------------------------------------------------------------ wrapper checks

@@ -1,24 +1,83 @@
 """Decode attention over a slotted KV window or a paged KV arena: the
 wrappers of ``csrc/decode_attention.cu`` (replace ``decode_attention_pallas``
-and ``paged_decode_attention_pallas``)."""
+and ``paged_decode_attention_pallas``), and their launch plan.
+
+``decode_plan`` is the host side of the kernel's split-KV: the KV axis cut
+into segments of SEG positions at absolute boundaries, one block a (kv head,
+segment, slot). A slot whose visible positions span several segments folds
+their partial results inside the one launch, through a per-device workspace
+of f32 records behind int32 tickets that the kernel leaves at zero after
+every launch. The workspace is made once, with ``torch.zeros``, at a size
+that holds every split of the model's decode shapes at 4 slots up to its
+40,960 positions, and no buffer is ever freed (``build.Workspaces``).
+
+``kv_args``, ``paged_kv_args`` and ``check_launch`` also validate the
+chunked-prefill kernels' arguments (``prefill_attention.py``)."""
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-_ATTN_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-              + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float])
-KERNEL = build.Kernel("decode_attention", "decode_attention", _ATTN_ARGS)
+KERNEL = build.Kernel("decode_attention", "decode_attention",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_int, ctypes.c_float, ctypes.c_int])
 PAGED_KERNEL = build.Kernel("decode_attention", "paged_decode_attention",
-                            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                            + [ctypes.c_float])
+                            [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                            + [ctypes.c_int] * 7
+                            + [ctypes.c_float, ctypes.c_int])
 
-HD_MAX, G_MAX = 128, 8
-TBL_MAX = 2048                # page-table entries a row (shared memory)
+# Mirrors csrc/decode_attention.cu: positions a segment (a block of four
+# warps, one 64-position tile each), query heads a kv head (one m16 tile),
+# and the int32 tickets ahead of the workspace records. The kernel refuses a
+# plan whose segment count or workspace do not match its own.
+SEG, BKV = 256, 64
+G_MAX = 16
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instances: 16 the smoke config,
+                                # 64 the repo's qwen3-0.6b, 128 the published
+TICKETS = 8192
+# 4-byte elements of the first workspace: the tickets and the records of 4
+# slots of qwen3-0.6b (8 kv heads, G 2, hd 64) over its 40,960 positions
+WORKSPACE_MIN = TICKETS + 4 * 8 * (40960 // SEG) * (2 * 64 + 4)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def record_floats(g: int, hd: int) -> int:
+    """f32 elements of a segment's workspace record: the partial output (G,
+    hd), then its running max and sum (G each), padded to 16 bytes."""
+    return g * hd + (2 * g + 3) // 4 * 4
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    grid: Tuple[int, int, int]      # (Hkv, segments, B)
+    workspace: int                  # 4-byte elements (0: one segment)
+
+    @property
+    def segments(self) -> int:
+        return self.grid[1]
+
+
+def decode_plan(b: int, w: int, hkv: int, g: int, hd: int) -> DecodePlan:
+    """The launch of B slots against a W-position window: one block per (kv
+    head, segment, slot). With more than one segment the workspace holds
+    the tickets and one record per (slot, kv head, segment)."""
+    n_seg = _cdiv(w, SEG)
+    ws = TICKETS + b * hkv * n_seg * record_floats(g, hd) if n_seg > 1 else 0
+    return DecodePlan(grid=(hkv, n_seg, b), workspace=ws)
+
+
+# the split-KV workspaces of each device; none is freed
+WORKSPACES = build.Workspaces("decode_attention: a split-KV workspace",
+                              WORKSPACE_MIN)
 
 
 def kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
@@ -40,9 +99,8 @@ def kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
     if k.stride()[1:] != (hkv * hd, hd, 1):
         raise ValueError(f"{name}: the (W, Hkv, hd) dims of k/v must be "
                          f"contiguous, got strides {k.stride()}")
-    if q_heads % hkv or hd > HD_MAX:
-        raise ValueError(f"{name}: {q_heads} q heads over {hkv} kv heads "
-                         f"of width {hd}")
+    if q_heads % hkv:
+        raise ValueError(f"{name}: {q_heads} q heads over {hkv} kv heads")
     s_stride = 0
     if quantized:
         build.check(f"{name} k_s", k_s, torch.float32, 3, dev)
@@ -64,12 +122,45 @@ def kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
             (k.stride(0), s_stride), int(quantized))
 
 
+def check_launch(name: str, q: torch.Tensor, k: torch.Tensor, g: int,
+                 hd: int, g_max: int) -> None:
+    """What the attention kernels take beyond the KV checks: their head
+    dims, at most ``g_max`` query heads a kv head, q read two values at a
+    time and K/V copied 16 bytes at a time."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd}; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if g > g_max:
+        raise ValueError(f"{name}: {g} query heads a kv head, at most "
+                         f"{g_max}")
+    if q.data_ptr() % 4:
+        raise ValueError(f"{name}: q must start 4-byte aligned")
+    if k.data_ptr() % 16 or (k.stride(0) * k.element_size()) % 16:
+        raise ValueError(f"{name}: k/v must start 16-byte aligned with a "
+                         f"batch stride of a multiple of 16 bytes")
+
+
+def _workspace(name: str, q: torch.Tensor, plan: DecodePlan) -> Tuple:
+    """(pointer, length) of the workspace a plan needs, (None, 0) if none."""
+    if not plan.workspace:
+        return None, 0
+    hkv, _, b = plan.grid
+    if b * hkv > TICKETS:
+        raise ValueError(f"{name}: {b} slots of {hkv} kv heads over more "
+                         f"than one segment; the kernel takes at most "
+                         f"{TICKETS} (slot, kv head) pairs")
+    ws = WORKSPACES.get(q.device, plan.workspace,
+                        torch.cuda.is_current_stream_capturing)
+    return ws.data_ptr(), ws.numel()
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
                      start: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, hd) at per-slot positions ``start`` (B,) int32 against a
     (B, W, Hkv, hd) window -> (B, Hq, hd) bf16; a slot sees positions
-    <= start that lie in the window. A CPU tensor takes the plain version."""
+    <= start that lie in the window. A CPU tensor takes the plain version;
+    on the card hd must be in HEAD_DIMS and Hq / Hkv at most G_MAX."""
     if build.runs_plain(q):
         return ref.decode_attention_ref(q, k, v, k_s, v_s, start)
     build.check("decode_attention q", q, torch.bfloat16, 3, q.device)
@@ -77,25 +168,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: q must be contiguous")
     ptrs, (b, w, hkv, g, hd), strides, quantized = kv_args(
         "decode_attention", q.shape[1], k, v, k_s, v_s, start)
-    if q.shape != (b, hkv * g, hd) or g > G_MAX:
+    if q.shape != (b, hkv * g, hd):
         raise ValueError(f"decode_attention: q {tuple(q.shape)} against "
                          f"k {tuple(k.shape)}")
+    check_launch("decode_attention", q, k, g, hd, G_MAX)
+    plan = decode_plan(b, w, hkv, g, hd)
+    ws = _workspace("decode_attention", q, plan)
     out = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), *ptrs, start.data_ptr(), out.data_ptr(),
-                  b, w, hkv, g, hd, *strides, quantized, float(hd ** -0.5),
+                  *ws, b, w, hkv, g, hd, *strides, quantized,
+                  float(hd ** -0.5), plan.segments,
                   stream=build.stream_of(q))
     return out
 
 
 def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
                   k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
-                  start: torch.Tensor, pages: torch.Tensor) -> Tuple:
+                  start: torch.Tensor, pages: torch.Tensor,
+                  tbl_max: Optional[int] = None) -> Tuple:
     """Validate a paged arena (k, v (n_pages, page_size, Hkv, hd) bf16, or
     int8 with (n_pages, page_size, Hkv) f32 scales, all contiguous), the
     (B,) int32 ``start`` and the (B, n_blk) int32 ``pages`` table for the
-    paged kernels. The table's values are not read here: that would need a
-    host sync. Returns the kernel's arguments (k, v, k_s, v_s, start, pages
-    pointers; B, n_blk, page_size, Hkv, G, hd; quantized flag)."""
+    paged kernels; ``tbl_max``, if given, caps n_blk (a kernel that holds a
+    row's whole table in shared memory). The table's values are not read
+    here: that would need a host sync. Returns the kernel's arguments (k,
+    v, k_s, v_s, start, pages pointers; B, n_blk, page_size, Hkv, G, hd;
+    quantized flag)."""
     dev = k.device
     quantized = k_s is not None
     kv_dtype = torch.int8 if quantized else torch.bfloat16
@@ -105,9 +203,8 @@ def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
     if v.shape != k.shape or not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: k and v must be contiguous arenas of one "
                          f"shape")
-    if q_heads % hkv or hd > HD_MAX:
-        raise ValueError(f"{name}: {q_heads} q heads over {hkv} kv heads "
-                         f"of width {hd}")
+    if q_heads % hkv:
+        raise ValueError(f"{name}: {q_heads} q heads over {hkv} kv heads")
     if quantized:
         build.check(f"{name} k_s", k_s, torch.float32, 3, dev)
         build.check(f"{name} v_s", v_s, torch.float32, 3, dev)
@@ -117,14 +214,16 @@ def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
                              f"(n_pages, page_size, Hkv)")
     build.check(f"{name} pages", pages, torch.int32, 2, dev)
     b, n_blk = pages.shape
-    if not pages.is_contiguous() or not 1 <= n_blk <= TBL_MAX:
+    if (not pages.is_contiguous() or n_blk < 1
+            or (tbl_max is not None and n_blk > tbl_max)):
+        cap = "" if tbl_max is None else f" <= {tbl_max}"
         raise ValueError(f"{name}: pages must be a contiguous (B, n_blk) "
-                         f"table with 1 <= n_blk <= {TBL_MAX}, got "
+                         f"table with 1 <= n_blk{cap}, got "
                          f"{tuple(pages.shape)}")
     build.check(f"{name} start", start, torch.int32, 1, dev)
     if start.shape[0] != b or not start.is_contiguous():
         raise ValueError(f"{name}: start must be a contiguous ({b},) tensor")
-    build.check_int32(name, b, n_pages, n_blk * ps, hkv * hd)
+    build.check_int32(name, b, n_pages * ps, n_blk * ps, hkv * hd)
     return ((k.data_ptr(), v.data_ptr(),
              k_s.data_ptr() if quantized else None,
              v_s.data_ptr() if quantized else None,
@@ -137,9 +236,10 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            v_s: Optional[torch.Tensor], start: torch.Tensor,
                            pages: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, hd) at per-slot positions ``start`` against a paged arena
-    through the (B, n_blk) table prefix ``pages`` -> (B, Hq, hd) bf16: the
-    contiguous op on the gathered window of n_blk * page_size positions. A
-    CPU tensor takes the plain version."""
+    through the (B, n_blk) table prefix ``pages``, of any length -> (B, Hq,
+    hd) bf16: the contiguous op on the gathered window of n_blk * page_size
+    positions, bit for bit. A CPU tensor takes the plain version; on the
+    card hd and G as for ``decode_attention``."""
     if build.runs_plain(q):
         return ref.paged_decode_attention_ref(q, k, v, k_s, v_s, start, pages)
     build.check("paged_decode_attention q", q, torch.bfloat16, 3, q.device)
@@ -147,12 +247,15 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("paged_decode_attention: q must be contiguous")
     ptrs, (b, n_blk, ps, hkv, g, hd), quantized = paged_kv_args(
         "paged_decode_attention", q.shape[1], k, v, k_s, v_s, start, pages)
-    if q.shape != (b, hkv * g, hd) or g > G_MAX:
+    if q.shape != (b, hkv * g, hd):
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} "
                          f"against k {tuple(k.shape)}, pages "
                          f"{tuple(pages.shape)}")
+    check_launch("paged_decode_attention", q, k, g, hd, G_MAX)
+    plan = decode_plan(b, n_blk * ps, hkv, g, hd)
+    ws = _workspace("paged_decode_attention", q, plan)
     out = torch.empty_like(q)
-    PAGED_KERNEL.launch(q.data_ptr(), *ptrs, out.data_ptr(), b, n_blk, ps,
-                        hkv, g, hd, quantized, float(hd ** -0.5),
-                        stream=build.stream_of(q))
+    PAGED_KERNEL.launch(q.data_ptr(), *ptrs, out.data_ptr(), *ws, b, n_blk,
+                        ps, hkv, g, hd, quantized, float(hd ** -0.5),
+                        plan.segments, stream=build.stream_of(q))
     return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -97,32 +97,9 @@ def gemm_plan(m: int, n: int, k: int, w_ptr: int = 0, x_ptr: int = 0
         workspace=m * n + m_tiles * n_tiles if split > 1 else 0)
 
 
-# every workspace made on each device, the one in use last; none is freed
-_workspaces: Dict[torch.device, List[torch.Tensor]] = {}
-
-
-def workspaces(dev: torch.device) -> List[torch.Tensor]:
-    """The workspaces made on ``dev`` so far, oldest first."""
-    return list(_workspaces.get(dev, ()))
-
-
-def workspace(dev: torch.device, n: int,
-              capturing: Callable[[], bool]) -> torch.Tensor:
-    """A zeroed int32 buffer of at least ``n`` elements on ``dev``: the
-    device's current one, or, when that is too small, a new one of at least
-    WORKSPACE_MIN elements. Making one while a CUDA graph is being captured
-    (``capturing()``, asked only then) raises: the graph would hold a buffer
-    that its replays, not the launches before them, zero."""
-    bufs = _workspaces.setdefault(dev, [])
-    if not bufs or bufs[-1].numel() < n:
-        if capturing():
-            raise RuntimeError(
-                f"int8_matmul: a split-K workspace of {n} elements on {dev} "
-                f"is first needed inside a CUDA graph capture; run the "
-                f"product once before capturing it")
-        bufs.append(torch.zeros(max(n, WORKSPACE_MIN), dtype=torch.int32,
-                                device=dev))
-    return bufs[-1]
+# the split-K workspaces of each device; none is freed
+WORKSPACES = build.Workspaces("int8_matmul: a split-K workspace",
+                              WORKSPACE_MIN)
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
@@ -147,8 +124,8 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
         raise ValueError("int8_matmul: inputs must be contiguous")
     build.check_int32("int8_matmul", m, n, k)
     plan = gemm_plan(m, n, k, w_q.data_ptr(), x_q.data_ptr())
-    ws = (workspace(dev, plan.workspace,
-                    torch.cuda.is_current_stream_capturing)
+    ws = (WORKSPACES.get(dev, plan.workspace,
+                         torch.cuda.is_current_stream_capturing)
           if plan.workspace else None)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),

@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.decode_attention import kv_args, paged_kv_args
+from repro_torch.kernels.decode_attention import (check_launch, kv_args,
+                                                  paged_kv_args)
 
 KERNEL = build.Kernel("prefill_attention", "prefill_attention",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -26,8 +27,7 @@ PAGED_KERNEL = build.Kernel("prefill_attention", "paged_prefill_attention",
                             + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 G_MAX = 32
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instances: 16 the smoke config,
-                                # 64 the repo's qwen3-0.6b, 128 the published
+TBL_MAX = 2048                  # page-table entries a row (shared memory)
 ROWS_PER_WARP = 16              # one m16 MMA tile, as in the kernel
 MAX_WARPS = 4
 
@@ -50,23 +50,6 @@ def prefill_plan(b: int, sq: int, hkv: int, g: int) -> PrefillPlan:
     return PrefillPlan(warps=warps, grid=(hkv, -(-sq // bq), b))
 
 
-def _check_launch(name: str, q: torch.Tensor, k: torch.Tensor, g: int,
-                  hd: int) -> None:
-    """What the kernel takes beyond the KV checks: its head dims, G, q
-    read two values at a time and K/V copied 16 bytes at a time."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd}; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if g > G_MAX:
-        raise ValueError(f"{name}: {g} query heads a kv head, at most "
-                         f"{G_MAX}")
-    if q.data_ptr() % 4:
-        raise ValueError(f"{name}: q must start 4-byte aligned")
-    if k.data_ptr() % 16 or (k.stride(0) * k.element_size()) % 16:
-        raise ValueError(f"{name}: k/v must start 16-byte aligned with a "
-                         f"batch stride of a multiple of 16 bytes")
-
-
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
                       start: torch.Tensor) -> torch.Tensor:
@@ -85,7 +68,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape != (b, sq, hkv * g, hd):
         raise ValueError(f"prefill_attention: q {tuple(q.shape)} against "
                          f"k {tuple(k.shape)}")
-    _check_launch("prefill_attention", q, k, g, hd)
+    check_launch("prefill_attention", q, k, g, hd, G_MAX)
     build.check_int32("prefill_attention", sq)
     plan = prefill_plan(b, sq, hkv, g)
     out = torch.empty_like(q)
@@ -111,13 +94,14 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     if not q.is_contiguous():
         raise ValueError("paged_prefill_attention: q must be contiguous")
     ptrs, (b, n_blk, ps, hkv, g, hd), quantized = paged_kv_args(
-        "paged_prefill_attention", q.shape[2], k, v, k_s, v_s, start, pages)
+        "paged_prefill_attention", q.shape[2], k, v, k_s, v_s, start, pages,
+        tbl_max=TBL_MAX)
     sq = q.shape[1]
     if q.shape != (b, sq, hkv * g, hd):
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} "
                          f"against k {tuple(k.shape)}, pages "
                          f"{tuple(pages.shape)}")
-    _check_launch("paged_prefill_attention", q, k, g, hd)
+    check_launch("paged_prefill_attention", q, k, g, hd, G_MAX)
     build.check_int32("paged_prefill_attention", sq)
     plan = prefill_plan(b, sq, hkv, g)
     out = torch.empty_like(q)

@@ -1,17 +1,21 @@
 """The host side of the port's redesigned kernels, on the CPU: the launch
 plans that ``kernels/int8_matmul.py`` (B1), ``kernels/flash_attention.py``
-(B7) and ``kernels/prefill_attention.py`` (B4, B6) hand to their CUDA
-kernels, and the build key. The kernels themselves run only on the card
-(``chip_smoke.py``); these tests hold the plans to what the kernels assume:
-every output tile, every K row and every (query, head) row covered exactly
+(B7), ``kernels/prefill_attention.py`` (B4, B6) and
+``kernels/decode_attention.py`` (B3, B5) hand to their CUDA kernels, and the
+build key. The kernels themselves run only on the card (``chip_smoke.py``);
+these tests hold the plans to what the kernels assume: every output tile,
+every K row, every (query, head) row and every KV position covered exactly
 once, enough blocks to fill the H100's 132 SMs at decode shapes, shared
 memory within a Hopper block's 232,448 bytes, copy widths that divide the
-row pitch, and a split-K workspace that the model's shapes never outgrow;
-and a library rebuilt when a header it includes changes."""
+row pitch, split-KV segments at absolute positions, and workspaces that the
+model's shapes never outgrow, made once per device; and a library rebuilt
+when a header it includes changes."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import int8_matmul as km  # noqa: E402
 from repro_torch.kernels import prefill_attention as kp  # noqa: E402
@@ -23,6 +27,8 @@ DECODE_KN = [(D_MODEL, KV), (D_MODEL, D_MODEL), (D_MODEL, D_FF),
 RAGGED_KN = [(3035, D_MODEL), (D_MODEL, 3035), (D_MODEL, 448)]
 M_ROWS = [1, 4, 13, 16, 17, 64]
 SMEM_MAX = 232_448          # dynamic shared memory a block may use on Hopper
+PAGE_SIZES = (16, 32, 48, 256)      # the paged kernels' checks on the card
+DECODE_W = [16, 64, 100, 256, 4096, 40960]
 
 
 def _covers(plan, m, n, k):
@@ -156,42 +162,127 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     assert build.library_path("kern") not in (first, second)
 
 
-def test_gemm_workspace_is_made_once_and_never_freed():
-    """The split-K workspace: the first one holds every split of the
-    model's shapes, a smaller need takes the same buffer (its pointer stays
-    put), a larger one adds a buffer and keeps the old one alive, for a
-    CUDA graph that captured it."""
-    dev = torch.device("cpu")
-    km._workspaces.pop(dev, None)
-    try:
-        first = km.workspace(dev, 100, capturing=lambda: False)
-        assert first.numel() == km.WORKSPACE_MIN and not first.any()
-        need = max(km.gemm_plan(m, n, k).workspace for m in M_ROWS
-                   for k, n in DECODE_KN + RAGGED_KN)
-        again = km.workspace(dev, need, capturing=lambda: False)
-        assert again.data_ptr() == first.data_ptr()
-        big = km.workspace(dev, km.WORKSPACE_MIN + 1, capturing=lambda: False)
-        assert big.numel() == km.WORKSPACE_MIN + 1
-        bufs = km.workspaces(dev)
-        assert len(bufs) == 2 and bufs[0] is first and bufs[1] is big
-    finally:
-        km._workspaces.pop(dev, None)
+def _decode_need():
+    """The largest split-KV workspace qwen3-0.6b's decode needs at 4 slots,
+    any window up to its 40,960 positions."""
+    return max(kd.decode_plan(4, w, 8, 2, 64).workspace
+               for w in range(kd.SEG, 40961, kd.SEG))
 
 
-def test_gemm_workspace_does_not_grow_inside_a_capture():
+# B1's split-K workspace and B3/B5's split-KV one, each with the largest
+# need of the model's shapes
+WORKSPACE_KINDS = [
+    pytest.param(km, lambda: max(km.gemm_plan(m, n, k).workspace
+                                 for m in M_ROWS
+                                 for k, n in DECODE_KN + RAGGED_KN), id="B1"),
+    pytest.param(kd, _decode_need, id="B3"),
+]
+
+
+def _store(mod):
+    """A new, empty store like the module's own: its minimum and name."""
+    assert mod.WORKSPACES.minimum == mod.WORKSPACE_MIN
+    return build.Workspaces(mod.WORKSPACES.what, mod.WORKSPACES.minimum)
+
+
+@pytest.mark.parametrize("mod,need", WORKSPACE_KINDS)
+def test_gemm_workspace_is_made_once_and_never_freed(mod, need):
+    """The workspace: the first one holds every split of the model's
+    shapes, a smaller need takes the same buffer (its pointer stays put), a
+    larger one adds a buffer and keeps the old one alive, for a CUDA graph
+    that captured it."""
     dev = torch.device("cpu")
-    km._workspaces.pop(dev, None)
-    try:
-        with pytest.raises(RuntimeError, match="capture"):
-            km.workspace(dev, 10, capturing=lambda: True)
-        ws = km.workspace(dev, 10, capturing=lambda: False)
-        assert km.workspace(dev, 10, capturing=lambda: True) is ws
-        with pytest.raises(RuntimeError, match="capture"):
-            km.workspace(dev, km.WORKSPACE_MIN + 1, capturing=lambda: True)
-        bufs = km.workspaces(dev)
-        assert len(bufs) == 1 and bufs[0] is ws
-    finally:
-        km._workspaces.pop(dev, None)
+    store = _store(mod)
+    first = store.get(dev, 100, capturing=lambda: False)
+    assert first.numel() == mod.WORKSPACE_MIN and not first.any()
+    again = store.get(dev, need(), capturing=lambda: False)
+    assert again.data_ptr() == first.data_ptr()
+    big = store.get(dev, mod.WORKSPACE_MIN + 1, capturing=lambda: False)
+    assert big.numel() == mod.WORKSPACE_MIN + 1
+    bufs = store.made(dev)
+    assert len(bufs) == 2 and bufs[0] is first and bufs[1] is big
+
+
+@pytest.mark.parametrize("mod,need", WORKSPACE_KINDS)
+def test_gemm_workspace_does_not_grow_inside_a_capture(mod, need):
+    dev = torch.device("cpu")
+    store = _store(mod)
+    with pytest.raises(RuntimeError, match="capture"):
+        store.get(dev, 10, capturing=lambda: True)
+    ws = store.get(dev, 10, capturing=lambda: False)
+    assert store.get(dev, 10, capturing=lambda: True) is ws
+    assert store.get(dev, need(), capturing=lambda: True) is ws
+    with pytest.raises(RuntimeError, match="capture"):
+        store.get(dev, mod.WORKSPACE_MIN + 1, capturing=lambda: True)
+    bufs = store.made(dev)
+    assert len(bufs) == 1 and bufs[0] is ws
+
+
+@pytest.mark.parametrize("w", DECODE_W)
+def test_decode_plan_tiles_the_window_in_absolute_segments(w):
+    """The grid holds one block per (kv head, segment, slot), with as many
+    segments as SEG-position segments at multiples of SEG take to tile
+    [0, W): the last one holds position W - 1, none starts at or past W
+    (the kernel refuses any other count)."""
+    b, hkv, g, hd = 4, 8, 2, 64
+    plan = kd.decode_plan(b, w, hkv, g, hd)
+    n = plan.segments
+    assert plan.grid == (hkv, n, b)
+    assert (n - 1) * kd.SEG <= w - 1 < n * kd.SEG
+    # whole 64-position tiles, one a warp, in a block of at most 1,024
+    assert kd.SEG % kd.BKV == 0 and kd.SEG // kd.BKV * 32 <= 1024
+
+
+@pytest.mark.parametrize("w", DECODE_W)
+def test_decode_segments_do_not_depend_on_the_window(w):
+    """A slot's visible positions [0, L] fall in segments 0 .. L // SEG,
+    the ones the kernel folds, and every window that holds L has them all
+    in its grid: a slot's segments, and so its bits, do not depend on the
+    window bucket (windowed == full on the card)."""
+    limits = {0, kd.SEG - 1, kd.SEG, kd.SEG + 1, w - 1}
+    for limit in sorted(x for x in limits if x < w):
+        live = limit // kd.SEG + 1
+        for w2 in (x for x in DECODE_W if x > limit):
+            assert live <= kd.decode_plan(4, w2, 8, 2, 64).segments
+
+
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_decode_segment_reads_a_slice_of_the_table(page_size):
+    """A paged segment's positions [s·SEG, (s+1)·SEG) lie on at most
+    SEG / page_size + 1 pages, however long the table: the kernel looks up
+    only those entries. The plan's segments read every entry of a table
+    past 40,960 positions."""
+    n_blk = 40960 // page_size + 1
+    w = n_blk * page_size
+    covered = set()
+    for s in range(kd.decode_plan(4, w, 8, 2, 64).segments):
+        lo, hi = s * kd.SEG, min((s + 1) * kd.SEG, w)
+        pages = set(range(lo // page_size, (hi - 1) // page_size + 1))
+        assert len(pages) <= kd.SEG // page_size + 1
+        covered |= pages
+    assert covered == set(range(n_blk))
+
+
+@pytest.mark.parametrize("b,w,hkv,g,hd", [(4, 64, 8, 2, 64), (4, 256, 8, 2, 64),
+                                          (4, 257, 8, 2, 64),
+                                          (4, 4096, 8, 2, 64),
+                                          (6, 4096, 4, 3, 64),
+                                          (6, 1024, 1, 16, 64),
+                                          (2, 40960, 8, 2, 128)])
+def test_decode_workspace_covers_every_record(b, w, hkv, g, hd):
+    """One segment needs no workspace; more need the tickets and a record
+    of B · Hkv · segments · (G·hd + 2G) f32, each padded to 16 bytes. The
+    model's decode at 4 slots fits the first workspace up to its 40,960
+    positions."""
+    plan = kd.decode_plan(b, w, hkv, g, hd)
+    if plan.segments == 1:
+        assert plan.workspace == 0
+        return
+    rec = kd.record_floats(g, hd)
+    assert rec >= g * hd + 2 * g and rec % 4 == 0
+    assert plan.workspace == kd.TICKETS + b * hkv * plan.segments * rec
+    assert b * hkv <= kd.TICKETS
+    assert _decode_need() <= kd.WORKSPACE_MIN
 
 
 def test_ptxas_summary_reads_each_kernel():

@@ -200,6 +200,31 @@ def test_decode_attention_vs_oracle_and_pallas(quantized, starts, window):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hq,hkv,hd,w,starts,bk", [
+    (16, 8, 64, 64, (63, 17, 0), 32),         # the serve grouping: G 2, hd 64
+    (4, 2, 32, 320, (255, 256, 257), 64),     # around a 256-position boundary
+])
+def test_decode_attention_serve_grouping_and_segment_boundary(
+        quantized, hq, hkv, hd, w, starts, bk):
+    """The decode function that the card's split-KV kernel must keep: at the
+    serve grouping, and for slots just before, at and past the first
+    boundary of its 256-position segments; against the oracle and against
+    ``decode_attention_pallas`` in interpret mode."""
+    cj, ct = _cache(hd + w, w, quantized, hkv, hd)
+    qj, qt = _bf16(np.random.RandomState(w).randn(B, 1, hq, hd))
+    start = np.asarray(starts, np.int32)
+    out = ops.decode_attention(qt, ct, torch.from_numpy(start))
+    want = jops.cached_attention(qj, cj, jnp.asarray(start), None)
+    assert out.shape == (B, 1, hq, hd)
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+    kj, vj, ksj, vsj = jops._cache_window(cj, None)
+    pallas = jdec.decode_attention_pallas(qj[:, 0], kj, vj, ksj, vsj,
+                                          jnp.asarray(start), bk=bk,
+                                          interpret=True)
+    np.testing.assert_allclose(_f32(out[:, 0]), _f32(pallas), **ATTN_PALLAS)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
 def test_windowed_attend_equals_full_buffer(quantized):
     """Positions past the window mask to exact zeros: a window that covers
     every consumed row gives the full buffer's bits."""
