@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on the card: build the CUDA
 kernels, hold each against its plain PyTorch version at the shapes of the
-serving path (the paged ones also bit for bit against their contiguous
-twins on the gathered window; decode attention also across its split-KV
-segments, windowed == full, and up to 40,960 positions) and of the train
+serving path (the W8A8 GEMM also in its serving form, which quantizes x in
+its own launch, bit for bit against the row quantizer then the GEMM; the
+paged attention kernels also bit for bit against their contiguous twins on
+the gathered window, up to 40,960 positions; decode attention also across
+its split-KV segments, windowed == full) and of the train
 route (the causal flash kernel, its backward too), then serve the
 full-width qwen3-0.6b (random weights from a seed, INT8 PTQ) through the
 continuous-batching engine, with a contiguous KV pool and with a paged KV
@@ -106,6 +108,10 @@ DECODE_HEADS = ((16, 8, 64),) + PREFILL_HEADS + ((16, 1, 64),)
 # the calls rotate through; 0: one set, already past the 50 MB L2)
 DECODE_TIMED = ((4096, 100_000_000), (32768, 0))
 B5_LONG = 40960      # qwen3-0.6b's max_seq_len: 2,560 pages of 16 a slot
+# B6 past the 2,048 table entries it once held in shared memory: SERVE_CHUNK
+# queries at these starts of a B5_LONG-position paged window (windows past
+# 32,768 positions), checked, and the first one timed
+B6_LONG_STARTS = (B5_LONG - SERVE_CHUNK, 33000)
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
@@ -209,9 +215,11 @@ def phase_quantize(dev, report):
         shape=f"x ({m}, {k}) bf16")
 
 
-def _gemm_bound(m, k, n):
-    return bound(m * k + k * n + (m + n) * 4 + m * n * 2, 2 * m * n * k,
-                 "int8")
+def _gemm_bound(m, k, n, x_bytes=1):
+    """x (int8 with its f32 scales, or bf16), w_q, w_scale and out moved
+    once; 2·M·N·K int8 operations."""
+    x = m * k + m * 4 if x_bytes == 1 else m * k * 2
+    return bound(x + k * n + n * 4 + m * n * 2, 2 * m * n * k, "int8")
 
 
 def phase_int8_matmul(dev, report):
@@ -219,16 +227,29 @@ def phase_int8_matmul(dev, report):
     and the tiling meet (1 and 4 slots, 13, one 16-row tile, past it, four
     tiles) on the model's four (K, N), the ragged ones of a per-layer cut
     (d_ff 3,035, 7 kv heads) and two N that take the 8- and 4-byte copies:
-    every copy width and a range of split-K factors. The split-K workspace
-    must be zero again after them. Then the device time of each decode
-    shape, weights rotated through > 50 MB so that, as in a decode step,
-    each launch reads its weight from device memory."""
+    every copy width and a range of split-K factors. Its serving form,
+    which quantizes a bf16 x in the same launch, at the same shapes: its
+    output equal to B2 then B1 (kernels and plain versions), its codes and
+    scales equal to the plain quantizer's, with 16-byte and element loads
+    of x. The split-K workspace must be zero again after them. Then the
+    device time of each decode and prefill-chunk shape, weights rotated
+    through > 50 MB so that, as in a decode step, each launch reads its
+    weight from device memory: B1, the fused form, and B2 + B1."""
     import torch
-    from repro_torch.kernels import int8_matmul as km, ref
+    from repro_torch.kernels import int8_matmul as km, quantize as kq, ref
     gen = lambda *shape: torch.randint(-127, 128, shape, device=dev,
                                        dtype=torch.int8)
-    err = 0.0
-    seen = set()
+
+    def two_step(quantize, matmul, x, w_q, w_scale):
+        """B2 then B1 (or their plain versions): x's codes and scales, then
+        the product."""
+        x_q, x_scale = quantize(x)
+        return matmul(x_q, w_q, x_scale, w_scale)
+
+    b2_b1 = lambda *a: two_step(kq.quantize_rowwise, km.int8_matmul, *a)
+    plain = lambda *a: two_step(ref.quantize_ref, ref.int8_matmul_ref, *a)
+    err = err_q = 0.0
+    seen, seen_q = set(), set()
     shapes = [(m, k, n) for m in GEMM_M for k, n in GEMM_KN]
     shapes += [(m, 1024, n) for m in (4, 16) for n in (1000, 1012)]
     for m, k, n in shapes:
@@ -244,43 +265,112 @@ def phase_int8_matmul(dev, report):
             fail(f"int8_matmul M={m} K={k} N={n} ({plan}) differs from "
                  f"plain")
         err = max(err, (out.float() - want.float()).abs().max().item())
+        # the serving form: a bf16 x with an all-zero row
+        x = (torch.randn(m, k, device=dev) * 3).to(torch.bfloat16)
+        x[m // 2] = 0
+        plan = km.gemm_plan(m, n, k, wq.data_ptr(), x.data_ptr(), x_bytes=2)
+        seen_q.add((plan.vec, plan.x_vec, plan.split))
+        out_q = torch.empty(m, k, dtype=torch.int8, device=dev)
+        out_s = torch.empty(m, dtype=torch.float32, device=dev)
+        out = km.int8_matmul_quant(x, wq, ws, out_q, out_s)
+        want_q, want_s = ref.quantize_ref(x)
+        want = plain(x, wq, ws)
+        what = f"int8_matmul_quant M={m} K={k} N={n} ({plan})"
+        _equal(out_q, want_q, what + " codes vs plain quantize")
+        _equal(out_s, want_s, what + " scales vs plain quantize")
+        _equal(out, b2_b1(x, wq, ws), what + " vs B2 then B1")
+        _equal(out, want, what + " vs plain")
+        err_q = max(err_q, (out.float() - want.float()).abs().max().item())
+    # exact ties: rows whose scale is 1 (absmax 127) or 1/2 (63.5), so that
+    # x / scale lands on half-integers, which round to even; a few in one
+    # row (the kernel's list of chunks near a tie) and in every chunk of
+    # 16 rows (more than the list holds)
+    for m, n_ties in ((SERVE_SLOTS, 3), (SERVE_CHUNK, None)):
+        k, n = 1024, 512
+        x = torch.randint(-126, 126, (m, k), device=dev).float()
+        x[:, 0] = 127
+        x[1] = x[1] / 2
+        x[1, 0] = 63.5
+        if n_ties is None:
+            x[:, 1:] += 0.5
+            x[1, 1:] -= 0.25
+        else:
+            x[0, 1:1 + n_ties] += 0.5
+        x = x.to(torch.bfloat16)
+        wq, ws = gen(k, n), torch.rand(n, device=dev) * 0.05 + 1e-3
+        out_q = torch.empty(m, k, dtype=torch.int8, device=dev)
+        out_s = torch.empty(m, dtype=torch.float32, device=dev)
+        out = km.int8_matmul_quant(x, wq, ws, out_q, out_s)
+        what = f"int8_matmul_quant M={m} with exact ties"
+        want_q, want_s = ref.quantize_ref(x)
+        _equal(out_q, want_q, what + " codes vs plain quantize")
+        _equal(out_s, want_s, what + " scales vs plain quantize")
+        _equal(out, plain(x, wq, ws), what + " vs plain")
+        _equal(out, b2_b1(x, wq, ws), what + " vs B2 then B1")
     widths = {v for v, _, _ in seen}
     if widths != {16, 8, 4, 1} or {xv for _, xv, _ in seen} != {4, 1}:
         fail(f"int8_matmul: copy widths checked {sorted(widths)}")
+    if ({v for v, _, _ in seen_q} != widths
+            or {xv for _, xv, _ in seen_q} != {16, 2}):
+        fail(f"int8_matmul_quant: copy / x widths checked {sorted(seen_q)}")
     _, ws_left = _scratch(dev)
     if ws_left:
         fail(f"int8_matmul: split-K workspace not reset ({ws_left})")
     splits = sorted({sp for _, _, sp in seen})
     print(f"[kernel] int8_matmul bit-identical at {len(shapes)} shapes: copy "
           f"widths {sorted(widths)}, split-K factors {splits}")
+    print(f"[kernel] int8_matmul_quant at the same {len(shapes)} shapes and "
+          f"on exact ties: output equal to B2 then B1 and to the plain "
+          f"versions, codes and scales equal to the plain quantizer's; x "
+          f"loads of "
+          f"{sorted({xv for _, xv, _ in seen_q})} bytes, split-K factors "
+          f"{sorted({sp for _, _, sp in seen_q})}")
 
     def rotating(m, k, n):
+        """B1, its plain version, the fused form, its plain version and
+        B2 + B1, each call on the next of as many weights as pass 60 MB."""
         xq = gen(m, k)
         xs = torch.rand(m, device=dev) * 0.05
         ws = torch.rand(n, device=dev) * 0.05
+        x = torch.randn(m, k, device=dev).to(torch.bfloat16)
         weights = [gen(k, n) for _ in range(max(2, -(-60_000_000 // (k * n))))]
         it = iter(range(10 ** 9))
         pick = lambda: weights[next(it) % len(weights)]
-        return (lambda: km.int8_matmul(xq, pick(), xs, ws),
-                lambda: ref.int8_matmul_ref(xq, pick(), xs, ws),
-                len(weights))
+        return dict(
+            b1=lambda: km.int8_matmul(xq, pick(), xs, ws),
+            b1_plain=lambda: ref.int8_matmul_ref(xq, pick(), xs, ws),
+            fused=lambda: km.int8_matmul_quant(x, pick(), ws),
+            fused_plain=lambda: plain(x, pick(), ws),
+            b2_b1=lambda: b2_b1(x, pick(), ws), calls=len(weights))
 
-    per_shape = {}
+    per_shape, per_shape_q = {}, {}
     for m in (SERVE_SLOTS, SERVE_CHUNK):
         for k, n in GEMM_KN[:4]:
-            kern, _, calls = rotating(m, k, n)
+            f = rotating(m, k, n)
+            label = f"({m}, {k}) x ({k}, {n})"
             b, by = _gemm_bound(m, k, n)
-            per_shape[f"({m}, {k}) x ({k}, {n})"] = dict(
-                ms=device_ms(kern, calls), bound_ms=b, bound_by=by,
+            per_shape[label] = dict(
+                ms=device_ms(f["b1"], f["calls"]), bound_ms=b, bound_by=by,
                 plan=str(km.gemm_plan(m, n, k)))
+            b, by = _gemm_bound(m, k, n, x_bytes=2)
+            per_shape_q[label] = dict(
+                ms=device_ms(f["fused"], f["calls"]),
+                b2_b1_ms=device_ms(f["b2_b1"], f["calls"]), bound_ms=b,
+                bound_by=by, plan=str(km.gemm_plan(m, n, k, x_bytes=2)))
     m, k, n = SERVE_SLOTS, 1024, 3072            # decode's gate/up shape
-    kern, plain, calls = rotating(m, k, n)
-    b, by = _gemm_bound(m, k, n)
+    f = rotating(m, k, n)
     # torch._int_mm needs M > 16: no library call at decode's M
+    b, by = _gemm_bound(m, k, n)
     report["int8_matmul"] = dict(
         max_abs_err=err, bound_ms=b, bound_by=by,
-        **timed(kern, plain, calls=calls),
+        **timed(f["b1"], f["b1_plain"], calls=f["calls"]),
         shape=f"({m}, {k}) x ({k}, {n}) int8", shapes=per_shape)
+    b, by = _gemm_bound(m, k, n, x_bytes=2)
+    report["int8_matmul_quant"] = dict(
+        max_abs_err=err_q, bound_ms=b, bound_by=by,
+        **timed(f["fused"], f["fused_plain"], calls=f["calls"]),
+        b2_b1_ms=device_ms(f["b2_b1"], f["calls"]),
+        shape=f"x ({m}, {k}) bf16 x ({k}, {n}) int8", shapes=per_shape_q)
 
 
 def _kv(dev, b, w, hkv, hd, quantized):
@@ -524,7 +614,7 @@ def _prefill_times(dev, sq, st, w, page_size=None):
             plain = lambda: ref.cached_attention_ref(q, *kv, start)
         else:
             arena, table = _paged_case(dev, page_size, quantized,
-                                       [st + sq - 1])
+                                       [st + sq - 1], max_seq=max(w, 256))
             idx = window_pages(table, page_size, w).contiguous()
             kv = _gathered(arena, idx)
             n_table = idx.numel()
@@ -702,8 +792,11 @@ def phase_paged_prefill(dev, report):
     """B6 against its plain version (as B4) and bit for bit against B4 on
     the gathered window, at pages of PAGE_SIZES, ragged chunks and the
     PREFILL_HEADS groupings and widths; chunked == whole-prompt prefill
-    against one KV tile and against four; then the device times at
-    PREFILL_TIMED through pages of SERVE_PAGE."""
+    against one KV tile and against four; then a chunk at each of
+    B6_LONG_STARTS of a B5_LONG-position window in pages of SERVE_PAGE, a
+    table longer than the 2,048 entries B6 once held in shared memory,
+    INT8 and bf16 KV; then the device times at PREFILL_TIMED and at the
+    first long start through pages of SERVE_PAGE."""
     import torch
     from repro_torch.kernels import prefill_attention as kp, ref
     from repro_torch.kernels.kv_layout import page_count, window_pages
@@ -748,9 +841,28 @@ def phase_paged_prefill(dev, report):
                     _equal(part, whole[:, lo:hi],
                            f"paged prefill page={ps} chunk [{lo}, {hi}) of "
                            f"{n} int8={quantized} vs whole prompt")
+    w, ps, sq = B5_LONG, SERVE_PAGE, SERVE_CHUNK
+    for quantized in (True, False):
+        arena, table = _paged_case(dev, ps, quantized,
+                                   [st + sq - 1 for st in B6_LONG_STARTS],
+                                   max_seq=w)
+        start = torch.tensor(B6_LONG_STARTS, dtype=torch.int32, device=dev)
+        q = torch.randn(len(B6_LONG_STARTS), sq, hq, hd, device=dev).to(
+            torch.bfloat16)
+        what = (f"paged prefill page={ps} W={w} ({table.shape[1]} pages) "
+                f"Sq={sq} at {B6_LONG_STARTS} int8={quantized}")
+        out = kp.paged_prefill_attention(q, *arena, start, table)
+        _attn_check(out, ref.paged_prefill_attention_ref(
+            q, *arena, start, table), what, errs)
+        _equal(out, kp.prefill_attention(q, *_gathered(arena, table), start),
+               what + " vs B4")
+        print(f"[kernel] {what}: within tolerance of the plain version, "
+              f"equal to B4 on the gathered window")
+        del arena, table, out
+    timed_shapes = PREFILL_TIMED + ((sq, B6_LONG_STARTS[0], w),)
     times = {f"q (1, {sq}, {hq}, {hd}) at {st} vs window {w}":
              _prefill_times(dev, sq, st, w, SERVE_PAGE)
-             for sq, st, w in PREFILL_TIMED}
+             for sq, st, w in timed_shapes}
     report["paged_prefill_attention"] = _attn_report(
         errs, times, f" arena, pages of {SERVE_PAGE}")
 
@@ -945,7 +1057,7 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
         fail(f"{what}: kernels never launched on the serving run: {idle}")
     stray = [name for name in must_not if launches[name]]
     if stray:
-        fail(f"{what}: kernels of the other KV layout launched: {stray}")
+        fail(f"{what}: kernels off this serving path launched: {stray}")
     return summarize_results(results, wall), eng, launches
 
 
@@ -1211,8 +1323,9 @@ def phase_profile(params, cfg, dev, kernels):
 
 def _profiled(run, kernels):
     """``run`` under torch.profiler: the host wall ms around it, the number
-    of device kernels and their device ms summed by group. Prints the
-    profiler's table."""
+    of device kernels and their device ms summed by group (each port
+    kernel a group, 0 where it did not run). Prints the profiler's
+    table."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1220,7 +1333,7 @@ def _profiled(run, kernels):
         t0 = time.monotonic()
         run()
         wall_ms = (time.monotonic() - t0) * 1e3
-    groups, n_kernels = {}, 0
+    groups, n_kernels = dict.fromkeys(kernels, 0.0), 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             g = _group(evt.name, kernels)
@@ -1336,6 +1449,7 @@ def main() -> int:
             for k, regs, st, ld in build.ptxas_summary(log)))
     kernels = {"quantize_rowwise": quantize.KERNEL,
                "int8_matmul": int8_matmul.KERNEL,
+               "int8_matmul_quant": int8_matmul.QUANT_KERNEL,
                "decode_attention": decode_attention.KERNEL,
                "prefill_attention": prefill_attention.KERNEL,
                "paged_decode_attention": decode_attention.PAGED_KERNEL,
@@ -1357,10 +1471,15 @@ def main() -> int:
             if key in r:
                 print(f"[kernel] {name} {label or 'at ' + r[key]['shape']}: "
                       + _times(r[key]) + f"  [{card}]")
+        if "b2_b1_ms" in r:
+            print(f"[kernel] {name} at {r['shape']}: B2 then B1 "
+                  f"{r['b2_b1_ms']:.5f} ms (device)  [{card}]")
         for shape, o in r.get("shapes", {}).items():
             if "plan" in o:
+                b2_b1 = (f", B2 then B1 {o['b2_b1_ms']:.5f} ms (device)"
+                         if "b2_b1_ms" in o else "")
                 print(f"[kernel] {name} at {shape}: kernel {o['ms']:.5f} ms "
-                      f"(device), bound {o['bound_ms']:.6f} ms "
+                      f"(device){b2_b1}, bound {o['bound_ms']:.6f} ms "
                       f"({o['bound_by']}), {o['plan']}  [{card}]")
                 continue
             for kv, t in o.items():
@@ -1384,7 +1503,10 @@ def main() -> int:
           f"{time.monotonic() - t0:.1f}s")
     contiguous = ("decode_attention", "prefill_attention")
     paged = ("paged_decode_attention", "paged_prefill_attention")
-    dense = ("quantize_rowwise", "int8_matmul")
+    # the W8A8 linears quantize x in the GEMM's launch: B2 and the int8-x
+    # form of B1 stay for parity checks and must not launch while serving
+    dense, unfused = ("int8_matmul_quant",), ("quantize_rowwise",
+                                              "int8_matmul")
     reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
                                     SERVE_NEW)
 
@@ -1401,17 +1523,18 @@ def main() -> int:
     kv_bytes = None
     for quantized_kv in (True, False):
         summary, eng, launches = serve_once(
-            params, cfg, dev, kernels, reqs, dense + contiguous, paged,
-            arrivals_s=arrivals, quantized_kv=quantized_kv)
+            params, cfg, dev, kernels, reqs, dense + contiguous,
+            paged + unfused, arrivals_s=arrivals, quantized_kv=quantized_kv)
         if quantized_kv:
-            main_launches.update({k: launches[k] for k in dense + contiguous})
+            main_launches.update({k: launches[k]
+                                  for k in dense + contiguous + unfused})
             kv_bytes = eng.stats["kv_bytes"]
         line(summary, eng, launches,
              f"contiguous kv={'int8' if quantized_kv else 'bf16'}")
 
     # the paged path: the same staggered load, then a shared-prompt load
     summary, eng, launches = serve_once(
-        params, cfg, dev, kernels, reqs, dense + paged, contiguous,
+        params, cfg, dev, kernels, reqs, dense + paged, contiguous + unfused,
         arrivals_s=arrivals, quantized_kv=True, page_size=SERVE_PAGE)
     main_launches.update({k: launches[k] for k in paged})
     line(summary, eng, launches, f"paged kv=int8 page={SERVE_PAGE}")
@@ -1421,7 +1544,7 @@ def main() -> int:
           f"{kv_bytes} B, prefix_hits {eng.stats['prefix_hits']}  [{card}]")
     shared, ticks = shared_prompt_load(cfg)
     summary, eng, launches = serve_once(
-        params, cfg, dev, kernels, shared, dense + paged, contiguous,
+        params, cfg, dev, kernels, shared, dense + paged, contiguous + unfused,
         arrival_ticks=ticks, quantized_kv=True, page_size=SERVE_PAGE)
     line(summary, eng, launches,
          f"paged kv=int8 page={SERVE_PAGE}, shared {SHARED_HEAD}-token head")
@@ -1452,8 +1575,8 @@ def main() -> int:
     # launch through their workspace, and engine == serial still holds
     long_reqs = long_prompt_load(cfg)
     for page_size, must, must_not in (
-            (None, dense + contiguous, paged),
-            (SERVE_PAGE, dense + paged, contiguous)):
+            (None, dense + contiguous, paged + unfused),
+            (SERVE_PAGE, dense + paged, contiguous + unfused)):
         summary, eng, launches = serve_once(
             params, cfg, dev, kernels, long_reqs, must, must_not,
             max_seq=LONG_MAX_SEQ, split_kv=True, quantized_kv=True,
@@ -1471,8 +1594,8 @@ def main() -> int:
     for label, pruned in ((f"HQP artifact (θ={manifest.theta:.1%})",
                            pruned_params), ("per-layer cut, ragged", ragged)):
         for page_size, must, must_not in (
-                (None, dense + contiguous, paged),
-                (SERVE_PAGE, dense + paged, contiguous)):
+                (None, dense + contiguous, paged + unfused),
+                (SERVE_PAGE, dense + paged, contiguous + unfused)):
             summary, eng, launches = serve_once(
                 pruned, cfg, dev, kernels, pruned_reqs, must, must_not,
                 arrivals_s=pruned_arrivals, quantized_kv=True,
@@ -1492,6 +1615,7 @@ def main() -> int:
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
+                "int8_matmul_quant": "int8_matmul.py:44",
                 "decode_attention": "decode_attention.py:109",
                 "prefill_attention": "prefill_attention.py:122",
                 "paged_decode_attention": "decode_attention.py:155",
@@ -1508,8 +1632,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s", "shapes")
-               if k in r}})
+            **({"also_replaces": "src/repro/kernels/"
+                                 + replaces["quantize_rowwise"]}
+               if name == "int8_matmul_quant" else {}),
+            **({"off_serving_path": "parity checks only: the serving path "
+                                    "runs int8_matmul_quant"}
+               if name in unfused else {}),
+            **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
+                                 "b2_b1_ms", "shapes") if k in r}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,36 +112,6 @@ constexpr int TICKETS = 8192;          // int32 tickets ahead of the records
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 
-// Where the KV of one slot lives.
-struct KVArgs {
-  long long kv_bstride, s_bstride;   // contiguous: batch strides (elements)
-  const int* pages;                  // paged: (B, n_blk) int32 table
-  int n_blk, page_size;
-};
-
-// row(pos): the storage row of position pos; (row, head 0, dim 0) of a KV
-// leaf is at kv0 + row * Hkv * hd, (row, head 0) of a scale leaf at s0 +
-// row * Hkv.
-struct ContigAddr {
-  static constexpr bool kPaged = false;
-  size_t kv0, s0;
-  __device__ ContigAddr(const KVArgs& a, int b)
-      : kv0(b * a.kv_bstride), s0(b * a.s_bstride) {}
-  __device__ size_t row(int pos) const { return pos; }
-};
-
-struct PagedAddr {
-  static constexpr bool kPaged = true;
-  size_t kv0 = 0, s0 = 0;
-  const int* tbl;                    // the slot's table row
-  int ps;
-  __device__ PagedAddr(const KVArgs& a, int b)
-      : tbl(a.pages + (size_t)b * a.n_blk), ps(a.page_size) {}
-  __device__ size_t row(int pos) const {
-    return (size_t)__ldg(tbl + pos / ps) * ps + pos % ps;
-  }
-};
-
 // The block's shared memory. Dynamic: the segment's K and V in the KV type,
 // and their scales (INT8). Rows are padded so that the fragment loads of
 // 8 consecutive positions fall on distinct banks: bf16 rows by 16 bytes (the

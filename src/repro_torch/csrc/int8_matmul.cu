@@ -1,7 +1,11 @@
 // W8A8 matmul with int32 accumulation and a per-row x per-column dequant
-// epilogue: out[m, n] = bf16((float(sum_k x_q[m,k] * w_q[k,n]) * xs[m]) * ws[n]).
+// epilogue: out[m, n] = bf16((float(sum_k x_q[m,k] * w_q[k,n]) * xs[m]) *
+// ws[n]); in its second form it first quantizes a bf16 x per row itself.
 //
-// Replaces: src/repro/kernels/int8_matmul.py, int8_matmul_pallas (_kernel).
+// Replaces: src/repro/kernels/int8_matmul.py, int8_matmul_pallas (_kernel);
+//   the second form also src/repro/kernels/quantize.py,
+//   quantize_rowwise_pallas (_kernel), as its prologue: the pair that
+//   src/repro/kernels/ops.py int8_matmul runs on a float x.
 // Bound on the card: bytes on the main path. Decode runs at M = n_slots = 4
 //   and a prefill chunk at M = 16, where every weight byte is used M times:
 //   (4, 1024) x (1024, 3072) moves 3.16 MB, 0.94 us at 3.35 TB/s, against
@@ -43,9 +47,35 @@
 //     workspace, but a portable cluster holds 8 blocks: 16 tiles of N = 512
 //     times 8 is 128 blocks. Integer addition is associative and |acc| <=
 //     127^2 * K < 2^31, so the sum is exact whatever the order.
-// Staging: the plain version's (kernels/ref.py int8_matmul_ref), exactly:
-//   the int32 sum, rounded to f32, times xs[m], then times ws[n], rounded to
-//   bf16 (nearest even). The output equals the plain version bit for bit.
+// Quantize prologue (int8_matmul_quant, the serving path's form): x comes
+//   as bf16 (M, K), and the launch does B2's work (quantize_rowwise.cu)
+//   itself, so B2 is no longer a launch of its own on the serving path: a
+//   launch of B2 costs 1-2 us of device time and a host wrapper call for
+//   8 KB of work (PERF.md). After the weight ring's first copies are
+//   issued, and while they fly, each block (1) reduces the f32 absmax of
+//   each of its <= 16 rows over the whole K, four rows a warp, by 16-byte
+//   loads where K % 8 == 0 and x allows it, else element by element, then
+//   warp shuffles; max does not depend on the order, so every block of an
+//   m-tile, whatever its K range, gets the same bits; (2) takes scale =
+//   max(amax, 1e-8) / 127 by one IEEE division, kept in shared memory; (3)
+//   quantizes only its own K range into x's tile, in the MMA's k order, q
+//   = clamp(rint(x / scale), -127, 127) by IEEE division and round half to
+//   even: B2's sequence, so the codes and scales are B2's bit for bit; (4)
+//   scales the epilogue by the row's scale from shared memory (in a split
+//   K the last block computed the same one). Every block reads its rows
+//   over all of K (from L2 after the first: 8 KB a block at decode, 96 KB
+//   at a prefill chunk's K = 3,072) and divides for its whole range, once
+//   per n-tile: the prologue's cost grows with M, and at M = 16 the fused
+//   launch is slower than B2 then B1 at the two largest shapes (PERF.md,
+//   with the designs tried: staging x's range by cp.async ahead of the
+//   weights, the whole ring ahead, and codes by reciprocal screened for
+//   ties were no faster). Optional outputs receive the codes (from the
+//   blocks of n-tile 0, each its K range) and the scales (n-tile 0, K
+//   range 0) for the parity checks; null on the serving path.
+// Staging: the plain version's (kernels/ref.py int8_matmul_ref, after
+//   quantize_ref in the second form), exactly: the int32 sum, rounded to
+//   f32, times xs[m], then times ws[n], rounded to bf16 (nearest even). The
+//   output equals the plain version bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -138,14 +168,213 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
 // Position of physical k (within its 16-k group) in the MMA's order.
 __device__ __forceinline__ int perm16(int q) { return 4 * (q & 3) + (q >> 2); }
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const int8_t* __restrict__ xq,
-                   const int8_t* __restrict__ wq,
-                   const float* __restrict__ xs, const float* __restrict__ ws,
-                   __nv_bfloat16* __restrict__ out, int* __restrict__ acc_ws,
-                   int* __restrict__ counters, int M, int N, int K,
-                   int ksteps, int x_vec) {
+// Where x's tile is staged: row r's physical k p (of the block's range)
+// at xt[r * x_pitch + xt_col(p)], each 16-k group in the MMA's order.
+__device__ __forceinline__ int xt_col(int p) {
+  return (p & ~15) + perm16(p & 15);
+}
+
+// int8 x: rows m0.. of the block's K range [k_begin, k_begin + span) into
+// xt, zeros past the span up to kx, 4 bytes at a time where x_vec == 4.
+__device__ __forceinline__ void stage_x_int8(
+    int8_t* xt, const int8_t* __restrict__ xq, int m0, int rows, int K,
+    int k_begin, int span, int kx, int x_pitch, int x_vec, int tid) {
+  if (x_vec == 4) {
+    const int words = kx / 4;
+    for (int idx = tid; idx < rows * words; idx += kThreads) {
+      const int r = idx / words, p = (idx % words) * 4;
+      const int v = p < span ? *reinterpret_cast<const int*>(
+                                   xq + (size_t)(m0 + r) * K + k_begin + p)
+                             : 0;
+      int8_t* d = xt + r * x_pitch + (p & ~15) + ((p & 15) >> 2);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) d[4 * b] = static_cast<int8_t>(v >> (8 * b));
+    }
+  } else {
+    for (int idx = tid; idx < rows * kx; idx += kThreads) {
+      const int r = idx / kx, p = idx % kx;
+      xt[r * x_pitch + xt_col(p)] =
+          p < span ? xq[(size_t)(m0 + r) * K + k_begin + p] : int8_t(0);
+    }
+  }
+}
+
+__device__ __forceinline__ float abs_hi(uint32_t w) {
+  return fabsf(__uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float abs_lo(uint32_t w) {
+  return fabsf(__uint_as_float(w << 16));
+}
+
+// Four int8 as the bytes of one word, a first.
+__device__ __forceinline__ uint32_t byte_pack(int8_t a, int8_t b, int8_t c,
+                                              int8_t d) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(a)) |
+         static_cast<uint32_t>(static_cast<uint8_t>(b)) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(c)) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(d)) << 24;
+}
+
+// B2's code of one value: rint(x / scale) by IEEE division, clamped.
+__device__ __forceinline__ int8_t quant_code(float x, float scale) {
+  const float v = rintf(__fdiv_rn(x, scale));
+  return static_cast<int8_t>(fminf(fmaxf(v, -127.0f), 127.0f));
+}
+
+constexpr int RPW = BM / kWarps;   // rows a warp takes in the absmax pass
+
+// The largest |x| of the 8 bf16 values of one 16-byte load, in f32.
+__device__ __forceinline__ float abs_max(const uint4& u) {
+  return fmaxf(fmaxf(fmaxf(abs_lo(u.x), abs_hi(u.x)),
+                     fmaxf(abs_lo(u.y), abs_hi(u.y))),
+               fmaxf(fmaxf(abs_lo(u.z), abs_hi(u.z)),
+                     fmaxf(abs_lo(u.w), abs_hi(u.w))));
+}
+
+// Chunk idx (row r = idx / chunks, physical k p = 8 * (idx % chunks) of
+// the block's range) of bf16 x, 16-byte rows: its 8 codes, by B2's
+// division, into x's tile (and out_q) from the 16-byte load u (ignored
+// past the span, which codes 0).
+__device__ __forceinline__ void quant_chunk(
+    int8_t* xt, const float* scale_sh, const uint4& u, int idx, int chunks,
+    int span, int x_pitch, int8_t* __restrict__ q_row0, int K) {
+  const int r = idx / chunks, p = (idx % chunks) * 8;
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  const float scale = scale_sh[r];
+  int8_t c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t h = i & 1 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16;
+    c[i] = quant_code(p < span ? __uint_as_float(h) : 0.0f, scale);
+  }
+  // physical k p + i sits at (p & ~15) + perm16((p & 15) + i): codes i and
+  // i + 4 at neighbouring bytes, 4 * (i & 3) + (p & 15) / 4
+  int8_t* d = xt + r * x_pitch + (p & ~15) + ((p & 15) >> 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<uint16_t*>(d + 4 * i) =
+        static_cast<uint16_t>(byte_pack(c[i], c[i + 4], 0, 0));
+  if (q_row0 != nullptr && p < span)
+    *reinterpret_cast<uint2*>(q_row0 + (size_t)r * K + p) =
+        make_uint2(byte_pack(c[0], c[1], c[2], c[3]),
+                   byte_pack(c[4], c[5], c[6], c[7]));
+}
+
+// The codes of the block's K range, 16-byte rows: U loads a thread in
+// flight at once (a dead one rereads the range's first 8 values).
+template <int U>
+__device__ __forceinline__ void quant_range16(
+    int8_t* xt, const float* scale_sh, const __nv_bfloat16* __restrict__ x,
+    int m0, int rows, int K, int k_begin, int span, int kx, int x_pitch,
+    int tid, int8_t* q_row0) {
+  const int chunks = kx / 8, total = rows * chunks;
+  const __nv_bfloat16* x0 = x + (size_t)m0 * K + k_begin;
+  for (int base = tid; base < total; base += U * kThreads) {
+    uint4 u[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int idx = base + j * kThreads, r = idx / chunks,
+                p = (idx % chunks) * 8;
+      u[j] = __ldg(reinterpret_cast<const uint4*>(
+          idx < total && p < span ? x0 + (size_t)r * K + p : x0));
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (base + j * kThreads < total)
+        quant_chunk(xt, scale_sh, u[j], base + j * kThreads, chunks, span,
+                    x_pitch, q_row0, K);
+  }
+}
+
+// bf16 x, the quantize prologue: (1) each row's absmax over the whole K,
+// four rows a warp; (2) its scale into scale_sh; (3) the codes of the
+// block's K range into xt, zeros past the span, by B2's division:
+// 16-byte rows U loads a thread in flight (U = 1 for a tile of at most 4
+// rows, which has few, else 4), a ragged K element by element. With
+// out_q / out_s set, the codes of the range and (write_s) the scales go
+// there too.
+__device__ __forceinline__ void stage_x_quant(
+    int8_t* xt, float* scale_sh, const __nv_bfloat16* __restrict__ x,
+    int m0, int rows, int K, int k_begin, int span, int kx, int x_pitch,
+    int x_vec, int tid, int8_t* __restrict__ out_q,
+    float* __restrict__ out_s, bool write_s) {
+  const int lane = tid & 31, warp = tid >> 5;
+  float amax[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) amax[i] = 0.0f;
+  if (x_vec == 16) {
+    const int n8 = K / 8;
+#pragma unroll 4
+    for (int c = lane; c < n8; c += 32) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + kWarps * i;
+        if (r < rows)
+          amax[i] = fmaxf(amax[i], abs_max(__ldg(
+              reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K) + c)));
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < K; c += 32) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + kWarps * i;
+        if (r < rows)
+          amax[i] = fmaxf(amax[i],
+                          fabsf(__bfloat162float(x[(size_t)(m0 + r) * K + c])));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + kWarps * i;
+    float a = amax[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (lane == 0 && r < rows) {
+      const float s = __fdiv_rn(fmaxf(a, 1e-8f), 127.0f);
+      scale_sh[r] = s;
+      if (write_s) out_s[m0 + r] = s;
+    }
+  }
+  __syncthreads();
+
+  int8_t* q_row0 = out_q == nullptr ? nullptr
+                                    : out_q + (size_t)m0 * K + k_begin;
+  if (x_vec == 16) {
+    if (rows <= kWarps)
+      quant_range16<1>(xt, scale_sh, x, m0, rows, K, k_begin, span, kx,
+                       x_pitch, tid, q_row0);
+    else
+      quant_range16<4>(xt, scale_sh, x, m0, rows, K, k_begin, span, kx,
+                       x_pitch, tid, q_row0);
+  } else {
+    for (int idx = tid; idx < rows * kx; idx += kThreads) {
+      const int r = idx / kx, p = idx % kx;
+      int8_t c = 0;
+      if (p < span) {
+        c = quant_code(__bfloat162float(x[(size_t)(m0 + r) * K + k_begin +
+                                          p]),
+                       scale_sh[r]);
+        if (q_row0 != nullptr) q_row0[(size_t)r * K + p] = c;
+      }
+      xt[r * x_pitch + xt_col(p)] = c;
+    }
+  }
+}
+
+// One block's tile of the product. kQuantX: x is bf16 (M, K) and the block
+// quantizes it (stage_x_quant), xs is unused; otherwise x is int8 with its
+// scales xs.
+template <int V, bool kQuantX>
+__device__ __forceinline__ void gemm_block(
+    const void* __restrict__ x, const int8_t* __restrict__ wq,
+    const float* __restrict__ xs, const float* __restrict__ ws,
+    __nv_bfloat16* __restrict__ out, int* __restrict__ acc_ws,
+    int* __restrict__ counters, int8_t* __restrict__ out_q,
+    float* __restrict__ out_s, int M, int N, int K, int ksteps, int x_vec) {
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* ring = smem;
   int8_t* xt = smem + RING_BYTES;
@@ -161,6 +390,8 @@ int8_matmul_kernel(const int8_t* __restrict__ xq,
   const int n_stages = (span + STAGE_ROWS - 1) / STAGE_ROWS;
   const int x_pitch = ksteps * KSTEP + 16;     // 4 mod 8 words: no conflicts
   const int rows = min(BM, M - m0);
+  // after x's tile: its rows' scales (quantize prologue)
+  float* scale_sh = reinterpret_cast<float*>(xt + BM * x_pitch);
 
   // weights first, so that their copies are in flight while x is staged
 #pragma unroll
@@ -172,24 +403,14 @@ int8_matmul_kernel(const int8_t* __restrict__ xq,
   }
   // x rows m0.. of this block's K range, each 16-k group in the MMA's order
   const int kx = (span + KSTEP - 1) / KSTEP * KSTEP;
-  if (x_vec == 4) {
-    const int words = kx / 4;
-    for (int idx = tid; idx < rows * words; idx += kThreads) {
-      const int r = idx / words, p = (idx % words) * 4;
-      const int v = p < span ? *reinterpret_cast<const int*>(
-                                   xq + (size_t)(m0 + r) * K + k_begin + p)
-                             : 0;
-      int8_t* d = xt + r * x_pitch + (p & ~15) + ((p & 15) >> 2);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) d[4 * b] = static_cast<int8_t>(v >> (8 * b));
-    }
-  } else {
-    for (int idx = tid; idx < rows * kx; idx += kThreads) {
-      const int r = idx / kx, p = idx % kx;
-      xt[r * x_pitch + (p & ~15) + perm16(p & 15)] =
-          p < span ? xq[(size_t)(m0 + r) * K + k_begin + p] : int8_t(0);
-    }
-  }
+  if constexpr (kQuantX)
+    stage_x_quant(xt, scale_sh, static_cast<const __nv_bfloat16*>(x), m0,
+                  rows, K, k_begin, span, kx, x_pitch, x_vec, tid,
+                  blockIdx.x == 0 ? out_q : nullptr, out_s,
+                  out_s != nullptr && blockIdx.x == 0 && blockIdx.z == 0);
+  else
+    stage_x_int8(xt, static_cast<const int8_t*>(x), m0, rows, K, k_begin,
+                 span, kx, x_pitch, x_vec, tid);
 
   int acc[4][4];
 #pragma unroll
@@ -286,36 +507,128 @@ int8_matmul_kernel(const int8_t* __restrict__ xq,
     const int idx = tid + o * kThreads, r = idx / BN, c = idx % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (r < rows && gn < N) {
-      const float v =
-          __fmul_rn(__fmul_rn(__int2float_rn(total[o]), xs[gm]), ws[gn]);
+      const float v = __fmul_rn(
+          __fmul_rn(__int2float_rn(total[o]), kQuantX ? scale_sh[r] : xs[gm]),
+          ws[gn]);
       out[(size_t)gm * N + gn] = __float2bfloat16_rn(v);
     }
   }
 }
 
+// The two forms, under their own names (the profiler and ptxas tell them
+// apart): x int8 with its scales, and x bf16 quantized in the launch.
 template <int V>
-cudaError_t launch(const int8_t* xq, const int8_t* wq, const float* xs,
-                   const float* ws, __nv_bfloat16* out, int* workspace, int M,
-                   int N, int K, int ksteps, int split, int x_vec, int smem,
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_kernel(const int8_t* __restrict__ xq,
+                   const int8_t* __restrict__ wq,
+                   const float* __restrict__ xs, const float* __restrict__ ws,
+                   __nv_bfloat16* __restrict__ out, int* __restrict__ acc_ws,
+                   int* __restrict__ counters, int M, int N, int K,
+                   int ksteps, int x_vec) {
+  gemm_block<V, false>(xq, wq, xs, ws, out, acc_ws, counters, nullptr,
+                       nullptr, M, N, K, ksteps, x_vec);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_quant_kernel(const __nv_bfloat16* __restrict__ x,
+                         const int8_t* __restrict__ wq,
+                         const float* __restrict__ ws,
+                         __nv_bfloat16* __restrict__ out,
+                         int* __restrict__ acc_ws, int* __restrict__ counters,
+                         int8_t* __restrict__ out_q,
+                         float* __restrict__ out_s, int M, int N, int K,
+                         int ksteps, int x_vec) {
+  gemm_block<V, true>(x, wq, nullptr, ws, out, acc_ws, counters, out_q,
+                      out_s, M, N, K, ksteps, x_vec);
+}
+
+template <int V, bool kQuantX>
+cudaError_t launch(const void* x, const int8_t* wq, const float* xs,
+                   const float* ws, __nv_bfloat16* out, int* workspace,
+                   int8_t* out_q, float* out_s, int M, int N, int K,
+                   int ksteps, int split, int x_vec, int smem,
                    cudaStream_t stream) {
   // the attribute belongs to a device: kept per device, set again only
   // when a launch needs more (past kMaxDevices, at every launch)
   static int smem_set[kMaxDevices] = {};
+  constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > smem_set[dev])) {
-    e = cudaFuncSetAttribute(int8_matmul_kernel<V>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+    if constexpr (kQuantX)
+      e = cudaFuncSetAttribute(int8_matmul_quant_kernel<V>, attr, smem);
+    else
+      e = cudaFuncSetAttribute(int8_matmul_kernel<V>, attr, smem);
     if (e != cudaSuccess) return e;
     if (dev < kMaxDevices) smem_set[dev] = smem;
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
   int* counters = workspace == nullptr ? nullptr : workspace + (size_t)M * N;
-  int8_matmul_kernel<V><<<grid, kThreads, smem, stream>>>(
-      xq, wq, xs, ws, out, workspace, counters, M, N, K, ksteps, x_vec);
+  if constexpr (kQuantX)
+    int8_matmul_quant_kernel<V><<<grid, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), wq, ws, out, workspace,
+        counters, out_q, out_s, M, N, K, ksteps, x_vec);
+  else
+    int8_matmul_kernel<V><<<grid, kThreads, smem, stream>>>(
+        static_cast<const int8_t*>(x), wq, xs, ws, out, workspace, counters,
+        M, N, K, ksteps, x_vec);
   return cudaGetLastError();
+}
+
+// The plan checks of both forms: K split into `split` ranges of `ksteps`
+// 32-row steps that cover K with none empty, the dynamic shared memory of
+// this tiling (the ring, x's tile and, quantizing, 16 f32 scales), a
+// workspace of at least M * N sums and one counter a tile when K is split,
+// an x load width the form has (int8: 4 or 1 bytes; bf16: 16, with K % 8
+// == 0 and x on 16 bytes, or 2), and a grid within its limits.
+bool plan_fits(const void* x, long long workspace_len, bool workspace,
+               bool quant, int M, int N, int K, int ksteps, int split,
+               int x_vec, int smem) {
+  const long long range = (long long)ksteps * KSTEP;
+  const long long tiles =
+      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const bool x_ok =
+      quant ? (x_vec == 2 ||
+               (x_vec == 16 && K % 8 == 0 &&
+                reinterpret_cast<uintptr_t>(x) % 16 == 0))
+            : (x_vec == 1 || x_vec == 4);
+  return ksteps >= 1 && split >= 1 && split <= 65535 && range * split >= K &&
+         !(split > 1 && range * (split - 1) >= K) &&
+         smem == RING_BYTES + BM * (int)(range + 16) + (quant ? BM * 4 : 0) &&
+         !(split > 1 && (!workspace ||
+                         workspace_len < (long long)M * N + tiles)) &&
+         x_ok && (M + BM - 1) / BM <= 65535;
+}
+
+template <bool kQuantX>
+int launch_vec(const void* x, const void* w_q, const void* x_s,
+               const void* w_s, void* out, void* workspace,
+               long long workspace_len, void* out_q, void* out_s, int M,
+               int N, int K, int ksteps, int split, int vec, int x_vec,
+               int smem, void* stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (!plan_fits(x, workspace_len, workspace != nullptr, kQuantX, M, N, K,
+                 ksteps, split, x_vec, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* wq = static_cast<const int8_t*>(w_q);
+  const auto* xs = static_cast<const float*>(x_s);
+  const auto* ws = static_cast<const float*>(w_s);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  auto* wsp = static_cast<int*>(workspace);
+  auto* oq = static_cast<int8_t*>(out_q);
+  auto* os = static_cast<float*>(out_s);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (vec) {
+    case 16: e = launch<16, kQuantX>(x, wq, xs, ws, o, wsp, oq, os, M, N, K, ksteps, split, x_vec, smem, st); break;
+    case 8: e = launch<8, kQuantX>(x, wq, xs, ws, o, wsp, oq, os, M, N, K, ksteps, split, x_vec, smem, st); break;
+    case 4: e = launch<4, kQuantX>(x, wq, xs, ws, o, wsp, oq, os, M, N, K, ksteps, split, x_vec, smem, st); break;
+    case 1: e = launch<1, kQuantX>(x, wq, xs, ws, o, wsp, oq, os, M, N, K, ksteps, split, x_vec, smem, st); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -337,31 +650,23 @@ extern "C" int int8_matmul(const void* x_q, const void* w_q, const void* x_s,
                            long long workspace_len, int M, int N, int K,
                            int ksteps, int split, int vec, int x_vec,
                            int smem, void* stream) {
-  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  const long long range = (long long)ksteps * KSTEP;
-  const long long tiles =
-      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (ksteps < 1 || split < 1 || split > 65535 || range * split < K ||
-      (split > 1 && range * (split - 1) >= K) ||
-      smem != RING_BYTES + BM * (int)(range + 16) ||
-      (split > 1 && (!workspace ||
-                     workspace_len < (long long)M * N + tiles)) ||
-      (x_vec != 1 && x_vec != 4) || (M + BM - 1) / BM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xq = static_cast<const int8_t*>(x_q);
-  const auto* wq = static_cast<const int8_t*>(w_q);
-  const auto* xs = static_cast<const float*>(x_s);
-  const auto* ws = static_cast<const float*>(w_s);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  auto* wsp = static_cast<int*>(workspace);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (vec) {
-    case 16: e = launch<16>(xq, wq, xs, ws, o, wsp, M, N, K, ksteps, split, x_vec, smem, st); break;
-    case 8: e = launch<8>(xq, wq, xs, ws, o, wsp, M, N, K, ksteps, split, x_vec, smem, st); break;
-    case 4: e = launch<4>(xq, wq, xs, ws, o, wsp, M, N, K, ksteps, split, x_vec, smem, st); break;
-    case 1: e = launch<1>(xq, wq, xs, ws, o, wsp, M, N, K, ksteps, split, x_vec, smem, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return launch_vec<false>(x_q, w_q, x_s, w_s, out, workspace, workspace_len,
+                           nullptr, nullptr, M, N, K, ksteps, split, vec,
+                           x_vec, smem, stream);
+}
+
+// The same from x (M, K) bf16, contiguous, quantized per row in the launch
+// (B2's codes and scales): out = int8_matmul(quantize_rowwise(x), w_q, w_s).
+// `x_vec` is x's load width in bytes (16, or 2); `smem` adds 16 f32 scales.
+// out_q (M, K) int8 and out_s (M,) f32, both optional (null), receive the
+// codes and the scales.
+extern "C" int int8_matmul_quant(const void* x, const void* w_q,
+                                 const void* w_s, void* out, void* workspace,
+                                 long long workspace_len, void* out_q,
+                                 void* out_s, int M, int N, int K, int ksteps,
+                                 int split, int vec, int x_vec, int smem,
+                                 void* stream) {
+  return launch_vec<true>(x, w_q, nullptr, w_s, out, workspace,
+                          workspace_len, out_q, out_s, M, N, K, ksteps, split,
+                          vec, x_vec, smem, stream);
 }

@@ -8,8 +8,9 @@
 //   _paged_kernel).
 // Bound on the card: bytes for the chunk sizes the engine runs (16 queries
 //   against a window of a few hundred positions): each block reads its KV
-//   prefix (int8 KV with its scales and, paged, the table prefix) once per
-//   query tile and does 4 * hd operations per visible (query, key) pair.
+//   prefix (int8 KV with its scales and, paged, a table entry a position)
+//   once per query tile and does 4 * hd operations per visible (query,
+//   key) pair.
 //   At the serve chunk the whole launch is a few round trips to memory, so
 //   what counts is that no copy waits on another and no thread waits on a
 //   scalar loop.
@@ -28,9 +29,14 @@
 //     16-byte cp.async into a ring of three stages, so the next two tiles'
 //     copies fly while this one is computed. A position row of one kv head
 //     is hd * sizeof(T) contiguous bytes; one thread copies each position
-//     of a tile, looking it up once (paged: in the table prefix, staged in
-//     shared memory), for K, V and their scales. Positions at or past W are
-//     zero-filled by the copy, never read.
+//     of a tile, for K, V and their scales. Paged, the thread first reads
+//     the table entries of its positions of the tile (one a position, all
+//     in flight together) when the tile's copy is issued: a block reads
+//     only the entries of the tiles it copies, so no table length binds
+//     B6. Reading them one or two tiles ahead was no faster (PERF.md). (B5
+//     stages its rows in shared memory because several threads copy one
+//     position; here one thread owns a position, so registers hold them.)
+//     Positions at or past W are zero-filled by the copy, never read.
 //   * INT8 KV is copied as int8 and widened to bf16 (exact: |x| <= 127) in
 //     one pass from the int8 stage into one bf16 K/V tile that ldmatrix
 //     reads, the same tile layout the bf16 path copies into. A pass in
@@ -64,10 +70,10 @@
 //     the published one's, 16 the smoke config's. This narrows the earlier
 //     contract (any hd <= 128): another hd is refused.
 //   * No split-KV: at the serve chunk the window is one or two tiles.
-// Layouts: one body templated on an address policy (contiguous: b *
-//   kv_bstride + pos * Hkv * hd; paged: (table[b, pos / page_size] *
-//   page_size + pos % page_size) * Hkv * hd in size_t, the table prefix
-//   staged in shared memory once per block). The 64-position tile runs over
+// Layouts: one body templated on an address policy (attn_tile.cuh;
+//   contiguous: b * kv_bstride + pos * Hkv * hd; paged: (table[b, pos /
+//   page_size] * page_size + pos % page_size) * Hkv * hd in size_t, any
+//   table length). The 64-position tile runs over
 //   logical positions whatever the page size, so the paged kernel equals
 //   the contiguous one on the gathered window bit for bit, at any page
 //   size. The paged window is W = n_blk * page_size.
@@ -91,48 +97,12 @@ using namespace sm90;
 
 constexpr int STAGES = 3;        // K/V tiles in flight
 constexpr int MAX_WARPS = 4;     // 16 rows each
-constexpr int TBL_MAX = 2048;    // page-table entries a row (shared memory)
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 
-// Where the KV of one slot lives.
-struct KVArgs {
-  long long kv_bstride, s_bstride;   // contiguous: batch strides (elements)
-  const int* pages;                  // paged: (B, n_blk) int32 table
-  int n_blk, page_size;
-};
-
-// row(pos): the storage row of position pos; (row, head 0, dim 0) of a KV
-// leaf is at kv0 + row * Hkv * hd, (row, head 0) of a scale leaf at s0 +
-// row * Hkv.
-struct ContigAddr {
-  static constexpr bool kPaged = false;
-  size_t kv0, s0;
-  __device__ ContigAddr(const KVArgs& a, int b, int*)
-      : kv0(b * a.kv_bstride), s0(b * a.s_bstride) {}
-  __device__ size_t row(int pos) const { return pos; }
-};
-
-struct PagedAddr {
-  static constexpr bool kPaged = true;
-  size_t kv0 = 0, s0 = 0;
-  const int* tbl;                    // the slot's table prefix, in shared
-  int ps;
-  __device__ PagedAddr(const KVArgs& a, int b, int* tbl_sh)
-      : tbl(tbl_sh), ps(a.page_size) {
-    for (int i = threadIdx.x; i < a.n_blk; i += blockDim.x)
-      tbl_sh[i] = a.pages[(size_t)b * a.n_blk + i];
-    __syncthreads();
-  }
-  __device__ size_t row(int pos) const {
-    return (size_t)tbl[pos / ps] * ps + pos % ps;
-  }
-};
-
 // The block's shared memory: the K/V ring in the KV type (pitch PT), its
-// scales (INT8), the widened bf16 K/V tile (INT8; pitch P) and the table
-// prefix (paged).
-template <typename T, int HD, bool kPaged>
+// scales (INT8) and the widened bf16 K/V tile (INT8; pitch P).
+template <typename T, int HD>
 struct Smem {
   static constexpr bool kQuant = std::is_same<T, int8_t>::value;
   static constexpr int P = HD + 8;                 // bf16 tile pitch
@@ -141,21 +111,32 @@ struct Smem {
   static constexpr int ring = 2 * STAGES * tile;
   static constexpr int scales = kQuant ? 2 * STAGES * BKV * 4 : 0;
   static constexpr int widened = kQuant ? 2 * BKV * P * 2 : 0;
-  static constexpr int table = kPaged ? TBL_MAX * 4 : 0;
-  static constexpr int bytes = ring + scales + widened + table;
+  static constexpr int bytes = ring + scales + widened;
 };
 
-// Tile j0..j0+63 of kv head h into one stage: one thread a position.
+// Tile j0..j0+63 of kv head h into one stage: one thread a position (two
+// in a one-warp block), each position's storage row looked up first, the
+// thread's table reads (paged) in flight together.
 template <typename T, int HD, typename Addr>
 __device__ __forceinline__ void load_tile(
     T* k_dst, T* v_dst, float* ks_dst, float* vs_dst, const T* k,
     const T* v, const float* k_s, const float* v_s, const Addr& at,
     int Hkv, int h, int j0, int W) {
-  using S = Smem<T, HD, Addr::kPaged>;
+  using S = Smem<T, HD>;
   constexpr int E = 16 / sizeof(T), CH = HD / E;   // elements, copies a row
-  for (int j = threadIdx.x; j < BKV; j += blockDim.x) {
+  constexpr int PER = BKV / 32;                    // positions a thread
+  size_t rows[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    rows[i] = j < BKV && j0 + j < W ? at.row(j0 + j) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    if (j >= BKV) continue;
     const bool ok = j0 + j < W;
-    const size_t r = ok ? at.row(j0 + j) : 0;
+    const size_t r = rows[i];
     const size_t off = at.kv0 + r * Hkv * HD + (size_t)h * HD;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -201,7 +182,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ start,
                          __nv_bfloat16* __restrict__ out, int Sq, int W,
                          int Hkv, int G, KVArgs kv_args, float scale) {
-  using S = Smem<T, HD, Addr::kPaged>;
+  using S = Smem<T, HD>;
   constexpr int P = S::P, KC = HD / 16, DT = HD / 8;
   extern __shared__ __align__(16) unsigned char sm[];
   T* k_ring = reinterpret_cast<T*>(sm);                  // [STAGES][BKV][PT]
@@ -210,7 +191,6 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   float* vs_ring = ks_ring + (S::kQuant ? STAGES * BKV : 0);
   auto* k_wide = reinterpret_cast<__nv_bfloat16*>(sm + S::ring + S::scales);
   __nv_bfloat16* v_wide = k_wide + (S::kQuant ? BKV * P : 0);
-  int* tbl_sh = reinterpret_cast<int*>(sm + S::ring + S::scales + S::widened);
 
   const int h = blockIdx.x, qt = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -218,7 +198,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int Hq = Hkv * G, bq = (blockDim.x / 2) / G, R = bq * G;
   const int q0 = qt * bq;                        // first query of the tile
   const int st = start[b];
-  const Addr at(kv_args, b, tbl_sh);
+  const Addr at(kv_args, b);
 
   const int q_last = min(q0 + bq, Sq) - 1;
   const int n_kv = min(st + q_last, W - 1) / BKV + 1;
@@ -399,7 +379,7 @@ cudaError_t launch_one(dim3 grid, int warps, const void* q, const void* k,
                        const void* start, void* out, int Sq, int W, int Hkv,
                        int G, const KVArgs& kv_args, float scale,
                        cudaStream_t stream) {
-  constexpr int smem = Smem<T, HD, Addr::kPaged>::bytes;
+  constexpr int smem = Smem<T, HD>::bytes;
   auto kernel = prefill_attention_kernel<T, HD, Addr>;
   // the attribute belongs to a device: set once on each (past
   // kMaxDevices, at every launch)
@@ -495,8 +475,7 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
 // The same against a paged arena: k, v (n_pages, page_size, Hkv, hd) and
 // k_s, v_s (n_pages, page_size, Hkv), all contiguous, k and v 16-byte
 // aligned; pages (B, n_blk) int32 contiguous, physical page ids of each
-// slot's window prefix. The window is W = n_blk * page_size. Needs
-// n_blk <= 2048.
+// slot's window prefix, of any length. The window is W = n_blk * page_size.
 extern "C" int paged_prefill_attention(const void* q, const void* k,
                                        const void* v, const void* k_s,
                                        const void* v_s, const void* start,
@@ -505,7 +484,7 @@ extern "C" int paged_prefill_attention(const void* q, const void* k,
                                        int Hkv, int G, int hd, int quantized,
                                        float scale, int warps, int tiles,
                                        void* stream) {
-  if (n_blk < 1 || n_blk > TBL_MAX || page_size < 1)
+  if (n_blk < 1 || page_size < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const KVArgs a{0, 0, static_cast<const int*>(pages), n_blk, page_size};
   return launch<PagedAddr>(q, k, v, k_s, v_s, start, out, B, Sq,

@@ -184,13 +184,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
                   k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
-                  start: torch.Tensor, pages: torch.Tensor,
-                  tbl_max: Optional[int] = None) -> Tuple:
+                  start: torch.Tensor, pages: torch.Tensor) -> Tuple:
     """Validate a paged arena (k, v (n_pages, page_size, Hkv, hd) bf16, or
     int8 with (n_pages, page_size, Hkv) f32 scales, all contiguous), the
     (B,) int32 ``start`` and the (B, n_blk) int32 ``pages`` table for the
-    paged kernels; ``tbl_max``, if given, caps n_blk (a kernel that holds a
-    row's whole table in shared memory). The table's values are not read
+    paged kernels, a table of any length. The table's values are not read
     here: that would need a host sync. Returns the kernel's arguments (k,
     v, k_s, v_s, start, pages pointers; B, n_blk, page_size, Hkv, G, hd;
     quantized flag)."""
@@ -214,12 +212,9 @@ def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
                              f"(n_pages, page_size, Hkv)")
     build.check(f"{name} pages", pages, torch.int32, 2, dev)
     b, n_blk = pages.shape
-    if (not pages.is_contiguous() or n_blk < 1
-            or (tbl_max is not None and n_blk > tbl_max)):
-        cap = "" if tbl_max is None else f" <= {tbl_max}"
+    if not pages.is_contiguous() or n_blk < 1:
         raise ValueError(f"{name}: pages must be a contiguous (B, n_blk) "
-                         f"table with 1 <= n_blk{cap}, got "
-                         f"{tuple(pages.shape)}")
+                         f"table with 1 <= n_blk, got {tuple(pages.shape)}")
     build.check(f"{name} start", start, torch.int32, 1, dev)
     if start.shape[0] != b or not start.is_contiguous():
         raise ValueError(f"{name}: start must be a contiguous ({b},) tensor")

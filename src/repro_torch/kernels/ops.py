@@ -16,7 +16,8 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention as _paged_decode_attention)
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_attention)
-from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
+from repro_torch.kernels.int8_matmul import (
+    int8_matmul as _int8_matmul, int8_matmul_quant as _int8_matmul_quant)
 from repro_torch.kernels.kv_layout import window_pages
 from repro_torch.kernels.prefill_attention import (
     paged_prefill_attention as _paged_prefill_attention,
@@ -35,15 +36,16 @@ def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """W8A8 matmul: x (..., K) float (quantized per row here) or int8 with
-    ``x_scale``; w_q (K, N) int8 -> (..., N) bf16."""
+    """W8A8 matmul: x (..., K) float, quantized per row in the GEMM's own
+    launch (``int8_matmul_quant``: B2's codes, then B1), or int8 with
+    ``x_scale`` (B1 alone); w_q (K, N) int8 -> (..., N) bf16."""
     shp = x.shape
     x2 = x.reshape(-1, shp[-1]).contiguous()
-    if x2.dtype != torch.int8:
-        x_q, x_scale = _quantize_rowwise(x2)
+    if x2.dtype == torch.int8:
+        out = _int8_matmul(x2, w_q, x_scale.reshape(-1).contiguous(),
+                           w_scale)
     else:
-        x_q, x_scale = x2, x_scale.reshape(-1).contiguous()
-    out = _int8_matmul(x_q, w_q, x_scale, w_scale)
+        out = _int8_matmul_quant(x2, w_q, w_scale)
     return out.reshape(*shp[:-1], w_q.shape[1])
 
 

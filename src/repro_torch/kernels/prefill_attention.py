@@ -27,7 +27,6 @@ PAGED_KERNEL = build.Kernel("prefill_attention", "paged_prefill_attention",
                             + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 G_MAX = 32
-TBL_MAX = 2048                  # page-table entries a row (shared memory)
 ROWS_PER_WARP = 16              # one m16 MMA tile, as in the kernel
 MAX_WARPS = 4
 
@@ -84,9 +83,9 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v_s: Optional[torch.Tensor], start: torch.Tensor,
                             pages: torch.Tensor) -> torch.Tensor:
     """q (B, Sq, Hq, hd) at start..start+Sq-1 against a paged arena through
-    the (B, n_blk) table prefix ``pages`` -> (B, Sq, Hq, hd) bf16: the
-    contiguous op on the gathered window of n_blk * page_size positions. A
-    CPU tensor takes the plain version."""
+    the (B, n_blk) table prefix ``pages``, of any length -> (B, Sq, Hq, hd)
+    bf16: the contiguous op on the gathered window of n_blk * page_size
+    positions. A CPU tensor takes the plain version."""
     if build.runs_plain(q):
         return ref.paged_prefill_attention_ref(q, k, v, k_s, v_s, start,
                                                pages)
@@ -94,8 +93,7 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     if not q.is_contiguous():
         raise ValueError("paged_prefill_attention: q must be contiguous")
     ptrs, (b, n_blk, ps, hkv, g, hd), quantized = paged_kv_args(
-        "paged_prefill_attention", q.shape[2], k, v, k_s, v_s, start, pages,
-        tbl_max=TBL_MAX)
+        "paged_prefill_attention", q.shape[2], k, v, k_s, v_s, start, pages)
     sq = q.shape[1]
     if q.shape != (b, sq, hkv * g, hd):
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} "

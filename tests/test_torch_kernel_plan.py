@@ -1,15 +1,16 @@
 """The host side of the port's redesigned kernels, on the CPU: the launch
-plans that ``kernels/int8_matmul.py`` (B1), ``kernels/flash_attention.py``
-(B7), ``kernels/prefill_attention.py`` (B4, B6) and
+plans that ``kernels/int8_matmul.py`` (B1, from an int8 x or from a bf16 x
+that the launch quantizes), ``kernels/flash_attention.py`` (B7),
+``kernels/prefill_attention.py`` (B4, B6) and
 ``kernels/decode_attention.py`` (B3, B5) hand to their CUDA kernels, and the
 build key. The kernels themselves run only on the card (``chip_smoke.py``);
 these tests hold the plans to what the kernels assume: every output tile,
 every K row, every (query, head) row and every KV position covered exactly
 once, enough blocks to fill the H100's 132 SMs at decode shapes, shared
-memory within a Hopper block's 232,448 bytes, copy widths that divide the
-row pitch, split-KV segments at absolute positions, and workspaces that the
-model's shapes never outgrow, made once per device; and a library rebuilt
-when a header it includes changes."""
+memory within a Hopper block's 232,448 bytes, copy and load widths that
+divide the row pitch, split-KV segments at absolute positions, and
+workspaces that the model's shapes never outgrow, made once per device;
+and a library rebuilt when a header it includes changes."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -74,15 +75,47 @@ def test_gemm_copy_width_follows_alignment(n, ptr, want):
     assert n % plan.vec == 0 and ptr % plan.vec == 0
 
 
+@pytest.mark.parametrize("k,n", DECODE_KN + RAGGED_KN)
+@pytest.mark.parametrize("m", M_ROWS)
+def test_gemm_plan_bf16_x_covers_the_product(m, k, n):
+    """The fused form (x bf16, quantized in the launch) takes the int8
+    form's grid and K ranges; its shared memory adds one f32 scale a tile
+    row, and fits; it loads x 16 bytes (8 values) at a time where K % 8 ==
+    0, else one value."""
+    plan = km.gemm_plan(m, n, k, x_bytes=2)
+    _covers(plan, m, n, k)
+    int8_x = km.gemm_plan(m, n, k)
+    assert (plan.grid, plan.ksteps, plan.vec, plan.workspace) == (
+        int8_x.grid, int8_x.ksteps, int8_x.vec, int8_x.workspace)
+    assert plan.smem == int8_x.smem + km.BM * 4 <= SMEM_MAX
+    assert plan.smem == (km.RING_BYTES
+                         + km.BM * (plan.ksteps * km.KSTEP + 16) + km.BM * 4)
+    assert plan.x_vec == (16 if k % 8 == 0 else 2)
+
+
+@pytest.mark.parametrize("k,ptr,x_bytes,want", [
+    (1024, 0, 2, 16), (3072, 32, 2, 16), (1024, 8, 2, 2), (1024, 2, 2, 2),
+    (1020, 0, 2, 2), (3035, 0, 2, 2), (1024, 0, 1, 4), (1024, 2, 1, 1),
+    (3035, 0, 1, 1)])
+def test_gemm_x_width_follows_k_and_the_pointer(k, ptr, x_bytes, want):
+    """x's load width: a row of K values of ``x_bytes`` each starts on the
+    width only if K is a multiple of the values a load takes and x's
+    pointer is aligned; a ragged K (3,035) or pointer loads by element."""
+    plan = km.gemm_plan(4, 1024, k, x_ptr=ptr, x_bytes=x_bytes)
+    assert plan.x_vec == want
+    assert (k * x_bytes) % want == 0 and ptr % want == 0
+
+
 def test_gemm_plan_x_width_and_long_k():
     assert km.gemm_plan(4, 1024, 3035).x_vec == 1
     assert km.gemm_plan(4, 1024, 1024, x_ptr=2).x_vec == 1
     assert km.gemm_plan(4, 1024, 1024).x_vec == 4
     # a K too long for one block's x tile is split however many tiles N has
     m, n, k = 64, 8192, 65536
-    plan = km.gemm_plan(m, n, k)
-    _covers(plan, m, n, k)
-    assert plan.split > 1 and plan.smem <= SMEM_MAX
+    for x_bytes in (1, 2):
+        plan = km.gemm_plan(m, n, k, x_bytes=x_bytes)
+        _covers(plan, m, n, k)
+        assert plan.split > 1 and plan.smem <= SMEM_MAX
     # K = 0 still launches one range, which writes zeros
     assert km.gemm_plan(4, 64, 0).k_ranges(0) == [(0, 0)]
 

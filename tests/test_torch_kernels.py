@@ -1,10 +1,12 @@
-"""The port's four kernel ops on the CPU (their plain PyTorch versions),
-held against the JAX package on the same numpy inputs: its xla oracles
-(``repro.kernels.ref``) and its Pallas kernels in interpret mode.
+"""The port's kernel ops on the CPU (their plain PyTorch versions), held
+against the JAX package on the same numpy inputs: its xla oracles
+(``repro.kernels.ref``) and its Pallas kernels in interpret mode; and, with
+the launch stubbed, what the wrappers would launch on the card (the W8A8
+GEMM's form by x's type, paged prefill at any table length).
 
 Tolerances:
-  * quantize and the int8 GEMM equal the oracle exactly (codes, scales, and
-    the bf16 output bits);
+  * quantize and the int8 GEMM (also in the form that quantizes x itself)
+    equal the oracle exactly (codes, scales, and the bf16 output bits);
   * quantize vs its Pallas kernel: under ``jit`` XLA rewrites the division
     of amax by the constant 127 into a multiply by fl(1/127), so a jitted
     scale can sit one f32 ulp from the true quotient that the eager oracle
@@ -31,7 +33,11 @@ from repro.kernels import decode_attention as jdec  # noqa: E402
 from repro.kernels import int8_matmul as jmm  # noqa: E402
 from repro.kernels import prefill_attention as jpre  # noqa: E402
 from repro.kernels import quantize as jquant  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import int8_matmul as km  # noqa: E402
+from repro_torch.kernels import kv_layout as kv  # noqa: E402
+from repro_torch.kernels import prefill_attention as kp  # noqa: E402
+from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul  # noqa: E402
 from repro_torch.kernels.quantize import quantize_rowwise  # noqa: E402
 
@@ -121,6 +127,80 @@ def test_ops_int8_matmul_quantizes_activations():
     want = jops.int8_matmul(xj, wq, wsc)
     assert out.shape == (2, 3, 24)
     np.testing.assert_array_equal(_f32(out), _f32(want))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 96, 48), (4, 64, 128), (13, 130, 65),
+                                   (16, 3035, 64), (17, 256, 40)])
+def test_int8_matmul_quant_equals_ops_and_pallas(m, k, n):
+    """The fused form (B2's quantization as B1's prologue), plain version:
+    its output equals the JAX package's ``ops.int8_matmul`` on a float x
+    exactly, and the codes and scales it hands back equal the oracle's
+    exactly and ``quantize_rowwise_pallas``'s within C1's one ulp (scales)
+    and one code. K 130 and 3,035 are ragged (no 16-byte rows on the
+    card)."""
+    rng = np.random.RandomState(m * 31 + k + n)
+    x = rng.randn(m, k) * 3
+    x[m // 2] = 0.0                                   # an all-zero row
+    wq, wsc = jref.quantize_ref(jnp.asarray(rng.randn(k, n), jnp.float32),
+                                axis=0)
+    xj, xt = _bf16(x)
+    out_q = torch.empty(m, k, dtype=torch.int8)
+    out_s = torch.empty(m, dtype=torch.float32)
+    out = km.int8_matmul_quant(xt, torch.tensor(np.asarray(wq)),
+                               torch.tensor(np.asarray(wsc)), out_q, out_s)
+    np.testing.assert_array_equal(_f32(out),
+                                  _f32(jops.int8_matmul(xj, wq, wsc)))
+    qj, sj = jref.quantize_ref(xj, axis=-1)
+    np.testing.assert_array_equal(out_q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(out_s.numpy(), np.asarray(sj))
+    qp, sp = jquant.quantize_rowwise_pallas(xj, interpret=True)
+    np.testing.assert_allclose(out_s.numpy(), np.asarray(sp), rtol=2 ** -23,
+                               atol=0)
+    assert np.abs(out_q.numpy().astype(int) - np.asarray(qp, int)).max() <= 1
+
+
+def _stub_launches(monkeypatch):
+    """Tensors on the CPU take the kernel path up to the launch, which is
+    recorded (kernel name, arguments) instead of made."""
+    calls = []
+    monkeypatch.setattr(build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    for kern in (km.KERNEL, km.QUANT_KERNEL, kq.KERNEL, kp.KERNEL,
+                 kp.PAGED_KERNEL):
+        monkeypatch.setattr(kern, "launch", lambda *a, k=kern, stream: (
+            calls.append((k.symbol, a))))
+    monkeypatch.setattr(km, "WORKSPACES", build.Workspaces(
+        km.WORKSPACES.what, km.WORKSPACES.minimum))
+    return calls
+
+
+def test_ops_int8_matmul_sends_float_x_to_the_fused_kernel(monkeypatch):
+    """On a CUDA tensor ``ops.int8_matmul`` launches the fused form for a
+    float x, with the bf16-x plan (16-byte loads, the scales' shared
+    memory), and B1 alone for an int8 x with static scales; never B2."""
+    calls = _stub_launches(monkeypatch)
+    m, k, n = 4, 1024, 3072
+    wq = torch.zeros(k, n, dtype=torch.int8)
+    ws = torch.ones(n, dtype=torch.float32)
+    x = torch.zeros(2, m // 2, k, dtype=torch.bfloat16)
+    assert ops.int8_matmul(x, wq, ws).shape == (2, m // 2, n)
+    (name, args), = calls
+    plan = km.gemm_plan(m, n, k, wq.data_ptr(), x.data_ptr(), x_bytes=2)
+    assert name == "int8_matmul_quant" and plan.x_vec == 16
+    assert args[6:8] == (0, 0)                 # no check outputs
+    assert args[8:] == (m, n, k, plan.ksteps, plan.split, plan.vec,
+                        plan.x_vec, plan.smem)
+    calls.clear()
+    xq = torch.zeros(m, k, dtype=torch.int8)
+    out = ops.int8_matmul(xq, wq, ws, x_scale=torch.ones(m))
+    assert out.shape == (m, n)
+    (name, args), = calls
+    plan = km.gemm_plan(m, n, k, wq.data_ptr(), xq.data_ptr())
+    assert name == "int8_matmul" and plan.x_vec == 4
+    assert args[7:] == (m, n, k, plan.ksteps, plan.split, plan.vec,
+                        plan.x_vec, plan.smem)
 
 
 # ------------------------------------------------------------------ attention
@@ -250,6 +330,75 @@ def test_rows_past_the_window_see_the_whole_window(quantized):
     assert torch.equal(out, at_end)
     want = jops.cached_attention(qj, cj, jnp.asarray(start), None)
     np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+
+
+LONG_PAGES, LONG_PAGE = 2560, 16     # qwen3-0.6b's 40,960 positions
+
+
+def _long_paged_case(quantized, sq=4):
+    """One slot whose table maps LONG_PAGES pages of LONG_PAGE in a random
+    physical order (past the 2,048 entries B6 once held in shared memory),
+    at a small width (Hq 2, Hkv 1, hd 16); its queries' window passes
+    32,768 positions."""
+    rng = np.random.RandomState(5 + quantized)
+    n_pages = LONG_PAGES + 1
+    shape = (n_pages, LONG_PAGE, 1, 16)
+    if quantized:
+        arena = [rng.randint(-127, 128, shape).astype(np.int8) for _ in "kv"]
+        arena += [(rng.rand(*shape[:3]) * 0.02 + 0.005).astype(np.float32)
+                  for _ in "kv"]
+    else:
+        arena = [rng.randn(*shape).astype(np.float32) for _ in "kv"]
+    tab = (rng.permutation(LONG_PAGES) + 1).astype(np.int32)[None]
+    start = np.asarray([LONG_PAGES * LONG_PAGE - sq - 3], np.int32)
+    q = rng.randn(1, sq, 2, 16).astype(np.float32)
+    return arena, tab, start, q
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_prefill_takes_a_table_past_2048_pages(quantized):
+    """B6 at 2,560 pages of 16: the plain version equals the contiguous
+    op on the gathered window bit for bit, and the JAX oracle within
+    ATTN_REF."""
+    arena, tab, start, q = _long_paged_case(quantized)
+    if quantized:
+        leaves_t = [torch.from_numpy(a) for a in arena]
+        leaves_j = [jnp.asarray(a) for a in arena]
+    else:
+        pairs = [_bf16(a) for a in arena]
+        leaves_j = [j for j, _ in pairs] + [None, None]
+        leaves_t = [t for _, t in pairs] + [None, None]
+    qj, qt = _bf16(q)
+    st, tt = torch.from_numpy(start), torch.from_numpy(tab)
+    out = kp.paged_prefill_attention(qt, *leaves_t, st, tt)
+    gathered = [None if t is None else kv.gather_pages(t, tt)
+                for t in leaves_t]
+    assert gathered[0].shape[1] == LONG_PAGES * LONG_PAGE
+    assert torch.equal(out, kp.prefill_attention(qt, *gathered, st))
+    want = jref.paged_prefill_attention_ref(qj, *leaves_j, jnp.asarray(start),
+                                            jnp.asarray(tab))
+    np.testing.assert_allclose(_f32(out), _f32(want), **ATTN_REF)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_prefill_wrapper_launches_any_table_length(quantized,
+                                                         monkeypatch):
+    """On a CUDA tensor the B6 wrapper no longer refuses a table of more
+    than 2,048 entries: it launches with the whole table's length."""
+    arena, tab, start, q = _long_paged_case(quantized)
+    leaves = [torch.from_numpy(a) for a in arena]
+    if not quantized:
+        leaves = [t.to(torch.bfloat16) for t in leaves] + [None, None]
+    calls = _stub_launches(monkeypatch)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    out = kp.paged_prefill_attention(qt, *leaves, torch.from_numpy(start),
+                                     torch.from_numpy(tab))
+    assert out.shape == qt.shape
+    (name, args), = calls
+    # (..., B, Sq, n_blk, page_size, Hkv, G, hd, quantized, ...)
+    assert name == "paged_prefill_attention"
+    assert args[8:16] == (1, 4, LONG_PAGES, LONG_PAGE, 1, 2, 16,
+                          int(quantized))
 
 
 def test_kernel_wrappers_refuse_other_devices():
