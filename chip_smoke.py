@@ -14,7 +14,14 @@ then run the HQP compression path at full width (Fisher pass, conditional
 pruning, compaction, PTQ) through the causal flash kernel, hold the masked
 model against the compacted one, and serve the pruned artifact, contiguous
 and paged, against serial decode; last, profile a steady decode dispatch
-(where its time goes on the card).
+and a prefill chunk (where their time goes on the card).
+
+The engine runs each decode dispatch and prefill chunk as a CUDA graph,
+captured at a key's second use and replayed after; each serve load runs
+SERVE_RUNS times on one engine, and its ``[serve]`` lines show the cold
+(first) and the warm (last) run; ``[graphs]`` sums the captures, replays
+and eager dispatches of each layout; the ``[profile]`` phases profile
+replayed dispatches and show the eager first use beside them.
 
     python3 chip_smoke.py
 
@@ -42,6 +49,8 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_CHUNK, SERVE_STEPS = 4, 256, 16, 4
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 6, 48, 32
 SERVE_PAGE = 16             # page size of the paged serve phase
+SERVE_RUNS = 3              # runs of each serve load on one engine: the
+                            # first cold (captures), the last warm (replays)
 SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
 # long-prompt load: one prompt that decodes across the first split-KV
 # segment boundary (256), one past it, at a larger max_seq
@@ -996,17 +1005,36 @@ def phase_small_e2e(dev):
     return err, h_err, loss_dev, loss_cpu
 
 
+GRAPH_STATS = ("graphs_captured", "graph_replays", "eager_dispatches",
+               "capture_s")
+
+
+def _n_linears(params) -> int:
+    """The W8A8 linears a forward runs (one fused B1 launch each)."""
+    from repro_torch.compress.qtypes import QuantizedLinear
+    return sum(isinstance(v, QuantizedLinear) for blk in params["blocks"]
+               for sub in (blk["attn"], blk["mlp"]) for v in sub.values())
+
+
 def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                arrivals_s=None, arrival_ticks=None, max_seq=SERVE_MAX_SEQ,
-               split_kv=False, **engine_kw):
-    """One engine run from launch counts at 0: every request must equal
-    serial decode token for token, every kernel in ``must`` must have
-    launched and none in ``must_not``, and the B1 split-K and B3/B5
-    split-KV workspaces must neither move nor be left nonzero where the
-    kernels must find zeros (``_scratch``). With ``split_kv`` the run must
-    also have written split-KV records (B3/B5 folded several segments):
-    they are zeroed before it and read after it, before serial decode.
-    Returns (summary, engine, launches)."""
+               split_kv=False, runs=SERVE_RUNS, **engine_kw):
+    """The load run ``runs`` times on one engine, which captures each
+    dispatch key's CUDA graph at its second use and replays it after: the
+    first run is cold (first uses eager, captures), the last warm. Each run
+    starts from launch counts at 0 and, paged, an empty prefix cache (so
+    every run does the same work). In every run each request must equal
+    serial decode token for token; every kernel in ``must`` must have
+    launched and none in ``must_not``, and the launch counts must be the
+    device's: one fused B1 launch a W8A8 linear of each decode step and
+    prefill chunk, one decode attend a layer a step and one prefill attend a
+    layer a chunk; the B1 split-K and B3/B5 split-KV workspaces must neither
+    move nor be left nonzero where the kernels must find zeros
+    (``_scratch``). With ``split_kv`` every run must also have written
+    split-KV records (B3/B5 folded several segments): they are zeroed before
+    it and read after it. The load must replay graphs, and its graph keys
+    stay within the engine's bounds (the reference's lowering bounds).
+    Returns (one dict a run: summary, launches, stats deltas; engine)."""
     import torch
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.serving import (Engine, SchedulerConfig, serial_decode,
@@ -1017,48 +1045,82 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                                        decode_steps=SERVE_STEPS),
                  device=dev, **engine_kw)
     what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}")
-    workspaces, _ = _scratch(dev)
-    records = kd.WORKSPACES.made(dev)[-1][kd.TICKETS:] if split_kv else None
-    if split_kv:
-        records.zero_()
-    torch.cuda.synchronize()
-    for kern in kernels.values():
-        kern.launches = 0
-    t0 = time.monotonic()
-    results = eng.run(reqs, arrivals_s=arrivals_s,
-                      arrival_ticks=arrival_ticks)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    if split_kv and not records.count_nonzero().item():
-        fail(f"{what}: no split-KV record written: the decode windows never "
-             f"spanned two segments")
-    # the B1 and B3/B5 workspaces: made by the kernel checks, kept by the run
-    ptrs, left = _scratch(dev)
-    if ptrs != workspaces or left:
-        fail(f"{what}: a split-K or split-KV workspace moved or was left "
-             f"nonzero by the serving run")
-    if len(results) != len(reqs):
-        fail(f"{what}: engine finished {len(results)} of {len(reqs)} "
-             f"requests")
-    for i, res in sorted(results.items()):
-        n_new = reqs[i].max_new_tokens
-        if len(res.tokens) != n_new or not all(
-                0 <= t < cfg.vocab_size for t in res.tokens):
-            fail(f"{what} request {i}: bad tokens {res.tokens}")
-        want = serial_decode(params, cfg, reqs[i].prompt, n_new,
-                             max_seq=max_seq, quantized_kv=qkv,
-                             device=dev)
-        if res.tokens != want:
-            fail(f"{what} request {i}: engine tokens differ from serial "
-                 f"decode\n engine {res.tokens}\n serial {want}")
-    idle = [name for name in must if launches[name] == 0]
-    if idle:
-        fail(f"{what}: kernels never launched on the serving run: {idle}")
-    stray = [name for name in must_not if launches[name]]
-    if stray:
-        fail(f"{what}: kernels off this serving path launched: {stray}")
-    return summarize_results(results, wall), eng, launches
+    want = [serial_decode(params, cfg, r.prompt, r.max_new_tokens,
+                          max_seq=max_seq, quantized_kv=qkv, device=dev)
+            for r in reqs]
+    paged = engine_kw.get("page_size") is not None
+    attend = ("paged_" if paged else "") + "%s_attention"
+    n_lin = _n_linears(params)
+    out = []
+    for run in range(runs):
+        if eng.prefix is not None:
+            eng.prefix.clear()
+        workspaces, _ = _scratch(dev)
+        records = (kd.WORKSPACES.made(dev)[-1][kd.TICKETS:] if split_kv
+                   else None)
+        if split_kv:
+            records.zero_()
+        before = dict(eng.stats)
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.monotonic()
+        results = eng.run(reqs, arrivals_s=arrivals_s,
+                          arrival_ticks=arrival_ticks)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        delta = {k: eng.stats[k] - before[k] for k in
+                 ("device_steps", "host_syncs", "prefill_ticks",
+                  "decode_ticks", "prefill_tokens", "prefix_hits",
+                  *GRAPH_STATS)}
+        where = f"{what} run {run + 1}"
+        if split_kv and not records.count_nonzero().item():
+            fail(f"{where}: no split-KV record written: the decode windows "
+                 f"never spanned two segments")
+        # the B1 and B3/B5 workspaces: made by the kernel checks, kept by
+        # the run
+        ptrs, left = _scratch(dev)
+        if ptrs != workspaces or left:
+            fail(f"{where}: a split-K or split-KV workspace moved or was "
+                 f"left nonzero by the serving run")
+        if len(results) != len(reqs):
+            fail(f"{where}: engine finished {len(results)} of {len(reqs)} "
+                 f"requests")
+        for i, res in sorted(results.items()):
+            if len(res.tokens) != reqs[i].max_new_tokens or not all(
+                    0 <= t < cfg.vocab_size for t in res.tokens):
+                fail(f"{where} request {i}: bad tokens {res.tokens}")
+            if res.tokens != want[i]:
+                fail(f"{where} request {i}: engine tokens differ from serial "
+                     f"decode\n engine {res.tokens}\n serial {want[i]}")
+        idle = [name for name in must if launches[name] == 0]
+        if idle:
+            fail(f"{where}: kernels never launched on the serving run: "
+                 f"{idle}")
+        stray = [name for name in must_not if launches[name]]
+        if stray:
+            fail(f"{where}: kernels off this serving path launched: {stray}")
+        steps, chunks = delta["device_steps"], delta["prefill_ticks"]
+        expect = {"int8_matmul_quant": n_lin * (steps + chunks),
+                  attend % "decode": cfg.n_layers * steps,
+                  attend % "prefill": cfg.n_layers * chunks}
+        off = {n: (launches[n], c) for n, c in expect.items()
+               if launches[n] != c}
+        if off:
+            fail(f"{where}: launches (counted, the device's) {off} over "
+                 f"{steps} decode steps and {chunks} prefill chunks")
+        out.append({"summary": summarize_results(results, wall),
+                    "launches": launches, **delta})
+    graphs = eng.graphs
+    over = {k: (len(v), graphs.bounds[k]) for k, v in graphs.keys.items()
+            if len(v) > graphs.bounds[k]}
+    if over or eng.stats["graphs_captured"] > sum(graphs.bounds.values()):
+        fail(f"{what}: graph keys past their bounds {over}, "
+             f"{eng.stats['graphs_captured']} captured")
+    if not out[-1]["graph_replays"]:
+        fail(f"{what}: the last run replayed no CUDA graph")
+    return out, eng
 
 
 def _per_layer_ranking(ranked, drops):
@@ -1262,61 +1324,107 @@ def _group(name: str, kernels) -> str:
     return "torch_other"
 
 
+def _graph_delta(eng, before) -> dict:
+    return {k: eng.stats[k] - before[k] for k in GRAPH_STATS}
+
+
 def phase_profile(params, cfg, dev, kernels):
     """Where a steady decode dispatch's time goes, contiguous against paged
     (pages of SERVE_PAGE): SERVE_SLOTS requests, all decoding, INT8 KV, one
-    engine per layout on the same prompts. PROFILE_TICKS dispatches of each
-    are timed on the host clock (each ends in the engine's one host sync),
-    the two layouts taking turns in the order C P P C ..., so a drift of the
-    shared host lands on both; then two more of each run under
-    torch.profiler, whose device kernel time is summed by group. Device busy
-    over host wall gives the idle share."""
+    engine per layout on the same prompts, in two passes over the same
+    positions. In each pass, after one warming tick, PROFILE_TICKS
+    dispatches of each are timed on the host clock (each ends in the
+    engine's one host sync), the two layouts taking turns in the order C P P
+    C ..., so a drift of the shared host lands on both. The first pass is
+    cold: a window's first dispatch runs eagerly and its second captures,
+    and the eager ones are reported as the first use. The second pass (the
+    same requests once the first finished, prefix cache cleared) must
+    replay every timed dispatch, which the engine's stats show; then two
+    more replayed dispatches of each run under torch.profiler, whose device
+    kernel time is summed by group. Device busy over the unprofiled host
+    wall gives the idle share (``_per``)."""
     import torch
     from repro_torch.serving import Engine, Request, SchedulerConfig
     rng = torch.Generator().manual_seed(0)
     prompts = [_tokens(cfg, SERVE_PROMPT, rng) for _ in range(SERVE_SLOTS)]
+    # the first token comes from prefill; then the warming, timed and
+    # profiled dispatches, after which every request is done
+    n_new = 1 + (1 + PROFILE_TICKS + 2) * SERVE_STEPS
     engines = {}
     for layout, page_size in (("contiguous", None), ("paged", SERVE_PAGE)):
-        eng = engines[layout] = Engine(
+        engines[layout] = Engine(
             params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
             sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
                                   decode_steps=SERVE_STEPS),
             quantized_kv=True, device=dev, page_size=page_size)
-        for prompt in prompts:
-            eng.submit(Request(prompt, SERVE_MAX_SEQ - SERVE_PROMPT))
 
     def tick(eng):
         eng.step()
         torch.cuda.synchronize(dev)
 
-    for eng in engines.values():
-        while any(slot.stage != "decode" for slot in eng.slots):
-            tick(eng)
-        tick(eng)                                       # warm the decode path
-    wall = {layout: 0.0 for layout in engines}
-    launches = {layout: dict.fromkeys(kernels, 0) for layout in engines}
-    order = list(engines)
-    for i in range(PROFILE_TICKS):
-        for layout in (order if i % 2 == 0 else order[::-1]):
-            for kern in kernels.values():
-                kern.launches = 0
-            t0 = time.monotonic()
-            tick(engines[layout])
-            wall[layout] += time.monotonic() - t0
-            for n, kern in kernels.items():
-                launches[layout][n] += kern.launches
     steps = PROFILE_TICKS * SERVE_STEPS
+    order = list(engines)
+    passes = {}
+    for name in ("cold", "warm"):
+        for eng in engines.values():
+            if eng.prefix is not None:
+                eng.prefix.clear()
+            for prompt in prompts:
+                eng.submit(Request(prompt, n_new))
+            while any(slot.stage != "decode" for slot in eng.slots):
+                tick(eng)
+            tick(eng)                                   # warm the decode path
+        ticks = {layout: [] for layout in engines}
+        launches = {layout: dict.fromkeys(kernels, 0) for layout in engines}
+        for i in range(PROFILE_TICKS):
+            for layout in (order if i % 2 == 0 else order[::-1]):
+                eng = engines[layout]
+                for kern in kernels.values():
+                    kern.launches = 0
+                before = dict(eng.stats)
+                t0 = time.monotonic()
+                tick(eng)
+                ticks[layout].append((time.monotonic() - t0,
+                                      _graph_delta(eng, before)))
+                for n, kern in kernels.items():
+                    launches[layout][n] += kern.launches
+        passes[name] = ticks, launches
+        if name == "warm":
+            break
+        for eng in engines.values():
+            while eng.has_work:
+                tick(eng)
     out = {}
     for layout, eng in engines.items():
+        warm, launches = passes["warm"][0][layout], passes["warm"][1][layout]
+        if any(d["graph_replays"] != 1 or d["eager_dispatches"]
+               or d["graphs_captured"] for _, d in warm):
+            fail(f"profile {layout}: a timed warm dispatch was not a graph "
+                 f"replay: {[d for _, d in warm]}")
+        cold = passes["cold"][0][layout]
+        eager = [t for t, d in cold if d["eager_dispatches"]]
+        captured = [t for t, d in cold if d["graphs_captured"]]
+        before = dict(eng.stats)
         prof_steps = 2 * SERVE_STEPS
         prof = _profiled(lambda: [tick(eng) for _ in range(2)], kernels)
-        step_ms = wall[layout] / steps * 1e3
+        if _graph_delta(eng, before)["graph_replays"] != 2:
+            fail(f"profile {layout}: the profiled dispatches were not both "
+                 f"replays")
+        step_ms = sum(t for t, _ in warm) / steps * 1e3
         out[layout] = {
+            "replayed": True,
             "decode_step_ms": step_ms,
             "tokens_per_s": SERVE_SLOTS / step_ms * 1e3,
+            "eager_first_use_step_ms": (sum(eager) / len(eager)
+                                        / SERVE_STEPS * 1e3
+                                        if eager else None),
+            "capture_dispatch_ms": (sum(captured) / len(captured) * 1e3
+                                    if captured else None),
+            "cold_pass": {k: sum(d[k] for _, d in cold)
+                          for k in GRAPH_STATS},
             "port_launches_per_step": {n: c / steps for n, c
-                                       in launches[layout].items()},
-            **_per(prof, prof_steps, "step"),
+                                       in launches.items()},
+            **_per(prof, prof_steps, "step", step_ms),
         }
     return out
 
@@ -1344,15 +1452,18 @@ def _profiled(run, kernels):
     return dict(wall_ms=wall_ms, n_kernels=n_kernels, groups=groups)
 
 
-def _per(prof, n, unit):
-    """A ``_profiled`` result per ``unit`` (n of them), with the device busy
-    ms over the host wall ms as the idle share."""
+def _per(prof, n, unit, host_ms):
+    """A ``_profiled`` result per ``unit`` (n of them). The idle share is
+    the device busy ms a unit over ``host_ms``, the host wall ms a unit
+    timed without the profiler: its tracing stretches a replayed graph
+    (the profiled wall is ~10x the unprofiled one a decode step), while
+    the kernels' own durations stay those of the eager runs."""
     busy_ms = sum(prof["groups"].values())
     return {
         f"profiled_device_kernels_per_{unit}": prof["n_kernels"] / n,
         f"profiled_wall_ms_per_{unit}": prof["wall_ms"] / n,
         f"device_busy_ms_per_{unit}": busy_ms / n,
-        "device_idle_share": (1 - busy_ms / prof["wall_ms"] if busy_ms
+        "device_idle_share": (1 - busy_ms / n / host_ms if busy_ms
                               else None),
         f"device_ms_per_{unit}_by_group": {
             g: v / n for g, v in sorted(prof["groups"].items())},
@@ -1362,11 +1473,14 @@ def _per(prof, n, unit):
 def phase_profile_prefill(params, cfg, dev, kernels):
     """Where a full-width prefill chunk's time goes: one request with a
     PREFILL_PROFILE_PROMPT-token prompt, INT8 KV, chunks of SERVE_CHUNK,
-    contiguous and paged (pages of SERVE_PAGE). The first chunk warms the
-    path, the second is timed on the host clock, and the last two run under
+    contiguous and paged (pages of SERVE_PAGE), run three times through
+    slot 0 (prefix cache cleared between). The first pass runs each chunk's
+    key eagerly (its second chunk timed on the host clock as the first
+    use), the second captures; the third must replay all four chunks: its
+    second is timed on the host clock and its last two run under
     torch.profiler, whose device kernel time is summed by group (B4/B6 are
     ``prefill_attention`` / ``paged_prefill_attention``). Device busy over
-    host wall gives the idle share."""
+    the unprofiled host wall gives the idle share (``_per``)."""
     import torch
     from repro_torch.serving import Engine, Request, SchedulerConfig
     prompt = _tokens(cfg, PREFILL_PROFILE_PROMPT,
@@ -1377,32 +1491,53 @@ def phase_profile_prefill(params, cfg, dev, kernels):
                      sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
                                            decode_steps=SERVE_STEPS),
                      quantized_kv=True, device=dev, page_size=page_size)
-        eng.submit(Request(prompt, 8))
 
         def tick():
             eng.step()
             torch.cuda.synchronize(dev)
 
-        tick()
-        t0 = time.monotonic()
-        tick()
-        host_ms = (time.monotonic() - t0) * 1e3
+        def timed_tick():
+            t0 = time.monotonic()
+            tick()
+            return (time.monotonic() - t0) * 1e3
+
+        for name in ("eager", "capture", "replay"):
+            if eng.prefix is not None:
+                eng.prefix.clear()
+            eng.submit(Request(prompt, 8))
+            before = dict(eng.stats)
+            tick()
+            host_ms = timed_tick()
+            if name == "eager":
+                eager_ms = host_ms
+            if name != "replay":
+                while eng.has_work:
+                    tick()
         for kern in kernels.values():
             kern.launches = 0
         prof = _profiled(lambda: [tick() for _ in range(2)], kernels)
         kern = "paged_prefill_attention" if page_size else "prefill_attention"
-        if (eng.stats["prefill_ticks"] != 4 or eng.stats["decode_ticks"]
+        graphs = _graph_delta(eng, before)
+        chunks = eng.stats["prefill_ticks"] - before["prefill_ticks"]
+        decodes = eng.stats["decode_ticks"] - before["decode_ticks"]
+        if (chunks != 4 or decodes or graphs["graph_replays"] != 4
+                or graphs["eager_dispatches"] or graphs["graphs_captured"]
                 or kernels[kern].launches != 2 * cfg.n_layers):
-            fail(f"prefill profile {layout}: {eng.stats['prefill_ticks']} "
-                 f"prefill ticks, {eng.stats['decode_ticks']} decode ticks, "
+            fail(f"prefill profile {layout}: {chunks} prefill ticks, "
+                 f"{decodes} decode ticks, graphs {graphs}, "
                  f"{kernels[kern].launches} {kern} launches in the profiled "
-                 f"two; expected 4, 0 and {2 * cfg.n_layers}")
+                 f"two; expected 4, 0, 4 replays and "
+                 f"{2 * cfg.n_layers}")
         out[layout] = {
+            "replayed": True,
             "chunk_host_ms": host_ms,
+            "eager_first_use_chunk_host_ms": eager_ms,
             "port_launches_per_chunk": {n: k.launches / 2
                                         for n, k in kernels.items()},
-            **_per(prof, 2, "chunk"),
+            **_per(prof, 2, "chunk", host_ms),
         }
+        while eng.has_work:
+            tick()
     return out
 
 
@@ -1510,53 +1645,79 @@ def main() -> int:
     reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
                                     SERVE_NEW)
 
-    def line(summary, eng, launches, label):
-        print(f"[serve] {label}: {summary['n_requests']} requests, "
-              f"{summary['out_tokens']} tokens, {summary['tokens_per_s']:.2f} "
-              f"tok/s, TTFT p50 {summary['ttft_p50_ms']:.1f} ms, latency p50 "
-              f"{summary['latency_p50_ms']:.1f} ms, "
-              f"{eng.stats['device_steps']} device steps / "
-              f"{eng.stats['host_syncs']} host syncs, engine == serial on "
-              f"all requests, launches {launches}  [{card}]")
+    graph_totals = {}
+
+    def line(runs, eng, label):
+        """The cold (first) and warm (last) runs of a load; adds the load's
+        graph stats to its layout's totals."""
+        for name, i in ((("cold", 0), ("warm", len(runs) - 1))
+                        if len(runs) > 1 else (("one", 0),)):
+            r = runs[i]
+            sm = r["summary"]
+            print(f"[serve] {label}, {name} run ({i + 1} of "
+                  f"{len(runs)}): {sm['n_requests']} requests, "
+                  f"{sm['out_tokens']} tokens, {sm['tokens_per_s']:.2f} "
+                  f"tok/s, TTFT p50 {sm['ttft_p50_ms']:.1f} ms, latency p50 "
+                  f"{sm['latency_p50_ms']:.1f} ms, {r['device_steps']} device "
+                  f"steps / {r['host_syncs']} host syncs, graphs "
+                  f"{r['graphs_captured']} captured / {r['graph_replays']} "
+                  f"replays / {r['eager_dispatches']} eager dispatches, "
+                  f"engine == serial on all requests, launches "
+                  f"{r['launches']}  [{card}]")
+        layout = "paged" if eng.paged else "contiguous"
+        tot = graph_totals.setdefault(layout, dict.fromkeys(
+            ("loads", *GRAPH_STATS, "pool_bytes_max"), 0))
+        tot["loads"] += 1
+        for k in GRAPH_STATS:
+            tot[k] += eng.stats[k]
+        tot["pool_bytes_max"] = max(tot["pool_bytes_max"],
+                                    eng.stats["graph_pool_bytes"])
+        bound = {k: f"{len(v)} of {eng.graphs.bounds[k]}"
+                 for k, v in eng.graphs.keys.items()}
+        print(f"[serve] {label}: graph keys {bound}, capture "
+              f"{eng.stats['capture_s']:.3f} s, graph pool "
+              f"{eng.stats['graph_pool_bytes']} B  [{card}]")
 
     main_launches = {}
     kv_bytes = None
     for quantized_kv in (True, False):
-        summary, eng, launches = serve_once(
+        runs, eng = serve_once(
             params, cfg, dev, kernels, reqs, dense + contiguous,
             paged + unfused, arrivals_s=arrivals, quantized_kv=quantized_kv)
         if quantized_kv:
-            main_launches.update({k: launches[k]
+            main_launches.update({k: runs[0]["launches"][k]
                                   for k in dense + contiguous + unfused})
             kv_bytes = eng.stats["kv_bytes"]
-        line(summary, eng, launches,
+        line(runs, eng,
              f"contiguous kv={'int8' if quantized_kv else 'bf16'}")
 
     # the paged path: the same staggered load, then a shared-prompt load
-    summary, eng, launches = serve_once(
+    runs, eng = serve_once(
         params, cfg, dev, kernels, reqs, dense + paged, contiguous + unfused,
         arrivals_s=arrivals, quantized_kv=True, page_size=SERVE_PAGE)
-    main_launches.update({k: launches[k] for k in paged})
-    line(summary, eng, launches, f"paged kv=int8 page={SERVE_PAGE}")
+    main_launches.update({k: runs[0]["launches"][k] for k in paged})
+    line(runs, eng, f"paged kv=int8 page={SERVE_PAGE}")
     print(f"[serve] paged staggered load: pages_peak "
           f"{eng.stats['pages_peak']}, kv_bytes_peak "
           f"{eng.stats['kv_bytes_peak']} B against the contiguous pool's "
-          f"{kv_bytes} B, prefix_hits {eng.stats['prefix_hits']}  [{card}]")
+          f"{kv_bytes} B, prefix_hits {runs[0]['prefix_hits']} a run  "
+          f"[{card}]")
     shared, ticks = shared_prompt_load(cfg)
-    summary, eng, launches = serve_once(
+    runs, eng = serve_once(
         params, cfg, dev, kernels, shared, dense + paged, contiguous + unfused,
         arrival_ticks=ticks, quantized_kv=True, page_size=SERVE_PAGE)
-    line(summary, eng, launches,
+    line(runs, eng,
          f"paged kv=int8 page={SERVE_PAGE}, shared {SHARED_HEAD}-token head")
     st = eng.stats
     n_prompt = sum(len(r.prompt) for r in shared)
     want_prefill = n_prompt - (SHARED_N - 1) * SHARED_HEAD
-    if st["prefix_hits"] != SHARED_N - 1:
-        fail(f"shared-prompt load: {st['prefix_hits']} prefix hits, "
-             f"expected {SHARED_N - 1}")
-    if st["prefill_tokens"] != want_prefill:
-        fail(f"shared-prompt load: {st['prefill_tokens']} prompt tokens "
-             f"prefilled, expected {want_prefill}")
+    for i, r in enumerate(runs):
+        if r["prefix_hits"] != SHARED_N - 1:
+            fail(f"shared-prompt load run {i + 1}: {r['prefix_hits']} prefix "
+                 f"hits, expected {SHARED_N - 1}")
+        if r["prefill_tokens"] != want_prefill:
+            fail(f"shared-prompt load run {i + 1}: {r['prefill_tokens']} "
+                 f"prompt tokens prefilled, expected {want_prefill}")
     cached = len({p for v in eng.prefix._entries.values() for p in v})
     if eng.alloc.pages_in_use != cached:
         fail(f"shared-prompt load: {eng.alloc.pages_in_use} pages in use "
@@ -1565,11 +1726,12 @@ def main() -> int:
     eng.prefix.clear()
     if eng.alloc.pages_in_use != 0:
         fail(f"shared-prompt load: {eng.alloc.pages_in_use} pages leaked")
-    print(f"[serve] shared-prompt load: prefix_hits {st['prefix_hits']}, "
-          f"prefill_tokens {st['prefill_tokens']} of {n_prompt}, pages_peak "
-          f"{st['pages_peak']}, kv_bytes_peak {st['kv_bytes_peak']} B against "
-          f"the contiguous pool's {kv_bytes} B, {cached} pages cached after "
-          f"the run, 0 after clearing the cache  [{card}]")
+    print(f"[serve] shared-prompt load: prefix_hits {runs[0]['prefix_hits']}"
+          f", prefill_tokens {runs[0]['prefill_tokens']} of {n_prompt} "
+          f"(each of {len(runs)} runs), pages_peak {st['pages_peak']}, "
+          f"kv_bytes_peak {st['kv_bytes_peak']} B against the contiguous "
+          f"pool's {kv_bytes} B, {cached} pages cached after the last run, "
+          f"0 after clearing the cache  [{card}]")
 
     # decode windows over two split-KV segments: B3/B5 fold them in the
     # launch through their workspace, and engine == serial still holds
@@ -1577,11 +1739,11 @@ def main() -> int:
     for page_size, must, must_not in (
             (None, dense + contiguous, paged + unfused),
             (SERVE_PAGE, dense + paged, contiguous + unfused)):
-        summary, eng, launches = serve_once(
+        runs, eng = serve_once(
             params, cfg, dev, kernels, long_reqs, must, must_not,
             max_seq=LONG_MAX_SEQ, split_kv=True, quantized_kv=True,
             page_size=page_size)
-        line(summary, eng, launches,
+        line(runs, eng,
              f"prompts {'/'.join(map(str, LONG_PROMPTS))} + {LONG_NEW} "
              f"across split-KV segments, max_seq {LONG_MAX_SEQ}, kv=int8"
              + (f" page={page_size}" if page_size else " contiguous"))
@@ -1596,22 +1758,30 @@ def main() -> int:
         for page_size, must, must_not in (
                 (None, dense + contiguous, paged + unfused),
                 (SERVE_PAGE, dense + paged, contiguous + unfused)):
-            summary, eng, launches = serve_once(
+            runs, eng = serve_once(
                 pruned, cfg, dev, kernels, pruned_reqs, must, must_not,
-                arrivals_s=pruned_arrivals, quantized_kv=True,
+                arrivals_s=pruned_arrivals, runs=1, quantized_kv=True,
                 page_size=page_size)
-            line(summary, eng, launches, f"pruned {label}, kv=int8"
+            line(runs, eng, f"pruned {label}, kv=int8"
                  + (f" page={page_size}" if page_size else " contiguous"))
     del pruned_params, ragged
+    for layout, tot in graph_totals.items():
+        print(f"[graphs] {layout}: {tot['loads']} serve loads, "
+              f"{tot['graphs_captured']} graphs captured in "
+              f"{tot['capture_s']:.3f} s, {tot['graph_replays']} replays, "
+              f"{tot['eager_dispatches']} eager dispatches; largest graph "
+              f"pool of one engine {tot['pool_bytes_max']} B  [{card}]")
 
     for layout, prof in phase_profile(params, cfg, dev, kernels).items():
         print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots, "
-              f"{layout}: {json.dumps(prof)}  [{card}]")
+              f"{layout}, replayed CUDA graphs (eager first use beside): "
+              f"{json.dumps(prof)}  [{card}]")
     for layout, prof in phase_profile_prefill(params, cfg, dev,
                                               kernels).items():
         print(f"[profile] prefill chunk, {SERVE_CHUNK} queries at positions "
               f"{2 * SERVE_CHUNK}-{PREFILL_PROFILE_PROMPT - 1}, INT8 KV, "
-              f"{layout}: {json.dumps(prof)}  [{card}]")
+              f"{layout}, replayed CUDA graphs (eager first use beside): "
+              f"{json.dumps(prof)}  [{card}]")
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",

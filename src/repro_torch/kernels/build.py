@@ -128,13 +128,23 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return took
 
 
+# every Kernel made, in the order made (the kernel modules make theirs at
+# import): what a CUDA-graph capture reads its launch counts from
+KERNELS: List["Kernel"] = []
+
+
 class Kernel:
     """One exported C launcher of one source, with its launch count.
 
     ``launches`` is a plain integer that ``launch`` raises by one each time
-    the kernel is launched, and nowhere else; a caller may reset it."""
+    the kernel is launched; a caller may reset it. Under a CUDA-graph
+    capture ``launch`` records the launch and executes nothing, so the
+    serving engine's graph cache (``serving.dispatch``) takes a capture's
+    count back and adds it again on every replay: the count stays that of
+    the device's launches."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        KERNELS.append(self)
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream

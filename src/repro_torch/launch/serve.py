@@ -130,7 +130,9 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
         f"{stats['latency_p50_ms']:.0f}/{stats['latency_p95_ms']:.0f}ms, "
         f"ttft p50/p95 {stats['ttft_p50_ms']:.0f}/"
         f"{stats['ttft_p95_ms']:.0f}ms ({eng.stats['device_steps']} device "
-        f"decode steps / {eng.stats['host_syncs']} host syncs"
+        f"decode steps / {eng.stats['host_syncs']} host syncs, "
+        f"{eng.stats['graphs_captured']} CUDA graphs captured / "
+        f"{eng.stats['graph_replays']} replays"
         + (f", {eng.stats['prefix_hits']} prefix hits / "
            f"{eng.stats['pages_peak']} pages peak" if args.page_size else "")
         + ")")

@@ -69,13 +69,15 @@ def unembed_params(params: dict, cfg) -> dict:
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor,
               batch_invariant: bool = True) -> torch.Tensor:
-    """f32 logits over the padded vocab, the padding masked to -1e30."""
+    """f32 logits over the padded vocab, the padding masked to -1e30 (a
+    Python scalar: a tensor made from it would be a host-to-device copy,
+    which a CUDA-graph capture refuses)."""
     logits = L.unembed(unembed_params(params, cfg), hidden, batch_invariant)
     v_pad = logits.shape[-1]
     if v_pad == cfg.vocab_size:
         return logits
     mask = torch.arange(v_pad, device=logits.device) < cfg.vocab_size
-    return torch.where(mask, logits, torch.tensor(-1e30, device=logits.device))
+    return torch.where(mask, logits, -1e30)
 
 
 # ------------------------------------------------------------------ train

@@ -13,6 +13,18 @@ EOS/length stop flags stay on the device, and one host sync at the end
 harvests the emitted tokens (``stats["host_syncs"]`` against
 ``stats["device_steps"]``).
 
+On the card each decode dispatch and each prefill chunk runs as a CUDA
+graph, captured once per key and replayed (``serving.dispatch``): the
+counterpart of the reference engine's jitted ``_decode`` scan and
+``_prefill``. Decode is keyed by its static window (``decode_steps`` is
+fixed per engine); prefill by (chunk width, window), and in the contiguous
+layout by the slot too, whose cache is a view at the slot's offset. The
+bodies read fixed device buffers (``dispatch.Inputs``: the tokens, live
+flags, EOS ids and budgets of a decode dispatch, the chunk, the page
+tables), write the pool in place and their results into fixed outputs,
+and make no host sync: a graph bakes in every address and host value. On
+the CPU they run eagerly.
+
 Token-identity contract: engine outputs equal serial single-request decode
 token for token, because (a) every op is row-independent (``layers`` keeps
 the norms and bf16 products batch-invariant; the INT8 and attention kernels
@@ -43,6 +55,7 @@ from repro_torch.kernels.kv_layout import page_count
 from repro_torch.models import lm
 from repro_torch.serving import sampling as smp
 from repro_torch.serving import state_pool as sp
+from repro_torch.serving.dispatch import GraphCache, Inputs
 from repro_torch.serving.scheduler import (DECODE, PREFILL, Scheduler,
                                            SchedulerConfig)
 
@@ -151,10 +164,9 @@ class Engine:
             self.alloc = sp.PageAllocator(total_pages)
             if prefix_cache:
                 self.prefix = sp.PrefixCache(self.alloc, page_size)
-            # host mirror of every slot's page table; device copies are
-            # cached in _dispatch_table
+            # host mirror of every slot's page table; the dispatches read
+            # fixed device copies of it (_dispatch_table)
             self.table = np.zeros((n_slots, self.max_pages), np.int32)
-            self._table_cache: Dict[Any, torch.Tensor] = {}
             self.pool = sp.init_paged_pool(
                 cfg, n_slots, max_seq, page_size=page_size,
                 total_pages=total_pages, params=params,
@@ -179,6 +191,23 @@ class Engine:
                       "prefix_hit_tokens": 0, "bytes_saved": 0,
                       "pages_in_use": 0, "pages_peak": 0,
                       "kv_bytes_peak": 0 if self.paged else kv_bytes}
+        # the reference's max_lowerings: one decode executable per window
+        # bucket, one prefill executable per (window, chunk width), and here
+        # per slot too in the contiguous layout
+        sc = self.scheduler.cfg
+        n_windows = -(-max_seq // sc.window_block)
+        self.graphs = GraphCache(self.device, {
+            "decode": n_windows,
+            "prefill": n_windows * sc.prefill_chunk
+                       * (1 if self.paged else n_slots)}, self.stats)
+        self.inputs = Inputs(self.device)
+        # the dispatches' outputs, made outside any capture: a decode
+        # dispatch's (tokens, emitted) per step and slot, and a chunk's
+        # greedy token
+        self._decode_out = torch.zeros((2, sc.decode_steps, n_slots),
+                                       dtype=torch.long, device=self.device)
+        self._chunk_token = torch.zeros((1,), dtype=torch.int32,
+                                        device=self.device)
 
     # ------------------------------------------------------------ paged KV
     def _note_pages(self) -> None:
@@ -218,7 +247,6 @@ class Engine:
         slot.pages = pages
         self.table[slot.idx] = 0
         self.table[slot.idx, :len(pages)] = pages
-        self._table_cache.clear()
         if hit:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] += hit
@@ -235,7 +263,6 @@ class Engine:
             new = self._alloc_pages(need - len(slot.pages))
             self.table[slot.idx, len(slot.pages):need] = new
             slot.pages.extend(new)
-            self._table_cache.clear()
             self._note_pages()
 
     def _release_slot_pages(self, slot: _Slot) -> None:
@@ -245,31 +272,24 @@ class Engine:
             self.alloc.unref(slot.pages)
             slot.pages = []
             self.table[slot.idx] = 0
-            self._table_cache.clear()
             self._note_pages()
 
     def _dispatch_table(self, window: int,
-                        active: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Device copy of the page table for one dispatch, cut to the pages
-        that cover ``window`` (so the attention ops take it as it is).
-        Decode dispatches pass ``active``: every other row (free slots and
-        slots mid-prefill) points at the trash page, because the shared
-        arena cannot be masked per slot and those rows write garbage KV at
-        their position every step.
+                        active: np.ndarray) -> torch.Tensor:
+        """The page table of a decode dispatch, cut to the pages that cover
+        ``window`` (so the attention ops take it as it is). Every row not
+        ``active`` (free slots, slots mid-prefill) points at the trash page,
+        because the shared arena cannot be masked per slot and those rows
+        write garbage KV at their position every step. One fixed device
+        buffer per width, rewritten only when the table or the mask
+        changed."""
+        n_blk = self._table_width(window)
+        tab = np.where(active[:, None], self.table[:, :n_blk],
+                       np.int32(sp.TRASH_PAGE))
+        return self.inputs.put(("table", n_blk), tab)
 
-        The copy is cached per (window pages, active mask) until the table
-        next changes (admission, growth, eviction), so a steady decode tick
-        makes no host-to-device copy."""
-        n_blk = min(self.max_pages, page_count(window, self.page_size))
-        key = (n_blk, None if active is None else active.tobytes())
-        dev = self._table_cache.get(key)
-        if dev is None:
-            tab = self.table[:, :n_blk]
-            if active is not None:
-                tab = np.where(active[:, None], tab, np.int32(sp.TRASH_PAGE))
-            dev = self._table_cache[key] = torch.as_tensor(
-                np.ascontiguousarray(tab), device=self.device)
-        return dev
+    def _table_width(self, window: int) -> int:
+        return min(self.max_pages, page_count(window, self.page_size))
 
     def _window(self, needed: int) -> int:
         return self.scheduler.visible_window(
@@ -364,16 +384,22 @@ class Engine:
     def _prefill(self, slot: _Slot, finished: List[RequestResult]) -> None:
         lo, hi = self.scheduler.chunk_bounds(slot.prompt.size,
                                              slot.prefill_done)
-        chunk = torch.as_tensor(slot.prompt[None, lo:hi], device=self.device)
+        chunk = self.inputs.put(("chunk", hi - lo), slot.prompt[None, lo:hi])
         window = self._window(hi)
-        st = sp.gather_slot(self.pool, slot.idx, lo,
-                            self._dispatch_table(window) if self.paged
-                            else None)
-        # route="prefill" for every chunk, the 1-token tail included: the
-        # same op serial whole-prompt prefill takes, so the bits agree
-        logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
-                                     window=window, route="prefill")
-        sp.scatter_slot(self.pool, slot.idx, new)
+        if self.paged:
+            # the slot's table row and index in fixed buffers: one graph
+            # serves every slot
+            n_blk = self._table_width(window)
+            row = self.inputs.put(("row", n_blk),
+                                  self.table[slot.idx:slot.idx + 1, :n_blk])
+            idx = self.inputs.put("slot", np.array([slot.idx]))
+            self.graphs.run("prefill", (hi - lo, window),
+                            lambda: self._prefill_chunk(idx, chunk, window,
+                                                        row))
+        else:
+            self.graphs.run("prefill", (hi - lo, window, slot.idx),
+                            lambda: self._prefill_chunk(slot.idx, chunk,
+                                                        window))
         slot.prefill_done = hi
         self.stats["prefill_ticks"] += 1
         self.stats["prefill_tokens"] += hi - lo
@@ -383,25 +409,39 @@ class Engine:
                 # heads for later admissions
                 self.prefix.insert(slot.prompt, slot.pages, hi)
                 self._note_pages()
-            tok = int(smp.greedy(logits[0, -1]))
+            tok = int(self._chunk_token.item())
             self.stats["host_syncs"] += 1
             self._emit(slot, tok, finished)
+
+    def _prefill_chunk(self, slot, chunk: torch.Tensor, window: int,
+                       pages: Optional[torch.Tensor] = None) -> None:
+        """One prefill chunk (1, width) of slot ``slot`` (an int, or a (1,)
+        index tensor in paged mode) from the slot's device position, which
+        it advances in place; the greedy token of the chunk's last position
+        goes to ``_chunk_token``."""
+        st = sp.gather_slot(self.pool, slot, pages=pages)
+        # route="prefill" for every chunk, the 1-token tail included: the
+        # same op serial whole-prompt prefill takes, so the bits agree
+        logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
+                                     window=window, route="prefill")
+        sp.scatter_slot(self.pool, slot, new)
+        self._chunk_token.copy_(smp.greedy(logits[0, -1]))
 
     def _decode(self, slot_ids: Sequence[int],
                 finished: List[RequestResult]) -> None:
         k_steps = self.scheduler.cfg.decode_steps
         n = self.n_slots
-        tokens = np.zeros((n, 1), np.int64)
+        # rows: last token, live, EOS id (-1 = none), tokens left
+        host = np.zeros((4, n), np.int64)
+        host[2] = -1
+        host[3] = 1
         active = np.zeros((n,), bool)
-        eos = np.full((n,), -1, np.int64)
-        budget = np.ones((n,), np.int64)
         for i in slot_ids:
             slot = self.slots[i]
-            tokens[i, 0] = slot.last_token
+            host[:, i] = (slot.last_token, 1,
+                          -1 if slot.eos_id is None else slot.eos_id,
+                          slot.max_new_tokens - len(slot.result.tokens))
             active[i] = True
-            if slot.eos_id is not None:
-                eos[i] = slot.eos_id
-            budget[i] = slot.max_new_tokens - len(slot.result.tokens)
             if self.paged:
                 # deepest write: pos + live steps (a slot that stops early
                 # rewrites its stop position, already covered)
@@ -412,10 +452,13 @@ class Engine:
         # <= max(pos) + k_steps - 1  ->  window covers max(pos) + k_steps
         needed = max(self._slot_pos(self.slots[i]) for i in slot_ids) + k_steps
         window = self._window(needed)
+        inputs = self.inputs.put("decode", host)
         table = self._dispatch_table(window, active) if self.paged else None
-        toks, emitted = self._decode_steps(
-            *(torch.as_tensor(a, device=self.device)
-              for a in (tokens, active, eos, budget)), k_steps, window, table)
+        self.graphs.run("decode", window,
+                        lambda: self._decode_steps(inputs, k_steps, window,
+                                                   table))
+        out = self._decode_out.cpu().numpy()
+        toks, emitted = out[0], out[1].astype(bool)
         self.stats["host_syncs"] += 1
         self.stats["device_steps"] += k_steps
         for t in range(k_steps):
@@ -425,31 +468,32 @@ class Engine:
         self.stats["decode_ticks"] += 1
         self.stats["decode_slot_steps"] += int(emitted.sum())
 
-    def _decode_steps(self, tok, live, eos, left, k_steps: int, window: int,
-                      table: Optional[torch.Tensor]):
-        """``k_steps`` greedy steps over every slot, on the device. tok
-        (B, 1) = each live slot's last token; live (B,) bool; eos (B,) (-1 =
-        none); left (B,) = tokens each slot may still emit; ``table`` the
+    def _decode_steps(self, inputs: torch.Tensor, k_steps: int, window: int,
+                      table: Optional[torch.Tensor]) -> None:
+        """``k_steps`` greedy steps over every slot, on the device.
+        ``inputs`` (4, B): each live slot's last token, live (0/1), EOS id
+        (-1 = none), tokens each slot may still emit; ``table`` the
         dispatch's page table (paged mode). Slots that hit EOS or their
-        budget freeze for the remaining steps. Returns host arrays (toks
-        (K, B), emitted (K, B) bool) after one sync."""
+        budget freeze for the remaining steps. Writes (toks (K, B), emitted
+        (K, B)) into ``_decode_out``."""
         pool = self.pool
+        tok, live, eos, left = (inputs[0][:, None], inputs[1] != 0,
+                                inputs[2], inputs[3])
+        state = pool if table is None else dict(pool, pages=table)
         toks, emitted = [], []
         for _ in range(k_steps):
-            state = pool if table is None else dict(pool, pages=table)
             logits, new = lm.decode_step(self.params, self.cfg, state, tok,
                                          window=window, route="decode")
             nxt = smp.greedy(logits[:, -1]).long()
-            pool["pos"] = torch.where(live, new["pos"], pool["pos"])
+            pool["pos"].copy_(torch.where(live, new["pos"], pool["pos"]))
             left = torch.where(live, left - 1, left)
             stop = ((eos >= 0) & (nxt == eos)) | (left <= 0)
             toks.append(torch.where(live, nxt, 0))
             emitted.append(live)
             tok = torch.where(live, nxt, tok[:, 0])[:, None]
             live = live & ~stop
-        out = torch.stack([torch.stack(toks),
-                           torch.stack(emitted).long()]).cpu().numpy()
-        return out[0], out[1].astype(bool)
+        self._decode_out[0].copy_(torch.stack(toks))
+        self._decode_out[1].copy_(torch.stack(emitted))
 
     # ------------------------------------------------------------------- run
     def run(self, requests: Sequence[Request],

@@ -18,7 +18,7 @@ their writes never touch a live page."""
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,25 +49,37 @@ def init_paged_pool(cfg, n_slots: int, max_seq: int, *, page_size: int,
                                 kv_pages=(total_pages, page_size))
 
 
-def gather_slot(pool: Dict[str, Any], slot: int, pos: int,
-                table: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-    """Slot ``slot`` as a batch=1 ``decode_step`` state at the host's copy
-    of its position. Contiguous: views of the pool's caches. Paged (a
-    device page ``table`` (n_slots, n_blk) is given): the arena whole, and
-    the slot's table row as ``pages``."""
-    if table is not None:
-        return {"caches": pool["caches"], "pos": pos,
-                "pages": table[slot:slot + 1]}
+def gather_slot(pool: Dict[str, Any], slot: Union[int, torch.Tensor],
+                pos: Optional[int] = None,
+                pages: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Slot ``slot`` as a batch=1 ``decode_step`` state. ``pos`` is the
+    host's copy of its position, or None for the pool's own, on the device:
+    a (1,) view of the pool's positions, or, where ``slot`` is a (1,) int64
+    index tensor (a paged engine's slot, read by a CUDA graph that serves
+    every slot), gathered through it. Contiguous: views of the pool's
+    caches (``slot`` an int). Paged (``pages``, the slot's (1, n_blk) page
+    table row): the arena whole."""
+    if pos is None:
+        pos = (pool["pos"].index_select(0, slot)
+               if isinstance(slot, torch.Tensor)
+               else pool["pos"][slot:slot + 1])
+    if pages is not None:
+        return {"caches": pool["caches"], "pos": pos, "pages": pages}
     caches = [{k: leaf[slot:slot + 1] for k, leaf in entry.items()}
               for entry in pool["caches"]]
     return {"caches": caches, "pos": pos}
 
 
-def scatter_slot(pool: Dict[str, Any], slot: int,
+def scatter_slot(pool: Dict[str, Any], slot: Union[int, torch.Tensor],
                  state: Dict[str, Any]) -> None:
-    """Record a batch=1 state's position in the pool (its KV already landed
-    in the pool through the views or the page table)."""
-    pool["pos"][slot] = int(state["pos"])
+    """Record a batch=1 state's position (an int, or a (1,) device tensor)
+    in the pool, in place on the device and with no host sync (its KV
+    already landed in the pool through the views or the page table).
+    ``slot`` as in ``gather_slot``."""
+    if isinstance(slot, torch.Tensor):
+        pool["pos"].index_copy_(0, slot, state["pos"])
+    else:
+        pool["pos"][slot:slot + 1] = state["pos"]
 
 
 def reset_slot(pool: Dict[str, Any], slot: int, pos0: int = 0) -> None:
