@@ -13,8 +13,12 @@ arena and its prefix cache, and check every request against serial decode;
 then run the HQP compression path at full width (Fisher pass, conditional
 pruning, compaction, PTQ) through the causal flash kernel, hold the masked
 model against the compacted one, and serve the pruned artifact, contiguous
-and paged, against serial decode; last, profile a steady decode dispatch
-and a prefill chunk (where their time goes on the card).
+and paged, against serial decode; then train the full-width model on the
+quickstart's Markov corpus (AdamW, a checkpoint restored and replayed bit
+for bit), let Algorithm 1 decide on it until it rejects a step, save the
+INT8 artifact, load it back and serve it, contiguous and paged; last,
+profile a steady decode dispatch and a prefill chunk (where their time
+goes on the card).
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -105,9 +110,19 @@ PREFILL_HEADS = ((8, 8, 64), (12, 4, 64), (16, 4, 64), (16, 8, 16),
 # whole 256-token prompt (serial_decode's prefill): (Sq, start, W)
 PREFILL_TIMED = ((SERVE_CHUNK, 37, 64), (SERVE_CHUNK, 240, 256),
                  (256, 0, 256))
+# B7 at the train route's shapes: the quickstart's batch (64 x 33) and the
+# train launcher's default (--seq 64: S 65), checked and timed
+TRAIN_FLASH_SHAPES = ((64, 33, 16, 8, 64), (8, 65, 16, 8, 64))
 FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
                 (1, 1000, 16, 8, 64), (2, 256, 8, 8, 64),
-                (2, 256, 16, 8, 128))      # (B, S, Hq, Hkv, hd)
+                (2, 256, 16, 8, 128)
+                ) + TRAIN_FLASH_SHAPES     # (B, S, Hq, Hkv, hd)
+# The train phase: the quickstart's corpus, batch and lr at full width, for
+# TRAIN_STEPS; a checkpoint RESUME_BACK steps before the end is restored
+# and replayed to the end, which must equal the uninterrupted run bit for
+# bit; the trained model must reach TRAIN_ACC_MIN next-token accuracy (the
+# chain's ceiling is 0.9) before Algorithm 1 decides on it
+TRAIN_STEPS, TRAIN_LR, RESUME_BACK, TRAIN_ACC_MIN = 240, 3e-3, 10, 0.5
 # B3/B5 checked at these windows, and at other head groupings and widths
 # than the model's: those of B4/B6, and G = 16 (the kernel's most, one m16
 # tile)
@@ -122,6 +137,12 @@ B5_LONG = 40960      # qwen3-0.6b's max_seq_len: 2,560 pages of 16 a slot
 # 32,768 positions), checked, and the first one timed
 B6_LONG_STARTS = (B5_LONG - SERVE_CHUNK, 33000)
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
+# the kernels of each serving layout; the W8A8 linears quantize x in the
+# GEMM's launch, so B2 and the int8-x form of B1 stay for parity checks and
+# must not launch while serving
+DENSE, UNFUSED = ("int8_matmul_quant",), ("quantize_rowwise", "int8_matmul")
+CONTIGUOUS = ("decode_attention", "prefill_attention")
+PAGED = ("paged_decode_attention", "paged_prefill_attention")
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
 GEMM_M = (1, 4, 13, 16, 17, 64)
@@ -904,9 +925,10 @@ def _sdpa_causal(q, k, v):
 
 def phase_flash(dev, report):
     """The causal flash kernel (B7) against its plain version: output and
-    log-sum-exp at the calibration shape, a long S, a ragged S, G = 1 and
-    hd 128; q read through strides; the backward (autograd through the kernel's
-    Function) against autograd through the plain version."""
+    log-sum-exp at the calibration shape, a long S, a ragged S, G = 1, hd
+    128 and the train route's shapes (timed too); q read through strides;
+    the backward (autograd through the kernel's Function) against autograd
+    through the plain version."""
     import torch
     from repro_torch.kernels import flash_attention as kf, ref
     err = row_rel = 0.0
@@ -949,8 +971,19 @@ def phase_flash(dev, report):
             shape=f"q ({b}, {s}, {hq}, {hd}) vs k/v ({b}, {s}, {hkv}, "
                   f"{hd}) bf16")
     main, long = timing.values()
+    train = {}
+    for b, s, hq, hkv, hd in TRAIN_FLASH_SHAPES:
+        q, k, v = _flash_case(dev, b, s, hq, hkv, hd)
+        b_ms, by = _flash_bound(b, s, hq, hkv, hd)
+        train[f"q ({b}, {s}, {hq}, {hd}) vs k/v ({b}, {s}, {hkv}, {hd}) "
+              f"bf16"] = dict(
+            bound_ms=b_ms, bound_by=by,
+            **timed(lambda: kf.flash_attention_fwd(q, k, v),
+                    lambda: ref.flash_attention_lse_ref(q, k, v),
+                    _sdpa_causal(q, k, v), calls=10))
     report["flash_attention"] = dict(max_abs_err=err, max_row_rel=row_rel,
-                                     **main, long_s=long)
+                                     **main, long_s=long,
+                                     train_shapes=train)
 
 
 # ------------------------------------------------------------------ serving
@@ -1034,7 +1067,8 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     split-KV records (B3/B5 folded several segments): they are zeroed before
     it and read after it. The load must replay graphs, and its graph keys
     stay within the engine's bounds (the reference's lowering bounds).
-    Returns (one dict a run: summary, launches, stats deltas; engine)."""
+    Returns (one dict a run: summary, launches, stats deltas, each
+    request's tokens; engine)."""
     import torch
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.serving import (Engine, SchedulerConfig, serial_decode,
@@ -1111,7 +1145,8 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
             fail(f"{where}: launches (counted, the device's) {off} over "
                  f"{steps} decode steps and {chunks} prefill chunks")
         out.append({"summary": summarize_results(results, wall),
-                    "launches": launches, **delta})
+                    "launches": launches, **delta,
+                    "tokens": [results[i].tokens for i in range(len(reqs))]})
     graphs = eng.graphs
     over = {k: (len(v), graphs.bounds[k]) for k, v in graphs.keys.items()
             if len(v) > graphs.bounds[k]}
@@ -1282,6 +1317,255 @@ def phase_compress(cfg, dev, kernels, card):
     _mask_vs_compact(cfg, masked, compact, batch, "per-layer cut", card)
     return (manifest, deploy, quantize_lm_params(compact),
             launches["flash_attention"])
+
+
+def _differ(a, b) -> list:
+    """Indices of the leaves of two trees of one structure whose shape,
+    dtype or bits differ (bits: -0.0 is not 0.0, a NaN equals its bits)."""
+    import torch
+    from repro_torch import tree
+
+    def bits(t):
+        if not t.is_floating_point():
+            return t
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb):
+        return [f"{len(la)} leaves vs {len(lb)}"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not torch.equal(bits(x), bits(y))]
+
+
+def phase_train(cfg, dev, kernels, card):
+    """Train, then compress once and serve many, at full width on the card,
+    through the port's entry points (``launch/quickstart.py``'s corpus,
+    ``make_train_step``, ``launch/checkpoint.py``, ``compress``):
+
+    - TRAIN_STEPS AdamW steps (f32 moments) on the quickstart's corpus, from
+      launch counts at 0: 28 B7 launches a step and no serving kernel;
+    - a checkpoint RESUME_BACK steps before the end, restored and replayed
+      on the same batches: params and moments equal to the uninterrupted
+      run bit for bit;
+    - the Fisher pass over the quickstart's 4 calibration batches and
+      Algorithm 1 at its Δ_ax on the validation set: the baseline at least
+      TRAIN_ACC_MIN, a history ending in a REJECT, every accepted drop
+      within Δ_ax, 28 B7 launches a forward; then INT8 PTQ;
+    - the artifact saved and loaded back (arrays bit-equal, manifest
+      equal), served contiguous and paged with INT8 KV (``serve_once``:
+      engine == serial, graphs replayed) on prompts from the validation
+      set, every token equal to serial decode of the in-memory artifact.
+    Returns (the serve runs as (runs, engine, label), the B7 launches of
+    the training steps)."""
+    import tempfile
+
+    import torch
+    from repro_torch.compress.artifact import compress
+    from repro_torch.launch import checkpoint as ckpt
+    from repro_torch.launch import quickstart as qs
+    from repro_torch.models import lm
+    from repro_torch.serving import Request, serial_decode
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    sec = {}
+
+    def clock(stage, t0):
+        torch.cuda.synchronize()
+        sec[stage] = sec.get(stage, 0.0) + time.monotonic() - t0
+
+    def counts_zero():
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def launched():
+        return {name: kern.launches for name, kern in kernels.items()}
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    data, val = qs.corpus(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    ocfg = AdamWConfig(lr=TRAIN_LR)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    batches = qs.train_batches(data, TRAIN_STEPS, dev)
+    clock("init", t0)
+    resume_at = TRAIN_STEPS - RESUME_BACK
+    losses = {}
+    counts_zero()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.monotonic()
+        for i, batch in enumerate(batches):
+            if i == resume_at:
+                clock("train", t0)
+                t0 = time.monotonic()
+                ckpt.save(tmp, i, (params, opt))
+                clock("checkpoint save", t0)
+                t0 = time.monotonic()
+            params, opt, m = step(params, opt, batch)
+            if i % 60 == 0 or i == TRAIN_STEPS - 1:
+                losses[i] = float(m["loss"])
+                print(f"[train] step {i} loss {losses[i]:.4f}")
+        clock("train", t0)
+        train_launches = launched()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not all(math.isfinite(v) for v in losses.values()):
+            fail(f"train: non-finite loss {losses}")
+        if train_launches["flash_attention"] != cfg.n_layers * TRAIN_STEPS:
+            fail(f"train: {train_launches['flash_attention']} flash "
+                 f"launches over {TRAIN_STEPS} steps, expected "
+                 f"{cfg.n_layers} a step")
+        stray = [n for n, c in train_launches.items()
+                 if c and n != "flash_attention"]
+        if stray:
+            fail(f"train: serving kernels launched: {stray}")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         pathlib.Path(tmp).rglob("*") if f.is_file())
+        t0 = time.monotonic()
+        (p2, o2), meta = ckpt.restore(tmp, (params, opt))
+        clock("checkpoint restore", t0)
+        t0 = time.monotonic()
+        for batch in batches[meta["step"]:]:
+            p2, o2, _ = step(p2, o2, batch)
+        clock("resume replay", t0)
+        bad = _differ((params, opt), (p2, o2))
+        del p2, o2
+    if bad:
+        fail(f"resume from step {resume_at}: {len(bad)} leaves of params "
+             f"and moments differ from the uninterrupted run's (first "
+             f"{bad[:5]})")
+    del opt, batches
+    train_s = sec["train"]
+    tokens_per_step = qs.BATCH * qs.SEQ
+    print(f"[train] {cfg.name} full width, batch {qs.BATCH} x {qs.SEQ}, "
+          f"AdamW f32 moments, lr {TRAIN_LR}: {TRAIN_STEPS} steps in "
+          f"{train_s:.3f} s, {1e3 * train_s / TRAIN_STEPS:.2f} ms a step "
+          f"(synchronised), {tokens_per_step * TRAIN_STEPS / train_s:.0f} "
+          f"tokens/s, peak device memory {peak / 2**30:.2f} GiB; loss "
+          f"{json.dumps(losses)}; flash launches "
+          f"{train_launches['flash_attention']} ({cfg.n_layers} a step)  "
+          f"[{card}]")
+    print(f"[train] resume: checkpoint of step {resume_at} ({ckpt_bytes} B "
+          f"on disk) saved in {sec['checkpoint save']:.2f} s, restored in "
+          f"{sec['checkpoint restore']:.2f} s, {RESUME_BACK} steps replayed "
+          f"in {sec['resume replay']:.2f} s: params and moments equal to "
+          f"the uninterrupted run bit for bit  [{card}]")
+
+    # ---- Algorithm 1 deciding on the trained model, then INT8 PTQ
+    counts_zero()
+    t0 = time.monotonic()
+    sq = qs.fisher(cfg, params, data, dev)
+    clock("fisher", t0)
+    accuracy = qs.accuracy_fn(cfg, val, dev)
+    evals = []
+
+    def eval_fn(p):
+        t0 = time.monotonic()
+        acc = accuracy(p)
+        evals.append(time.monotonic() - t0)
+        return acc
+
+    t0 = time.monotonic()
+    art = compress(params, cfg, sq_grads=sq, eval_fn=eval_fn, hqp=qs.HQP,
+                   log=print)
+    clock("compress", t0)
+    hqp_launches = launched()
+    del sq
+    m, hist = art.manifest, art.manifest.history
+    n_val = len(val.seqs) // qs.BATCH
+    n_forward = qs.N_CALIB + n_val * len(evals)
+    if hqp_launches["flash_attention"] != cfg.n_layers * n_forward:
+        fail(f"trained compress: {hqp_launches['flash_attention']} flash "
+             f"launches, expected {cfg.n_layers} x {n_forward} forwards")
+    if m.a_baseline < TRAIN_ACC_MIN:
+        fail(f"trained model: baseline accuracy {m.a_baseline:.4f} under "
+             f"{TRAIN_ACC_MIN}")
+    if not hist or hist[-1]["accepted"]:
+        fail(f"trained compress: the history does not end in a REJECT "
+             f"({len(hist)} steps)")
+    over = [h for h in hist if h["accepted"]
+            and not h["drop"] <= qs.HQP.delta_ax]
+    if over or not all(h["accepted"] for h in hist[:-1]):
+        fail(f"trained compress: accepted steps over Δ_ax {over}")
+    t0 = time.monotonic()
+    a_int8 = accuracy(art.params)
+    clock("int8 eval", t0)
+    print(m.summary())
+    print(f"[hqp] trained {cfg.name}: baseline accuracy {m.a_baseline:.4f}"
+          f" (ceiling {data.best_acc}); history (θ, accuracy, drop, "
+          f"decision) "
+          + ", ".join(f"({h['theta']:.2f}, {h['accuracy']:.4f}, "
+                      f"{h['drop']:+.4f}, "
+                      f"{'ACCEPT' if h['accepted'] else 'REJECT'})"
+                      for h in hist)
+          + f"; kept θ {m.theta:.2%} at accuracy {m.a_final:.4f}; INT8 "
+          f"accuracy {a_int8:.4f} (drop {m.a_baseline - a_int8:+.4f}); "
+          f"bytes {m.bytes_before} -> {m.bytes_after}; Fisher "
+          f"{sec['fisher']:.3f} s, evals "
+          f"{', '.join(f'{t:.3f}' for t in evals)} s, compact "
+          f"{art.seconds['compact']:.3f} s, PTQ {art.seconds['ptq']:.3f} s; "
+          f"flash launches {hqp_launches['flash_attention']} over "
+          f"{n_forward} forwards  [{card}]")
+
+    # ---- compress once, serve many
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.monotonic()
+        path = ckpt.save_artifact(f"{tmp}/artifact", art)
+        clock("artifact save", t0)
+        art_bytes = sum(f.stat().st_size for f in
+                        pathlib.Path(path).rglob("*") if f.is_file())
+        t0 = time.monotonic()
+        loaded = ckpt.load_artifact(path, device=dev)
+        clock("artifact load", t0)
+    if loaded.manifest != m:
+        fail("artifact: the loaded manifest differs from the saved one")
+    bad = _differ(art.params, loaded.params)
+    if bad:
+        fail(f"artifact: {len(bad)} arrays differ after save and load "
+             f"(first {bad[:5]})")
+    print(f"[artifact] {art_bytes} B saved in {sec['artifact save']:.2f} s, "
+          f"loaded in {sec['artifact load']:.2f} s: arrays bit-equal, "
+          f"manifest equal  [{card}]")
+    reqs = [Request(prompt=val.seqs[i, :16 + 4 * i].tolist(),
+                    max_new_tokens=PRUNED_NEW)
+            for i in range(PRUNED_REQUESTS)]
+    arrivals = [0.02 * i for i in range(PRUNED_REQUESTS)]
+    in_memory = [serial_decode(art.params, cfg, r.prompt, r.max_new_tokens,
+                               max_seq=SERVE_MAX_SEQ, quantized_kv=True,
+                               device=dev) for r in reqs]
+    served = []
+    for page_size, must, must_not in (
+            (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
+        t0 = time.monotonic()
+        runs, eng = serve_once(loaded.params, cfg, dev, kernels, reqs, must,
+                               must_not, arrivals_s=arrivals, runs=1,
+                               quantized_kv=True, page_size=page_size)
+        clock("serve", t0)
+        if runs[0]["tokens"] != in_memory:
+            fail(f"loaded artifact, page_size {page_size}: tokens differ "
+                 f"from serial decode of the in-memory artifact")
+        served.append((runs, eng, f"trained HQP artifact (θ={m.theta:.1%}),"
+                       f" saved and loaded, kv=int8"
+                       + (f" page={page_size}" if page_size
+                          else " contiguous")))
+    # the continuations follow the chain the model learned
+    follow = [tok == val.succ[prev, 0]
+              for r, toks in zip(reqs, in_memory)
+              for prev, tok in zip([r.prompt[-1]] + toks[:-1], toks)]
+    print(f"[serve] trained artifact: {sum(follow)} of {len(follow)} "
+          f"generated tokens are the chain's most likely successor  "
+          f"[{card}]")
+    if sum(follow) < TRAIN_ACC_MIN * len(follow):
+        fail(f"trained artifact: {sum(follow)} of {len(follow)} generated "
+             f"tokens follow the chain")
+    print(f"[train] stage seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
+          + f"  [{card}]")
+    return served, train_launches["flash_attention"]
 
 
 def shared_prompt_load(cfg):
@@ -1602,6 +1886,9 @@ def main() -> int:
             print(f"[kernel] {name} output rows over its checked shapes: "
                   f"max ||kernel - plain|| / ||plain|| "
                   f"{r['max_row_rel']:.4g} (limit {ATTN_ROW_REL})  [{card}]")
+        for shape, t in r.get("train_shapes", {}).items():
+            print(f"[kernel] {name} at {shape} (train route): " + _times(t)
+                  + f"  [{card}]")
         for key, label in (("bf16_kv", "with bf16 KV"), ("long_s", "")):
             if key in r:
                 print(f"[kernel] {name} {label or 'at ' + r[key]['shape']}: "
@@ -1636,12 +1923,7 @@ def main() -> int:
     print(f"[serve] {cfg.name} full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {lm.padded_vocab(cfg)}), INT8 PTQ in "
           f"{time.monotonic() - t0:.1f}s")
-    contiguous = ("decode_attention", "prefill_attention")
-    paged = ("paged_decode_attention", "paged_prefill_attention")
-    # the W8A8 linears quantize x in the GEMM's launch: B2 and the int8-x
-    # form of B1 stay for parity checks and must not launch while serving
-    dense, unfused = ("int8_matmul_quant",), ("quantize_rowwise",
-                                              "int8_matmul")
+    dense, unfused, contiguous, paged = DENSE, UNFUSED, CONTIGUOUS, PAGED
     reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
                                     SERVE_NEW)
 
@@ -1765,6 +2047,12 @@ def main() -> int:
             line(runs, eng, f"pruned {label}, kv=int8"
                  + (f" page={page_size}" if page_size else " contiguous"))
     del pruned_params, ragged
+
+    # train, then compress once and serve many
+    served, train_launches = phase_train(cfg, dev, kernels, card)
+    for runs, eng, label in served:
+        line(runs, eng, label)
+    del served
     for layout, tot in graph_totals.items():
         print(f"[graphs] {layout}: {tot['loads']} serve loads, "
               f"{tot['graphs_captured']} graphs captured in "
@@ -1809,7 +2097,10 @@ def main() -> int:
                                     "runs int8_matmul_quant"}
                if name in unfused else {}),
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
-                                 "b2_b1_ms", "shapes") if k in r}})
+                                 "train_shapes", "b2_b1_ms", "shapes")
+               if k in r},
+            **({"train_launches": train_launches}
+               if name == "flash_attention" else {})})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

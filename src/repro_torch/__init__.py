@@ -5,8 +5,9 @@ Mirrors the layout of the JAX package (``configs``, ``compress``,
 JAX package is the reference the tests hold this one against.
 
 Entry points (``Engine``, ``serial_decode``, ``init_params``,
-``load_artifact``, ``python -m repro_torch.launch.serve``) run on the card
-unless the caller passes ``device="cpu"``; see ``resolve_device``.
+``launch.checkpoint.load_artifact``, ``python -m repro_torch.launch.serve``,
+``launch.train`` and ``launch.quickstart``) run on the card unless the
+caller passes ``device="cpu"``; see ``resolve_device``.
 """
 from __future__ import annotations
 

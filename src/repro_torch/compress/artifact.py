@@ -5,21 +5,29 @@
 per-family θ, bytes before/after, quantized byte fraction, and the
 accept/reject history of the conditional loop. The manifest has the JAX
 package's fields and ``arch_fingerprint`` its hash, so a manifest written
-by either package reads the same. Writing an artifact to disk is not ported:
-the port loads the JAX package's (``repro_torch.weights.load_artifact``)."""
+by either package reads the same.
+
+``tree_to_spec`` / ``spec_to_tree`` encode a param tree's structure (dict,
+tuple, list, ``QuantizedLinear``) as the JAX package's JSON spec plus a flat
+list of arrays; ``launch/checkpoint.py`` writes and reads artifacts with
+them."""
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
 
 from repro_torch import tree
 from repro_torch.compress import quantize as cq
+from repro_torch.compress.qtypes import QuantizedLinear
 from repro_torch.core import pipeline as pipe
 from repro_torch.core import pruning as pr
 from repro_torch.core import sensitivity as sens
+from repro_torch.weights import from_numpy, to_numpy
 
 
 def arch_fingerprint(cfg) -> str:
@@ -57,11 +65,11 @@ class HQPManifest:
     n_drop: int
     total_units: int
     theta_by_family: Dict[str, float]
-    a_baseline: float
-    a_final: float
+    a_baseline: Optional[float]       # None in a JAX PTQ-only artifact
+    a_final: Optional[float]
     history: List[dict]               # accept/reject audit of Algorithm 1
-    vocab_size: int
-    arch_hash: str
+    vocab_size: Optional[int] = None  # absent from older JAX artifacts
+    arch_hash: Optional[str] = None
 
     def summary(self) -> str:
         lines = [
@@ -70,9 +78,11 @@ class HQPManifest:
             f"({self.bytes_before / max(self.bytes_after, 1):.2f}x), "
             f"quantized {self.quantized_fraction:.0%} of bytes at "
             f"{self.bits}b, θ={self.theta:.1%} "
-            f"({self.n_drop}/{self.total_units} units)",
-            f"[hqp] accuracy {self.a_baseline:.4f} -> {self.a_final:.4f} "
-            f"over {len(self.history)} conditional steps"]
+            f"({self.n_drop}/{self.total_units} units)"]
+        if self.a_baseline is not None:
+            lines.append(f"[hqp] accuracy {self.a_baseline:.4f} -> "
+                         f"{self.a_final:.4f} over {len(self.history)} "
+                         f"conditional steps")
         fams = ([f"{k}={v:.0%}" for k, v in sorted(self.theta_by_family.items())
                  if v > 0] or ["(no pruning applied)"])
         for i in range(0, len(fams), 6):
@@ -82,15 +92,20 @@ class HQPManifest:
     def asdict(self) -> dict:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def fromdict(cls, d: dict) -> "HQPManifest":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
 
 @dataclasses.dataclass
 class HQPArtifact:
     params: Any                       # deployment tree (QuantizedLinear leaves)
     manifest: HQPManifest
-    # in-process only: the conditional prune's result (masked and compacted
-    # FP params, the ranking) and the seconds of each stage ("compact",
-    # "ptq"; the launcher adds "fisher", "evals")
-    prune: pipe.HQPResult
+    # in-process only (None in a loaded artifact): the conditional prune's
+    # result (masked and compacted FP params, the ranking) and the seconds
+    # of each stage ("compact", "ptq"; the launcher adds "fisher", "evals")
+    prune: Optional[pipe.HQPResult] = None
     seconds: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -125,3 +140,48 @@ def compress(params: Any, cfg, sq_grads: Any,
         vocab_size=cfg.vocab_size,
         arch_hash=arch_fingerprint(cfg))
     return HQPArtifact(deploy, manifest, res, seconds)
+
+
+# ------------------------------------------------------------------ (de)spec
+def tree_to_spec(params: Any, arrays: List[np.ndarray]) -> Any:
+    """The JAX package's JSON-able structure spec of ``params`` (tensors on
+    any device, in the JAX layout: ``weights.stack_blocks``); its leaves
+    are appended to ``arrays`` as numpy arrays, bf16 as a uint16 view
+    tagged ``"bfloat16"`` in the spec."""
+    if isinstance(params, QuantizedLinear):
+        slot = len(arrays)
+        arrays += [to_numpy(params.w_q), to_numpy(params.scale)]
+        return {"__kind__": "qlinear", "bits": params.bits, "slot": slot}
+    if isinstance(params, dict):
+        return {"__kind__": "dict",
+                "items": {k: tree_to_spec(v, arrays)
+                          for k, v in params.items()}}
+    if isinstance(params, (tuple, list)):
+        return {"__kind__": "tuple" if isinstance(params, tuple) else "list",
+                "items": [tree_to_spec(v, arrays) for v in params]}
+    if params is None:
+        return {"__kind__": "none"}
+    slot = len(arrays)
+    arrays.append(to_numpy(params))
+    return {"__kind__": "leaf", "slot": slot,
+            "dtype": str(params.dtype).removeprefix("torch.")}
+
+
+def spec_to_tree(spec: Any, arrays: List[np.ndarray]) -> Any:
+    """The inverse of ``tree_to_spec``: a tree of CPU tensors (still in the
+    JAX layout), from either package's spec."""
+    kind = spec["__kind__"]
+    if kind == "qlinear":
+        return QuantizedLinear(from_numpy(arrays[spec["slot"]]),
+                               from_numpy(arrays[spec["slot"] + 1]),
+                               spec["bits"])
+    if kind == "dict":
+        return {k: spec_to_tree(v, arrays) for k, v in spec["items"].items()}
+    if kind in ("tuple", "list"):
+        seq = [spec_to_tree(v, arrays) for v in spec["items"]]
+        return tuple(seq) if kind == "tuple" else seq
+    if kind == "none":
+        return None
+    if kind != "leaf":
+        raise ValueError(f"unknown artifact tree node {kind!r}")
+    return from_numpy(arrays[spec["slot"]], bf16=spec["dtype"] == "bfloat16")

@@ -16,15 +16,14 @@ from repro_torch.core import pruning as pr
 from repro_torch.core import sensitivity as sens
 
 
-DELTA_AX = 0.015                     # max permissible accuracy drop (1.5%)
-
-
 @dataclasses.dataclass
 class HQPConfig:
-    """The knobs of the JAX package's HQPConfig that its launcher sets. The
-    rest keep the reference's defaults: Δ_ax is ``DELTA_AX``, the INT8 track
-    quantizes at 8 bits, and every unit of a family is ranked; its
-    fake-quant CNN track and activation calibration are not ported."""
+    """The knobs of the JAX package's HQPConfig that its launchers and
+    quickstart set, with its defaults. The rest keep the reference's
+    defaults: the INT8 track quantizes at 8 bits, and every unit of a
+    family is ranked; its fake-quant CNN track and activation calibration
+    are not ported."""
+    delta_ax: float = 0.015          # max permissible accuracy drop (1.5%)
     step_frac: float = 0.01          # δ: 1% of total structural units / step
     max_steps: int = 200
 
@@ -69,7 +68,7 @@ def conditional_prune(params: Any,
     a_baseline = eval_fn(params)
     delta = max(1, int(hqp.step_frac * ranked.total))
     log(f"[hqp] baseline acc={a_baseline:.4f}  units={ranked.total}  "
-        f"δ={delta}  Δ_ax={DELTA_AX}")
+        f"δ={delta}  Δ_ax={hqp.delta_ax}")
 
     history: List[PruneStep] = []
     best_n, best_acc = 0, a_baseline
@@ -81,7 +80,7 @@ def conditional_prune(params: Any,
         acc = float(eval_fn(candidate))
         dt = time.time() - t0
         drop = a_baseline - acc
-        accepted = drop <= DELTA_AX
+        accepted = drop <= hqp.delta_ax
         theta = n_drop / ranked.total
         history.append(PruneStep(t, n_drop, theta, acc, drop, accepted, dt))
         log(f"[hqp] step {t:3d} θ={theta:5.1%} acc={acc:.4f} "

@@ -45,13 +45,14 @@ def fisher_diag(grad_fn: Callable[[Any, Any], Any], params: Any,
     return tree.map_(lambda t: t / n, acc), n
 
 
-def loss_grad_fn(loss: Callable[[Any, Any], torch.Tensor]
-                 ) -> Callable[[Any, Any], Any]:
-    """``grad_fn`` for ``fisher_diag``: the gradient of the scalar
-    ``loss(params, batch)`` with respect to every leaf of ``params``, by
-    ``torch.autograd.grad``. The params are not modified, and the autograd
-    graph is freed when the gradients are returned."""
-    def grad_fn(params, batch):
+def value_and_grad(loss: Callable[[Any, Any], torch.Tensor]
+                   ) -> Callable[[Any, Any], Tuple[torch.Tensor, Any]]:
+    """``fn(params, batch)`` -> (the scalar ``loss(params, batch)``
+    detached, its gradient with respect to every leaf of ``params`` as a
+    tree shaped like ``params``), by ``torch.autograd.grad``. The params are
+    not modified, and the autograd graph is freed when the gradients are
+    returned."""
+    def fn(params, batch):
         leaves = tree.leaves(params)
         live = [t.detach().requires_grad_(True) for t in leaves]
         it = iter(live)
@@ -59,8 +60,16 @@ def loss_grad_fn(loss: Callable[[Any, Any], torch.Tensor]
             value = loss(tree.map_(lambda _: next(it), params), batch)
             grads = torch.autograd.grad(value, live)
         it = iter(grads)
-        return tree.map_(lambda _: next(it), params)
-    return grad_fn
+        return value.detach(), tree.map_(lambda _: next(it), params)
+    return fn
+
+
+def loss_grad_fn(loss: Callable[[Any, Any], torch.Tensor]
+                 ) -> Callable[[Any, Any], Any]:
+    """``grad_fn`` for ``fisher_diag``: the gradient tree of
+    ``value_and_grad(loss)``."""
+    vg = value_and_grad(loss)
+    return lambda params, batch: vg(params, batch)[1]
 
 
 # ------------------------------------------------------------------ groups

@@ -9,8 +9,14 @@ artifact, through the lockstep loop or the continuous-batching engine.
 Fisher pass (autograd through the train route), ``--prune-steps`` steps of
 conditional pruning judged by next-token accuracy on the same batch,
 compaction, INT8 PTQ of the linears; it prints the manifest and serves the
-artifact with the INT8 KV cache. ``--load-artifact`` serves an artifact the
-JAX package saved (pruned ones included) with the INT8 KV cache."""
+artifact with the INT8 KV cache; ``--save-artifact DIR`` also writes it in
+the JAX package's layout. ``--load-artifact DIR`` serves an artifact that
+either package saved (pruned ones included) with the INT8 KV cache.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --hqp \
+      --save-artifact /tmp/art
+  python -m repro_torch.launch.serve --smoke --device cpu --engine \
+      --load-artifact /tmp/art"""
 from __future__ import annotations
 
 import argparse
@@ -23,12 +29,12 @@ from repro_torch import configs, resolve_device, tree
 from repro_torch.compress.artifact import HQPArtifact, compress
 from repro_torch.core.pipeline import HQPConfig
 from repro_torch.core.sensitivity import fisher_diag, loss_grad_fn
+from repro_torch.launch.checkpoint import load_artifact, save_artifact
 from repro_torch.models import lm
 from repro_torch.serving import (Engine, Request, SchedulerConfig,
                                  serial_decode, summarize_results)
 from repro_torch.serving import sampling as smp
 from repro_torch.train.train_step import make_eval_step
-from repro_torch.weights import load_artifact
 
 N_REQUESTS = 4
 
@@ -87,20 +93,24 @@ def build_artifact(params, cfg, prune_steps: int,
 
 def acquire_params(args, cfg, device, log=print):
     """(params, quantized_kv): a loaded artifact, an HQP artifact built from
-    a fresh init (``--hqp``), or a fresh bf16 init."""
+    a fresh init (``--hqp``, written to ``--save-artifact`` when given), or
+    a fresh bf16 init."""
     if args.load_artifact:
-        params, manifest = load_artifact(args.load_artifact, device=device)
-        if manifest["arch"] != cfg.name:
+        art = load_artifact(args.load_artifact, device=device)
+        if art.manifest.arch != cfg.name:
             raise SystemExit(
-                f"artifact was built for {manifest['arch']!r}, requested "
+                f"artifact was built for {art.manifest.arch!r}, requested "
                 f"config is {cfg.name!r} — pass the matching --arch/--smoke")
-        log(f"[serve] loaded artifact {args.load_artifact} "
-            f"({manifest['track']}, θ={manifest['theta']:.1%})")
-        return params, True
+        log(f"[serve] loaded artifact {args.load_artifact}")
+        log(art.manifest.summary())
+        return art.params, True
     params = lm.init_params(cfg, seed=0, device=device)
     if args.hqp:
         art = build_artifact(params, cfg, args.prune_steps, log=log)
         log(art.manifest.summary())
+        if args.save_artifact:
+            log(f"[serve] artifact saved to "
+                f"{save_artifact(args.save_artifact, art)}")
         return art.params, True
     return params, False
 
@@ -192,8 +202,10 @@ def main(argv=None):
     ap.add_argument("--prune-steps", type=int, default=3,
                     help="at most this many conditional prune steps of 5 %% "
                          "of the units each (--hqp)")
+    ap.add_argument("--save-artifact", default=None,
+                    help="directory to write the --hqp artifact to (atomic)")
     ap.add_argument("--load-artifact", default=None,
-                    help="serve an artifact saved by the JAX package")
+                    help="serve an artifact saved by either package")
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--engine", action="store_true",
                     help="continuous-batching engine instead of the "
@@ -218,6 +230,8 @@ def main(argv=None):
     if args.hqp and args.load_artifact:
         ap.error("--hqp builds an artifact; --load-artifact loads one — "
                  "pick one")
+    if args.save_artifact and not args.hqp:
+        ap.error("--save-artifact requires --hqp (nothing to save otherwise)")
     if args.page_size and not args.engine:
         ap.error("--page-size needs --engine (the lockstep loop has no "
                  "slot pool to page)")

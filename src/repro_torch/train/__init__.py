@@ -1,1 +1,2 @@
-"""Train-route steps over the LM (the evaluation the HQP pipeline runs)."""
+"""Training over the LM: AdamW (f32 or INT8 moments), the train step and
+the next-token accuracy evaluation the HQP pipeline runs."""

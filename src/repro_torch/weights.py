@@ -1,15 +1,15 @@
-"""Carrying weights across from the JAX package.
+"""The JAX package's tree layout and numpy leaves, in and out of the port.
 
-``from_jax_params`` maps the JAX param tree (leaves as numpy arrays) into
-the port's layout; ``load_artifact`` reads what the JAX package's
-``launch/checkpoint.py::save_artifact`` writes. Neither imports the JAX
-package or ``ml_dtypes``: a bf16 numpy leaf (dtype name ``bfloat16``) or a
-bf16 array stored as uint16 crosses through a 16-bit view."""
+The JAX tree stacks the layers of ``blocks`` along axis 0; the port keeps a
+list of per-layer dicts. ``unstack_blocks`` and ``stack_blocks`` convert
+between the two (``from_jax_params`` carries a JAX param tree across;
+``launch/checkpoint.py`` writes and reads checkpoints and artifacts in the
+JAX package's layout). Nothing here imports the JAX package or
+``ml_dtypes``: a bf16 numpy leaf (dtype name ``bfloat16``) or a bf16 array
+stored as uint16 crosses through a 16-bit view."""
 from __future__ import annotations
 
-import json
-import pathlib
-from typing import Any, List, Tuple
+from typing import Any
 
 import numpy as np
 import torch
@@ -17,45 +17,93 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.compress.qtypes import QuantizedLinear
 
-COMMIT_MARKER = ".COMMITTED"
-ARTIFACT_MANIFEST = "manifest.json"
-ARTIFACT_ARRAYS = "arrays.npz"
 
-
-def _tensor(arr: np.ndarray, bf16: bool = False) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+def from_numpy(arr: np.ndarray, bf16: bool = False) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``arr``. A bf16 array (dtype name
+    ``bfloat16``, or 16-bit codes with ``bf16``) is read through a 16-bit
+    view."""
+    arr = np.asarray(arr)
+    if not arr.flags.c_contiguous:      # (ascontiguousarray makes 0-d 1-d)
+        arr = arr.copy(order="C")
     if bf16 or arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(arr.copy())
 
 
-def _unstack_blocks(params: dict) -> dict:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy array of ``t``'s values; bf16 as a uint16 view of its bits
+    (numpy has no bf16), the form both packages store it in."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _n_layers(stacked) -> int:
+    if isinstance(stacked, QuantizedLinear):
+        return stacked.w_q.shape[0]
+    if isinstance(stacked, dict):
+        return _n_layers(next(iter(stacked.values())))
+    return stacked.shape[0]
+
+
+def _layer(stacked, i: int):
+    if isinstance(stacked, QuantizedLinear):
+        return QuantizedLinear(stacked.w_q[i].contiguous(),
+                               stacked.scale[i].contiguous(), stacked.bits)
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i].contiguous()
+
+
+def _stack(layers: list, where: str):
+    first = layers[0]
+    if isinstance(first, QuantizedLinear):
+        return QuantizedLinear(
+            _stack([q.w_q for q in layers], where + "/w_q"),
+            _stack([q.scale for q in layers], where + "/scale"), first.bits)
+    if isinstance(first, dict):
+        return {k: _stack([d[k] for d in layers], f"{where}/{k}")
+                for k in first}
+    shapes = sorted({tuple(t.shape) for t in layers})
+    if len(shapes) > 1:
+        raise ValueError(f"{where}: the layers' shapes differ {shapes}; "
+                         f"ragged per-layer widths cannot be stacked")
+    return torch.stack(layers)
+
+
+def unstack_blocks(tree: Any) -> Any:
     """The JAX tree stacks the layers along axis 0 of every block leaf
     (one stacked dict per period position; the all-attn pattern has one).
-    Split them into the port's list of per-layer dicts."""
-    stacked = params["blocks"]
+    Split every ``blocks`` in ``tree`` (nested in dicts, lists and tuples:
+    the params, or the moments of an optimizer state) into the port's list
+    of per-layer dicts."""
+    if isinstance(tree, dict):
+        return {k: (_unstack(v) if k == "blocks" else unstack_blocks(v))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unstack_blocks(v) for v in tree)
+    return tree
+
+
+def _unstack(stacked) -> list:
     if len(stacked) != 1:
         raise NotImplementedError("only the all-attn (period 1) pattern is "
                                   "ported so far")
+    return [_layer(stacked[0], i) for i in range(_n_layers(stacked[0]))]
 
-    def n_layers(tree):
-        if isinstance(tree, QuantizedLinear):
-            return tree.w_q.shape[0]
-        if isinstance(tree, dict):
-            return n_layers(next(iter(tree.values())))
-        return tree.shape[0]
 
-    def layer(tree, i):
-        if isinstance(tree, QuantizedLinear):
-            return QuantizedLinear(tree.w_q[i].contiguous(),
-                                   tree.scale[i].contiguous(), tree.bits)
-        if isinstance(tree, dict):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return tree[i].contiguous()
-
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [layer(stacked[0], i) for i in range(n_layers(stacked[0]))]
-    return out
+def stack_blocks(tree: Any) -> Any:
+    """The inverse of ``unstack_blocks``: every ``blocks`` list of per-layer
+    dicts becomes the JAX tree's one-tuple of a dict whose leaves stack the
+    layers along axis 0. Raises ``ValueError`` when a leaf's shape differs
+    between layers (a per-layer HQP cut)."""
+    if isinstance(tree, dict):
+        return {k: ((_stack(list(v), "blocks"),) if k == "blocks"
+                    else stack_blocks(v)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(stack_blocks(v) for v in tree)
+    return tree
 
 
 def to_device(tree: Any, device) -> Any:
@@ -64,8 +112,8 @@ def to_device(tree: Any, device) -> Any:
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -78,47 +126,12 @@ def from_jax_params(tree: Any, device=None) -> dict:
 
     def conv(t):
         if all(hasattr(t, a) for a in ("w_q", "scale", "bits")):
-            return QuantizedLinear(_tensor(np.asarray(t.w_q)),
-                                   _tensor(np.asarray(t.scale)), int(t.bits))
+            return QuantizedLinear(from_numpy(np.asarray(t.w_q)),
+                                   from_numpy(np.asarray(t.scale)),
+                                   int(t.bits))
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
             return [conv(v) for v in t]
-        return _tensor(np.asarray(t))
-    return to_device(_unstack_blocks(conv(tree)), device)
-
-
-def _spec_to_tree(spec: Any, arrays: List[np.ndarray]) -> Any:
-    kind = spec["__kind__"]
-    if kind == "qlinear":
-        return QuantizedLinear(_tensor(arrays[spec["slot"]]),
-                               _tensor(arrays[spec["slot"] + 1]),
-                               spec["bits"])
-    if kind == "dict":
-        return {k: _spec_to_tree(v, arrays) for k, v in spec["items"].items()}
-    if kind in ("tuple", "list"):
-        return [_spec_to_tree(v, arrays) for v in spec["items"]]
-    if kind == "none":
-        return None
-    if kind != "leaf":
-        raise ValueError(f"unknown artifact tree node {kind!r}")
-    return _tensor(arrays[spec["slot"]], bf16=spec["dtype"] == "bfloat16")
-
-
-def load_artifact(art_dir: str, device=None) -> Tuple[dict, dict]:
-    """Read an artifact directory (``manifest.json`` with its ``tree`` spec,
-    plus ``arrays.npz``) into (params on ``device``, manifest dict). An
-    artifact without the ``.COMMITTED`` marker is a torn write and is
-    refused."""
-    dev = resolve_device(device)
-    base = pathlib.Path(art_dir)
-    if not base.exists():
-        raise FileNotFoundError(f"no artifact at {base}")
-    if not (base / COMMIT_MARKER).exists():
-        raise FileNotFoundError(f"artifact {base} is not committed "
-                                f"(torn write)")
-    meta = json.loads((base / ARTIFACT_MANIFEST).read_text())
-    with np.load(base / ARTIFACT_ARRAYS) as data:
-        arrays = [data[f"a{i}"] for i in range(meta["n_arrays"])]
-    params = _unstack_blocks(_spec_to_tree(meta["tree"], arrays))
-    return to_device(params, dev), meta["manifest"]
+        return from_numpy(np.asarray(t))
+    return to_device(unstack_blocks(conv(tree)), device)

@@ -46,6 +46,9 @@ def test_port_imports_without_jax():
         "import repro_torch.launch.serve, repro_torch.weights\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.kv_layout\n"
         "import repro_torch.serving.state_pool\n"
+        "import repro_torch.launch.train, repro_torch.launch.quickstart\n"
+        "import repro_torch.launch.checkpoint, repro_torch.data.synthetic\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -39,7 +39,8 @@ from repro_torch.compress import (QuantizedLinear, linear_bytes,  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.weights import from_jax_params, load_artifact  # noqa: E402
+from repro_torch.launch.checkpoint import load_artifact  # noqa: E402
+from repro_torch.weights import from_jax_params  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 BF16_ULP = dict(rtol=2 ** -7, atol=1e-6)
@@ -63,8 +64,9 @@ def models(tmp_path_factory):
     assert art.manifest.pruned and art.manifest.n_drop > 0
     art_dir = str(tmp_path_factory.mktemp("hqp") / "artifact")
     save_artifact(art_dir, art)
-    tp_art, manifest = load_artifact(art_dir, device="cpu")
-    assert manifest["arch"] == cfg.name
+    loaded = load_artifact(art_dir, device="cpu")
+    assert loaded.manifest.arch == cfg.name
+    tp_art = loaded.params
     return cfg, configs.get_smoke_config(ARCH), {
         "fp": (jp, from_jax_params(jax.tree.map(np.asarray, jp),
                                    device="cpu")),
