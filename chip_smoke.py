@@ -16,9 +16,13 @@ model against the compacted one, and serve the pruned artifact, contiguous
 and paged, against serial decode; then train the full-width model on the
 quickstart's Markov corpus (AdamW, a checkpoint restored and replayed bit
 for bit), let Algorithm 1 decide on it until it rejects a step, save the
-INT8 artifact, load it back and serve it, contiguous and paged; last,
-profile a steady decode dispatch and a prefill chunk (where their time
-goes on the card).
+INT8 artifact, load it back and serve it, contiguous and paged; then
+sample and serve self-speculatively (the seed-0 INT8 artifact drafts, its
+bf16 parent verifies on B4/B6, contiguous and paged, with copy-on-write;
+the trained pair too), each against serial decode of the verifier whose
+one-token steps take the prefill route, bit for bit, with B3 held against
+B4 at one query; last, profile a steady decode dispatch and a prefill
+chunk (where their time goes on the card).
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -137,6 +141,22 @@ B5_LONG = 40960      # qwen3-0.6b's max_seq_len: 2,560 pages of 16 a slot
 # 32,768 positions), checked, and the first one timed
 B6_LONG_STARTS = (B5_LONG - SERVE_CHUNK, 33000)
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
+# speculative serving (phase_spec): drafts a cycle, cycles a dispatch; the
+# sampled loads' temperature, top-k and seed; the copy-on-write load's
+# prompt length (whole pages of SERVE_PAGE); B4/B6 at the verify shape, q
+# (SERVE_SLOTS, SPEC_K + 1, 16, 64) at these per-slot starts; B3 against B4
+# at Sq = 1 at these starts (one 64-position tile, two, and two split-KV
+# segments)
+SPEC_K, SPEC_CYCLES = 4, 1
+SPEC_SAMPLING = dict(temperature=0.8, top_k=50, seed=7)
+COW_PROMPT = 64
+SPEC_VERIFY_STARTS = (37, 60, 100, 201)
+B3_B4_STARTS = (63, 100, 300)
+# where the decode-route serial decode (B3 steps) first leaves the
+# prefill-route one (B4 steps), the verifier's top two logits must lie
+# within twice the card's logit tolerance: a near tie the two kernels'
+# roundings break apart, not a fault
+SPEC_TIE_GAP = 2 * E2E_ATOL
 # the kernels of each serving layout; the W8A8 linears quantize x in the
 # GEMM's launch, so B2 and the int8-x form of B1 stay for parity checks and
 # must not launch while serving
@@ -614,10 +634,12 @@ def _tickets_back(dev, what):
 def _prefill_bound(sq, st, w, quantized, n_table=0, hq=16, hkv=8, hd=64):
     """q, out and start moved once; the KV prefix the chunk sees (with its
     scales, INT8) and the table prefix (paged) read once; 4·hd operations
-    per visible causal (query, key) pair."""
-    visible = sum(min(st + i, w - 1) + 1 for i in range(sq))
-    seen = min(st + sq, w) * hkv
-    io = sq * hq * hd * 2 * 2 + 4 + n_table * 4
+    per visible causal (query, key) pair. ``st``: one row's start, or a
+    list of per-row starts."""
+    starts = st if isinstance(st, (list, tuple)) else [st]
+    visible = sum(min(s + i, w - 1) + 1 for s in starts for i in range(sq))
+    seen = sum(min(s + sq, w) for s in starts) * hkv
+    io = len(starts) * (sq * hq * hd * 2 * 2 + 4) + n_table * 4
     kv = seen * hd * 2 + seen * 4 * 2 if quantized else seen * hd * 2 * 2
     return bound(kv + io, 4 * hq * hd * visible,
                  "int8" if quantized else "bf16")
@@ -1051,7 +1073,8 @@ def _n_linears(params) -> int:
 
 def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
                arrivals_s=None, arrival_ticks=None, max_seq=SERVE_MAX_SEQ,
-               split_kv=False, runs=SERVE_RUNS, **engine_kw):
+               split_kv=False, runs=SERVE_RUNS, sampling=None, want=None,
+               expect=None, **engine_kw):
     """The load run ``runs`` times on one engine, which captures each
     dispatch key's CUDA graph at its second use and replays it after: the
     first run is cold (first uses eager, captures), the last warm. Each run
@@ -1067,6 +1090,10 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     split-KV records (B3/B5 folded several segments): they are zeroed before
     it and read after it. The load must replay graphs, and its graph keys
     stay within the engine's bounds (the reference's lowering bounds).
+    ``sampling`` draws tokens in the engine and in serial decode alike.
+    ``want`` replaces serial decode as the tokens each request must give
+    (a None entry checks nothing), and ``expect(delta, attend)`` the
+    launches a run must count (``spec_expect`` for a speculative engine).
     Returns (one dict a run: summary, launches, stats deltas, each
     request's tokens; engine)."""
     import torch
@@ -1077,14 +1104,24 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=max_seq,
                  sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
                                        decode_steps=SERVE_STEPS),
-                 device=dev, **engine_kw)
-    what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}")
-    want = [serial_decode(params, cfg, r.prompt, r.max_new_tokens,
-                          max_seq=max_seq, quantized_kv=qkv, device=dev)
-            for r in reqs]
+                 device=dev, sampling=sampling, **engine_kw)
+    what = (f"int8_kv={qkv} page_size={engine_kw.get('page_size')}"
+            + ("" if sampling is None else f" {sampling}")
+            + (" speculative" if eng.spec is not None else ""))
+    if want is None:
+        want = [serial_decode(params, cfg, r.prompt, r.max_new_tokens,
+                              max_seq=max_seq, quantized_kv=qkv, device=dev,
+                              sampling=sampling)
+                for r in reqs]
     paged = engine_kw.get("page_size") is not None
     attend = ("paged_" if paged else "") + "%s_attention"
     n_lin = _n_linears(params)
+    if expect is None:
+        def expect(d, attend):
+            steps, chunks = d["device_steps"], d["prefill_ticks"]
+            return {"int8_matmul_quant": n_lin * (steps + chunks),
+                    attend % "decode": cfg.n_layers * steps,
+                    attend % "prefill": cfg.n_layers * chunks}
     out = []
     for run in range(runs):
         if eng.prefix is not None:
@@ -1107,7 +1144,8 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
         delta = {k: eng.stats[k] - before[k] for k in
                  ("device_steps", "host_syncs", "prefill_ticks",
                   "decode_ticks", "prefill_tokens", "prefix_hits",
-                  *GRAPH_STATS)}
+                  "spec_cycles", "accepted_tokens", "drafted_tokens",
+                  "cow_copies", *GRAPH_STATS)}
         where = f"{what} run {run + 1}"
         if split_kv and not records.count_nonzero().item():
             fail(f"{where}: no split-KV record written: the decode windows "
@@ -1125,7 +1163,7 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
             if len(res.tokens) != reqs[i].max_new_tokens or not all(
                     0 <= t < cfg.vocab_size for t in res.tokens):
                 fail(f"{where} request {i}: bad tokens {res.tokens}")
-            if res.tokens != want[i]:
+            if want[i] is not None and res.tokens != want[i]:
                 fail(f"{where} request {i}: engine tokens differ from serial "
                      f"decode\n engine {res.tokens}\n serial {want[i]}")
         idle = [name for name in must if launches[name] == 0]
@@ -1135,15 +1173,13 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
         stray = [name for name in must_not if launches[name]]
         if stray:
             fail(f"{where}: kernels off this serving path launched: {stray}")
-        steps, chunks = delta["device_steps"], delta["prefill_ticks"]
-        expect = {"int8_matmul_quant": n_lin * (steps + chunks),
-                  attend % "decode": cfg.n_layers * steps,
-                  attend % "prefill": cfg.n_layers * chunks}
-        off = {n: (launches[n], c) for n, c in expect.items()
+        off = {n: (launches[n], c) for n, c in expect(delta, attend).items()
                if launches[n] != c}
         if off:
             fail(f"{where}: launches (counted, the device's) {off} over "
-                 f"{steps} decode steps and {chunks} prefill chunks")
+                 f"{delta['device_steps']} device steps, "
+                 f"{delta['spec_cycles']} speculative cycles and "
+                 f"{delta['prefill_ticks']} prefill chunks")
         out.append({"summary": summarize_results(results, wall),
                     "launches": launches, **delta,
                     "tokens": [results[i].tokens for i in range(len(reqs))]})
@@ -1356,7 +1392,9 @@ def phase_train(cfg, dev, kernels, card):
       engine == serial, graphs replayed) on prompts from the validation
       set, every token equal to serial decode of the in-memory artifact.
     Returns (the serve runs as (runs, engine, label), the B7 launches of
-    the training steps)."""
+    the training steps, and the trained pair for ``phase_spec``: the
+    trained bf16 params, the loaded artifact's params, the served
+    requests)."""
     import tempfile
 
     import torch
@@ -1565,7 +1603,8 @@ def phase_train(cfg, dev, kernels, card):
     print(f"[train] stage seconds: "
           + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
           + f"  [{card}]")
-    return served, train_launches["flash_attention"]
+    return served, train_launches["flash_attention"], (params,
+                                                        loaded.params, reqs)
 
 
 def shared_prompt_load(cfg):
@@ -1833,6 +1872,336 @@ def _times(o) -> str:
             f"{o['bound_ms']:.6f} ms ({o['bound_by']})")
 
 
+# ------------------------------------------------------------ speculative
+def _first_diff(a, b) -> int:
+    return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _top2_gap(params, cfg, prompt, tokens, dev) -> float:
+    """The gap between the top two real-vocab logits after ``prompt`` and
+    ``tokens``: whole-prompt prefill, then one-token steps on the prefill
+    route (the speculative oracle's path)."""
+    import torch
+    from repro_torch.models import lm
+    state = lm.init_decode_state(cfg, 1, SERVE_MAX_SEQ, params=params,
+                                 device=dev)
+    logits, state = lm.decode_step(params, cfg, state,
+                                   torch.tensor([prompt], device=dev),
+                                   route="prefill")
+    for tok in tokens:
+        logits, state = lm.decode_step(params, cfg, state,
+                                       torch.tensor([[tok]], device=dev),
+                                       route="prefill")
+    top = torch.topk(logits[0, -1, :cfg.vocab_size], 2).values
+    return (top[0] - top[1]).item()
+
+
+def spec_expect(cfg, drafter):
+    """The launches of a speculative run (``serve_once``'s ``expect``): a
+    prefill chunk runs both pools' prefill attends and the drafter's W8A8
+    linears (the bf16 verifier has none); a cycle runs the healing chunk's
+    and the verify's prefill attends, k - 1 drafter decode attends and the
+    drafter's linears k times (``device_steps`` counts k + 1 a cycle,
+    ``spec_cycles`` the cycles)."""
+    n_lin = _n_linears(drafter)
+
+    def expect(d, attend):
+        chunks, cycles, steps = (d["prefill_ticks"], d["spec_cycles"],
+                                 d["device_steps"])
+        return {"int8_matmul_quant": n_lin * (chunks + steps - cycles),
+                attend % "decode": cfg.n_layers * (steps - 2 * cycles),
+                attend % "prefill": cfg.n_layers * 2 * (chunks + cycles)}
+    return expect
+
+
+def serve_spec(verifier, drafter, cfg, dev, kernels, reqs, must, must_not,
+               want, runs, **kw):
+    """``serve_once`` through the speculative engine: ``verifier`` the
+    bf16 params with bf16 KV, ``drafter`` the INT8 artifact with INT8 KV,
+    k SPEC_K, SPEC_CYCLES cycles a dispatch; each request must give
+    ``want``."""
+    return serve_once(verifier, cfg, dev, kernels, reqs, must, must_not,
+                      runs=runs, want=want, expect=spec_expect(cfg, drafter),
+                      draft_params=drafter, spec_k=SPEC_K,
+                      spec_cycles=SPEC_CYCLES, **kw)
+
+
+def _run_name(runs, i) -> str:
+    """"cold" for a load's first run of several, "warm" for its last when
+    that one captured nothing (only replays and no eager first use),
+    "last" when it still captured, "one" for a single run."""
+    if len(runs) == 1:
+        return "one"
+    if i == 0:
+        return "cold"
+    r = runs[i]
+    return ("warm" if not r["graphs_captured"] and not r["eager_dispatches"]
+            else "last")
+
+
+def _spec_line(runs, eng, label, card):
+    for i in sorted({0, len(runs) - 1}):
+        name = _run_name(runs, i)
+        r = runs[i]
+        sm = r["summary"]
+        acc = r["accepted_tokens"] / max(r["drafted_tokens"], 1)
+        print(f"[spec] {label}, {name} run ({i + 1} of {len(runs)}): "
+              f"{sm['n_requests']} requests, {sm['out_tokens']} tokens, "
+              f"{sm['tokens_per_s']:.2f} tok/s, TTFT p50 "
+              f"{sm['ttft_p50_ms']:.1f} ms, latency p50 "
+              f"{sm['latency_p50_ms']:.1f} ms, acceptance {acc:.4f} "
+              f"({r['accepted_tokens']} of {r['drafted_tokens']} drafts), "
+              f"{r['spec_cycles']} cycles, {r['device_steps']} device steps "
+              f"/ {r['host_syncs']} host syncs, graphs "
+              f"{r['graphs_captured']} captured / {r['graph_replays']} "
+              f"replays / {r['eager_dispatches']} eager dispatches, "
+              f"copy-on-write {r['cow_copies']}, launches "
+              f"{ {n: c for n, c in r['launches'].items() if c} }  [{card}]")
+    keys = {k: f"{len(v)} of {eng.graphs.bounds[k]}"
+            for k, v in eng.graphs.keys.items()}
+    print(f"[spec] {label}: graph keys {keys} ({sorted(eng.graphs.keys['spec'])}"
+          f"), capture {eng.stats['capture_s']:.3f} s, graph pool "
+          f"{eng.stats['graph_pool_bytes']} B  [{card}]")
+
+
+def cow_load(cfg):
+    """Two different COW_PROMPT-token prompts (whole pages of SERVE_PAGE)
+    at tick 0, and the first again once both prefills ended: each first
+    speculative dispatch's healing chunk writes into its prompt's last
+    page, which the prefix cache holds."""
+    import torch
+    from repro_torch.serving import Request
+    gen = torch.Generator().manual_seed(5)
+    a, b = _tokens(cfg, COW_PROMPT, gen), _tokens(cfg, COW_PROMPT, gen)
+    reqs = [Request(p, max_new_tokens=SERVE_NEW) for p in (a, b, a)]
+    return reqs, [0, 0, 2 * COW_PROMPT // SERVE_CHUNK + 2]
+
+
+def _b3_vs_b4(dev, card):
+    """B3 and B4 on the same single query (Sq = 1) at the serve shape,
+    SERVE_SLOTS slots at one start, INT8 and bf16 KV: max |diff| and
+    whether they agree bit for bit (the speculative verify takes B4 where
+    a serial decode step takes B3)."""
+    import torch
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import prefill_attention as kp
+    found = {}
+    for quantized in (True, False):
+        for st in B3_B4_STARTS:
+            w = -(-(st + 1) // 16) * 16
+            kv = _kv(dev, SERVE_SLOTS, w, 8, 64, quantized)
+            q = torch.randn(SERVE_SLOTS, 1, 16, 64, device=dev).to(
+                torch.bfloat16)
+            start = torch.full((SERVE_SLOTS,), st, dtype=torch.int32,
+                               device=dev)
+            b3 = kd.decode_attention(q[:, 0], *kv, start)
+            b4 = kp.prefill_attention(q, *kv, start)[:, 0]
+            torch.cuda.synchronize()
+            diff = (b3.float() - b4.float()).abs().max().item()
+            key = f"{'int8' if quantized else 'bf16'} KV, start {st}, W {w}"
+            found[key] = {"max_abs_diff": diff,
+                          "bitwise_equal": bool(torch.equal(b3, b4))}
+            print(f"[spec] B3 vs B4 at Sq = 1, q ({SERVE_SLOTS}, 16, 64), "
+                  f"{key}: max |diff| {diff:.4g}, bitwise equal "
+                  f"{found[key]['bitwise_equal']}  [{card}]")
+    return found
+
+
+def _verify_shape(dev, report, card):
+    """B4 and B6 (pages of SERVE_PAGE) at the verify shape: q (SERVE_SLOTS,
+    SPEC_K + 1, 16, 64) at the per-slot SPEC_VERIFY_STARTS, bf16 KV,
+    against the plain version within the attention tolerances, B6 bit for
+    bit against B4 on the gathered window; device times beside the plain
+    version's, SDPA's and the bound, under ``verify_shape`` in the kernel's
+    report entry."""
+    import torch
+    from repro_torch.kernels import prefill_attention as kp, ref
+    from repro_torch.kernels.kv_layout import window_pages
+    sq, starts = SPEC_K + 1, list(SPEC_VERIFY_STARTS)
+    w = -(-(max(starts) + sq) // 16) * 16
+    q = torch.randn(len(starts), sq, 16, 64, device=dev).to(torch.bfloat16)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    shape = (f"q ({len(starts)}, {sq}, 16, 64) at starts {starts} vs "
+             f"(KV {w} positions, 8, 64), bf16 KV")
+    kv = _kv(dev, len(starts), w, 8, 64, False)
+    arena, table = _paged_case(dev, SERVE_PAGE, False,
+                               [s + sq - 1 for s in starts],
+                               max_seq=SERVE_MAX_SEQ)
+    idx = window_pages(table, SERVE_PAGE, w).contiguous()
+    gathered = _gathered(arena, idx)
+    cases = {
+        "prefill_attention": (
+            lambda: kp.prefill_attention(q, *kv, start),
+            lambda: ref.cached_attention_ref(q, *kv, start),
+            _sdpa(q, kv[0], kv[1], start, sq), 0),
+        "paged_prefill_attention": (
+            lambda: kp.paged_prefill_attention(q, *arena, start, idx),
+            lambda: ref.paged_prefill_attention_ref(q, *arena, start, idx),
+            _sdpa(q, gathered[0], gathered[1], start, sq), idx.numel())}
+    for name, (kern, plain, sdpa, n_table) in cases.items():
+        errs = [0.0, 0.0]
+        _attn_check(kern(), plain(), f"{name} at the verify shape", errs)
+        b_ms, by = _prefill_bound(sq, starts, w, False, n_table)
+        r = report[name]["verify_shape"] = dict(
+            shape=shape + (f", pages of {SERVE_PAGE}" if n_table else ""),
+            max_abs_err=errs[0], max_row_rel=errs[1], bound_ms=b_ms,
+            bound_by=by, **timed(kern, plain, sdpa))
+        print(f"[spec] {name} at the verify shape, {r['shape']}: "
+              + _times(r) + f", max |err| {errs[0]:.3g}, worst row "
+              f"{errs[1]:.4g}  [{card}]")
+    _equal(cases["paged_prefill_attention"][0](),
+           kp.prefill_attention(q, *gathered, start),
+           "B6 vs B4 on the gathered window at the verify shape")
+
+
+def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
+    """Sampling and self-speculative serving at full width, on the
+    engine's CUDA graphs:
+
+    - greedy speculative serving of the staggered load, contiguous and
+      paged (SERVE_RUNS runs each on one engine): the verifier the bf16
+      seed-0 parent with bf16 KV, the drafter its INT8 PTQ artifact
+      (``drafter``) with INT8 KV, k SPEC_K, SPEC_CYCLES cycle a dispatch;
+      every output equals serial decode of the verifier whose one-token
+      steps take the prefill route, bit for bit (the verify pass is B4/B6).
+      Against the decode-route serial decode (B3's steps) the requests that
+      differ are printed with the step and the verifier's top-two gap
+      there, which must stay within SPEC_TIE_GAP;
+    - copy-on-write: ``cow_load``, paged, one run: at least one page
+      copied, engine == oracle, the allocator consistent and no page left
+      once the prefix cache is cleared;
+    - sampling (SPEC_SAMPLING): the plain engine on ``drafter`` equals
+      sampled serial decode, contiguous and paged, one run each; a sampled
+      speculative run repeated on one engine (tick arrivals, so both runs
+      schedule alike) gives the same tokens, whose first equals sampled
+      serial decode's;
+    - the trained pair: ``trained`` (the trained bf16 params, their HQP
+      artifact, its validation requests), two greedy runs, contiguous,
+      against the prefill-route serial decode of the trained params: the
+      acceptance of a real HQP drafter;
+    - B3 against B4 at Sq = 1, and B4/B6 at the verify shape.
+    Returns the phase's seconds."""
+    import torch
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models import lm
+    from repro_torch.serving import SamplingConfig, serial_decode
+    t_phase = time.monotonic()
+    _b3_vs_b4(dev, card)
+    _verify_shape(dev, report, card)
+    verifier = lm.init_params(cfg, seed=0, device=dev)
+    reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                                    SERVE_NEW)
+
+    def serial(params, r, route, **kw):
+        return serial_decode(params, cfg, r.prompt, r.max_new_tokens,
+                             max_seq=SERVE_MAX_SEQ, device=dev, route=route,
+                             **kw)
+
+    t0 = time.monotonic()
+    oracle = [serial(verifier, r, "prefill") for r in reqs]
+    decode_route = [serial(verifier, r, "decode") for r in reqs]
+    serial_s = time.monotonic() - t0
+    differ = []
+    for i, (a, b) in enumerate(zip(oracle, decode_route)):
+        if a != b:
+            t = _first_diff(a, b)
+            gap = _top2_gap(verifier, cfg, reqs[i].prompt, a[:t], dev)
+            differ.append((i, t, gap))
+            if gap > SPEC_TIE_GAP:
+                fail(f"request {i}: the decode-route serial decode leaves "
+                     f"the prefill-route one at step {t}, where the "
+                     f"verifier's top-two gap {gap:.4g} exceeds "
+                     f"{SPEC_TIE_GAP}")
+    print(f"[spec] oracle: serial decode of the bf16 verifier with its "
+          f"one-token steps on the prefill route (B4); the decode-route "
+          f"serial decode (B3) differs on {len(differ)} of {len(reqs)} "
+          f"requests" + "".join(f"; request {i} from step {t}, top-two gap "
+                                f"{g:.4g}" for i, t, g in differ)
+          + f" (limit {SPEC_TIE_GAP}); {2 * len(reqs)} serial decodes in "
+          f"{serial_s:.2f} s  [{card}]")
+
+    for page_size, must, must_not in (
+            (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
+        runs, eng = serve_spec(verifier, drafter, cfg, dev, kernels, reqs,
+                               must, must_not, oracle, SERVE_RUNS,
+                               arrivals_s=arrivals, page_size=page_size)
+        _spec_line(runs, eng, f"greedy k={SPEC_K} cycles={SPEC_CYCLES}, "
+                   f"bf16 verifier (bf16 KV), INT8 drafter (INT8 KV), "
+                   + (f"paged page={page_size}" if page_size
+                      else "contiguous")
+                   + ", engine == prefill-route serial decode", card)
+        del eng
+
+    cow, ticks = cow_load(cfg)
+    cow_oracle = [serial(verifier, r, "prefill") for r in cow]
+    runs, eng = serve_spec(verifier, drafter, cfg, dev, kernels, cow,
+                           DENSE + PAGED, CONTIGUOUS + UNFUSED, cow_oracle, 1,
+                           arrival_ticks=ticks, page_size=SERVE_PAGE)
+    if runs[0]["cow_copies"] < 1:
+        fail("copy-on-write load: no page copied")
+    eng.alloc.check()
+    eng.prefix.clear()
+    if eng.alloc.pages_in_use:
+        fail(f"copy-on-write load: {eng.alloc.pages_in_use} pages leaked")
+    _spec_line(runs, eng, f"copy-on-write, prompts of {COW_PROMPT} tokens "
+               f"(whole pages of {SERVE_PAGE}) and a repeat, paged; no page "
+               f"left after clearing the prefix cache", card)
+    del eng
+
+    scfg = SamplingConfig(**SPEC_SAMPLING)
+    for page_size, must, must_not in (
+            (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
+        runs, eng = serve_once(drafter, cfg, dev, kernels, reqs, must,
+                               must_not, arrivals_s=arrivals, runs=1,
+                               sampling=scfg, quantized_kv=True,
+                               page_size=page_size)
+        r = runs[0]
+        sm = r["summary"]
+        print(f"[spec] sampled {scfg}, plain INT8 engine, "
+              + (f"paged page={page_size}" if page_size else "contiguous")
+              + f", one run: {sm['tokens_per_s']:.2f} tok/s, TTFT p50 "
+              f"{sm['ttft_p50_ms']:.1f} ms, engine == sampled serial decode"
+              f" on all requests, graphs {r['graphs_captured']} captured / "
+              f"{r['graph_replays']} replays / {r['eager_dispatches']} "
+              f"eager, launches "
+              f"{ {n: c for n, c in r['launches'].items() if c} }  [{card}]")
+        del eng
+    spec_ticks = [2 * i for i in range(len(reqs))]
+    runs, eng = serve_spec(verifier, drafter, cfg, dev, kernels, reqs,
+                           DENSE + CONTIGUOUS, PAGED + UNFUSED,
+                           [None] * len(reqs), 2, arrival_ticks=spec_ticks,
+                           sampling=scfg)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        fail("sampled speculative serving: the repeated run gave other "
+             "tokens")
+    first = [serial(verifier, r, "prefill", sampling=scfg)[0] for r in reqs]
+    if [t[0] for t in runs[0]["tokens"]] != first:
+        fail("sampled speculative serving: first tokens differ from sampled "
+             "serial decode's")
+    _spec_line(runs, eng, f"sampled {scfg}, speculative k={SPEC_K}, "
+               f"contiguous, arrivals every 2 ticks; the repeat gave the "
+               f"same tokens", card)
+    del eng, verifier
+
+    tparent, tdraft, treqs = trained
+    toracle = [serial(tparent, r, "prefill") for r in treqs]
+    runs, eng = serve_spec(tparent, tdraft, cfg, dev, kernels, treqs,
+                           DENSE + CONTIGUOUS, PAGED + UNFUSED, toracle, 2,
+                           arrival_ticks=[0] * len(treqs))
+    _spec_line(runs, eng, f"trained pair: the trained bf16 model verifies, "
+               f"its trained HQP artifact drafts, {len(treqs)} validation "
+               f"prompts, contiguous, engine == prefill-route serial "
+               f"decode", card)
+    del eng
+    torch.cuda.synchronize()
+    took = time.monotonic() - t_phase
+    print(f"[spec] phase seconds {took:.1f}  [{card}]")
+    return took
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2049,10 +2418,13 @@ def main() -> int:
     del pruned_params, ragged
 
     # train, then compress once and serve many
-    served, train_launches = phase_train(cfg, dev, kernels, card)
+    served, train_launches, trained = phase_train(cfg, dev, kernels, card)
     for runs, eng, label in served:
         line(runs, eng, label)
     del served
+    # seeded sampling and self-speculative serving
+    phase_spec(cfg, dev, kernels, params, trained, report, card)
+    del trained
     for layout, tot in graph_totals.items():
         print(f"[graphs] {layout}: {tot['loads']} serve loads, "
               f"{tot['graphs_captured']} graphs captured in "
@@ -2097,7 +2469,8 @@ def main() -> int:
                                     "runs int8_matmul_quant"}
                if name in unfused else {}),
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
-                                 "train_shapes", "b2_b1_ms", "shapes")
+                                 "train_shapes", "b2_b1_ms", "shapes",
+                                 "verify_shape")
                if k in r},
             **({"train_launches": train_launches}
                if name == "flash_attention" else {})})

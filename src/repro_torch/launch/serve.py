@@ -16,7 +16,22 @@ either package saved (pruned ones included) with the INT8 KV cache.
   python -m repro_torch.launch.serve --smoke --device cpu --hqp \
       --save-artifact /tmp/art
   python -m repro_torch.launch.serve --smoke --device cpu --engine \
-      --load-artifact /tmp/art"""
+      --load-artifact /tmp/art
+
+``--spec-k K`` (with ``--engine`` and a drafter from ``--hqp`` or
+``--load-artifact``) serves speculatively: the artifact drafts K tokens
+over its INT8 KV, the bf16 parent verifies with a bf16 KV cache, and
+``--verify`` holds the output to serial decode of the parent. Under
+``--load-artifact`` the parent is not on disk: the seed-0 init is made
+again, loudly. ``--temperature``, ``--top-k`` and ``--seed`` sample on
+every surface (the same seed, the same tokens); ``--verify`` is skipped
+for a sampled speculative run, which follows the verifier's distribution,
+not its token sequence.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --engine --hqp \
+      --spec-k 4 --verify
+  python -m repro_torch.launch.serve --smoke --device cpu --engine \
+      --temperature 0.8 --top-k 50 --seed 7"""
 from __future__ import annotations
 
 import argparse
@@ -92,9 +107,10 @@ def build_artifact(params, cfg, prune_steps: int,
 
 
 def acquire_params(args, cfg, device, log=print):
-    """(params, quantized_kv): a loaded artifact, an HQP artifact built from
-    a fresh init (``--hqp``, written to ``--save-artifact`` when given), or
-    a fresh bf16 init."""
+    """(params, quantized_kv, manifest, parent): a loaded artifact (its
+    parent None: not on disk), an HQP artifact built from a fresh seed-0
+    init (``--hqp``, written to ``--save-artifact`` when given; the parent
+    is that init), or a fresh bf16 init (no manifest, no parent)."""
     if args.load_artifact:
         art = load_artifact(args.load_artifact, device=device)
         if art.manifest.arch != cfg.name:
@@ -103,7 +119,7 @@ def acquire_params(args, cfg, device, log=print):
                 f"config is {cfg.name!r} — pass the matching --arch/--smoke")
         log(f"[serve] loaded artifact {args.load_artifact}")
         log(art.manifest.summary())
-        return art.params, True
+        return art.params, True, art.manifest, None
     params = lm.init_params(cfg, seed=0, device=device)
     if args.hqp:
         art = build_artifact(params, cfg, args.prune_steps, log=log)
@@ -111,11 +127,19 @@ def acquire_params(args, cfg, device, log=print):
         if args.save_artifact:
             log(f"[serve] artifact saved to "
                 f"{save_artifact(args.save_artifact, art)}")
-        return art.params, True
-    return params, False
+        return art.params, True, art.manifest, params
+    return params, False, None, None
 
 
-def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
+def run_engine(params, cfg, args, quantized_kv: bool, device, log=print,
+               sampling=None, draft=None):
+    """``draft`` = (draft params, manifest) makes the engine speculative:
+    ``params`` are then the bf16 verifier (``quantized_kv`` its KV) and the
+    drafter keeps INT8 KV. ``--verify`` compares with serial decode of
+    ``params``, which greedy speculative output equals when its one-token
+    steps take the prefill route, as the verify pass does (on the CPU
+    both routes give the same bits, on the card near ties may break
+    apart)."""
     reqs, arrivals = synth_requests(cfg, N_REQUESTS, args.prompt_len,
                                     args.tokens)
     need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
@@ -128,13 +152,18 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
                  quantized_kv=quantized_kv, device=device,
                  page_size=args.page_size or None,
                  total_pages=args.total_pages or None,
-                 prefix_cache=not args.no_prefix_cache)
+                 prefix_cache=not args.no_prefix_cache, sampling=sampling,
+                 **({} if draft is None else dict(
+                     draft_params=draft[0], draft_manifest=draft[1],
+                     spec_k=args.spec_k)))
     t0 = time.monotonic()
     results = eng.run(reqs, arrivals_s=arrivals)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.monotonic() - t0
     stats = {**summarize_results(results, wall), **eng.stats}
+    stats["acceptance_rate"] = (eng.stats["accepted_tokens"]
+                                / max(eng.stats["drafted_tokens"], 1))
     log(f"[engine] {stats['n_requests']} requests in {wall * 1000:.0f}ms on "
         f"{device}: {stats['tokens_per_s']:.1f} tok/s, latency p50/p95 "
         f"{stats['latency_p50_ms']:.0f}/{stats['latency_p95_ms']:.0f}ms, "
@@ -143,16 +172,26 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
         f"decode steps / {eng.stats['host_syncs']} host syncs, "
         f"{eng.stats['graphs_captured']} CUDA graphs captured / "
         f"{eng.stats['graph_replays']} replays"
+        + (f", spec acceptance {stats['acceptance_rate']:.2f} "
+           f"({eng.stats['accepted_tokens']} of "
+           f"{eng.stats['drafted_tokens']} drafts)" if draft else "")
         + (f", {eng.stats['prefix_hits']} prefix hits / "
            f"{eng.stats['pages_peak']} pages peak" if args.page_size else "")
         + ")")
     verify = args.verify if args.verify is not None else args.smoke
+    if verify and draft is not None and not eng.sampling.is_greedy:
+        log("[engine] verify skipped: speculative sampling follows the "
+            "verifier's distribution, not its token sequence (greedy "
+            "speculative output is token-identical and verified)")
+        verify = False
     if verify:
         bad = [i for i, res in sorted(results.items())
                if res.tokens != serial_decode(
                    params, cfg, reqs[i].prompt, reqs[i].max_new_tokens,
                    max_seq=args.max_seq, eos_id=reqs[i].eos_id,
-                   quantized_kv=quantized_kv, device=device)]
+                   quantized_kv=quantized_kv, device=device,
+                   sampling=sampling,
+                   route="decode" if draft is None else "prefill")]
         if bad:
             raise SystemExit(f"[engine] VERIFY FAILED: requests {bad} differ "
                              f"from serial single-request decode")
@@ -161,8 +200,17 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print):
     return results, stats
 
 
-def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print):
-    """One batch of equal-length prompts: prefill, then greedy decode."""
+def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print,
+                 sampling=None):
+    """One batch of equal-length prompts: prefill, then decode, greedy or
+    drawn with the engine's key rule (the token's position)."""
+    scfg = sampling or smp.GREEDY
+    base = smp.base_key(scfg, device)
+
+    def pick(logits, pos: int) -> torch.Tensor:
+        at = torch.full((logits.shape[0],), pos, device=device)
+        return smp.sample_batch(logits[:, -1], scfg, base, at)[:, None]
+
     state = lm.init_decode_state(cfg, N_REQUESTS, args.max_seq,
                                  params=params, quantized_kv=quantized_kv,
                                  device=device)
@@ -171,13 +219,15 @@ def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print):
         0, cfg.vocab_size, (N_REQUESTS, args.prompt_len)), device=device)
     logits, state = lm.decode_step(params, cfg, state, prompts,
                                    route="prefill")
-    tok = smp.greedy(logits[:, -1]).long()[:, None]
+    pos = args.prompt_len
+    tok = pick(logits, pos)
     outputs = [tok]
     t0 = time.monotonic()
     for _ in range(args.tokens - 1):
         logits, state = lm.decode_step(params, cfg, state, tok,
                                        route="decode")
-        tok = smp.greedy(logits[:, -1]).long()[:, None]
+        pos += 1
+        tok = pick(logits, pos)
         outputs.append(tok)
     out = torch.cat(outputs, dim=1).cpu().numpy()
     t_decode = time.monotonic() - t0
@@ -223,6 +273,18 @@ def main(argv=None):
                          "provisioning, 1 + slots*ceil(max_seq/page_size))")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prefix page reuse (paged mode)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft length: the HQP artifact drafts "
+                         "K tokens a cycle, its bf16 parent verifies "
+                         "(needs --engine and --hqp or --load-artifact; 0 = "
+                         "off)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy, the default)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k sampling cutoff (0 = the whole vocabulary)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling seed: the same seed gives the same "
+                         "tokens, engine and serial alike")
     ap.add_argument("--verify", action="store_true", default=None,
                     help="check engine outputs == serial decode "
                          "(default: on under --smoke)")
@@ -235,13 +297,42 @@ def main(argv=None):
     if args.page_size and not args.engine:
         ap.error("--page-size needs --engine (the lockstep loop has no "
                  "slot pool to page)")
+    if args.spec_k:
+        if not args.engine:
+            ap.error("--spec-k needs --engine (speculation is an engine "
+                     "decode mode)")
+        if not (args.hqp or args.load_artifact):
+            ap.error("--spec-k needs a drafter: pass --hqp (build one) or "
+                     "--load-artifact")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    params, quantized_kv = acquire_params(args, cfg, device)
+    sampling = smp.SamplingConfig(temperature=args.temperature,
+                                  top_k=args.top_k, seed=args.seed)
+    params, quantized_kv, manifest, parent = acquire_params(args, cfg,
+                                                            device)
     if args.engine:
-        return run_engine(params, cfg, args, quantized_kv, device)[1]
-    return run_lockstep(params, cfg, args, quantized_kv, device)
+        draft = None
+        if args.spec_k:
+            if parent is None:
+                # the artifact's parent is not on disk: make the seed-0
+                # init again (the manifest's arch hash still guards the
+                # architecture). Loud on purpose: an artifact built from
+                # other weights (another seed, a trained checkpoint) gets
+                # an unrelated verifier, whose output stays its own but
+                # accepts almost no draft
+                print("[serve] WARNING: --spec-k with --load-artifact "
+                      "makes the seed-0 bf16 parent again as the verifier; "
+                      "if the artifact was built from other weights, "
+                      "expect near-zero acceptance (pass --hqp to build "
+                      "drafter and verifier from the same params)")
+                parent = lm.init_params(cfg, seed=0, device=device)
+            draft = (params, manifest)
+            params, quantized_kv = parent, False    # the bf16 verifier
+        return run_engine(params, cfg, args, quantized_kv, device,
+                          sampling=sampling, draft=draft)[1]
+    return run_lockstep(params, cfg, args, quantized_kv, device,
+                        sampling=sampling)
 
 
 if __name__ == "__main__":

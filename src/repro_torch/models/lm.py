@@ -8,7 +8,8 @@ the forward pass is a Python loop over it.
 Two kinds of pass: ``forward`` / ``loss_fn`` run the whole sequence on the
 train route (no cache, differentiable: the HQP Fisher pass and the prune
 evaluations), ``decode_step`` runs prefill chunks and decode steps against
-the KV cache (serving)."""
+the KV cache (serving), and ``verify_step`` scores a speculative candidate
+chunk at every position."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -170,6 +171,36 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
     per-row page table. The table is an input only and the returned state
     never carries it: the engine redirects rows to the trash page between
     dispatches, which a pass-through would undo."""
+    x, new = _cached_layers(params, cfg, state, tokens, window, route)
+    x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, cfg, x), new
+
+
+def verify_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
+                window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+    """Speculative verification: the (B, K+1) candidate chunk ``[t0, d1..
+    dK]`` (the last emitted token, then the drafter's K proposals) in one
+    ``route="prefill"`` pass, returning the logits of EVERY position (B,
+    K+1, V_pad) f32: ``logits[:, i]`` is the distribution draft ``d_{i+1}``
+    is judged against, ``logits[:, K]`` the bonus token's.
+
+    Position i of the chunk gets the bits of a one-query prefill at
+    ``pos + i`` over the same prefix: the prefill attend's causal limits
+    and tiles sit at absolute positions, and the norms and products are
+    row-independent (``layers``). The returned state has advanced ``pos``
+    by K+1 and written K/V for every candidate; the caller rolls ``pos``
+    back to the accepted length, and the stale K/V past it stays masked
+    until a later write replaces it."""
+    x, new = _cached_layers(params, cfg, state, tokens, window, "prefill")
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, cfg, x), new
+
+
+def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
+                   window: Optional[int], route: Optional[str]
+                   ) -> Tuple[torch.Tensor, dict]:
+    """The layers of ``decode_step`` / ``verify_step``: hidden states (B,
+    S_new, d) before the final norm, and the advanced state."""
     x = L.embed_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     cur: Union[int, torch.Tensor] = state["pos"]
@@ -182,6 +213,4 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
         x = x + A.attention_forward(p["attn"], cfg, h, positions, cache, cur,
                                     window, route, pages)
         x = x + L.mlp(L.rmsnorm(x, p["norm2"], cfg.norm_eps), p["mlp"])
-    x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, cfg, x), {"caches": state["caches"],
-                                       "pos": cur + s}
+    return x, {"caches": state["caches"], "pos": cur + s}

@@ -3,27 +3,37 @@
 The ``Engine`` owns ``n_slots`` concurrent requests. Requests are admitted
 into free slots on arrival, prefilled in chunks interleaved with batched
 decode (``serving.scheduler`` owns the policy), and evicted on EOS or
-length, freeing the slot for the next waiting request. Greedy decoding, no
-speculation. The KV lives in a contiguous per-slot pool or, with
-``page_size``, in a paged arena shared by all slots (``state_pool``).
+length, freeing the slot for the next waiting request. Tokens are greedy
+or drawn by a seeded ``sampling.SamplingConfig`` (temperature, top-k),
+keyed by position so engine and serial decode draw alike. The KV lives in
+a contiguous per-slot pool or, with ``page_size``, in a paged arena shared
+by all slots (``state_pool``).
 
-Each decode dispatch runs ``decode_steps`` greedy steps on the device with
-no host round trip between them: argmax, token feedback and the per-slot
-EOS/length stop flags stay on the device, and one host sync at the end
-harvests the emitted tokens (``stats["host_syncs"]`` against
-``stats["device_steps"]``).
+Each decode dispatch runs ``decode_steps`` steps on the device with no
+host round trip between them: the token pick, token feedback and the
+per-slot EOS/length stop flags stay on the device, and one host sync at
+the end harvests the emitted tokens (``stats["host_syncs"]`` against
+``stats["device_steps"]``). With ``draft_params`` the engine is
+speculative (``serving.speculative``): the params are the verifier, the
+drafter has a pool of its own, and a decode dispatch runs ``spec_cycles``
+draft -> verify cycles instead.
 
 On the card each decode dispatch and each prefill chunk runs as a CUDA
 graph, captured once per key and replayed (``serving.dispatch``): the
 counterpart of the reference engine's jitted ``_decode`` scan and
 ``_prefill``. Decode is keyed by its static window (``decode_steps`` is
 fixed per engine); prefill by (chunk width, window), and in the contiguous
-layout by the slot too, whose cache is a view at the slot's offset. The
-bodies read fixed device buffers (``dispatch.Inputs``: the tokens, live
-flags, EOS ids and budgets of a decode dispatch, the chunk, the page
-tables), write the pool in place and their results into fixed outputs,
-and make no host sync: a graph bakes in every address and host value. On
-the CPU they run eagerly.
+layout by the slot too, whose cache is a view at the slot's offset. A
+speculative engine has the kinds ``spec``, keyed (window, k_eff,
+cycles_eff), and ``spec_prefill``, keyed as ``prefill``. The bodies read
+fixed device buffers (``dispatch.Inputs``: the tokens, live flags, EOS ids
+and budgets of a decode dispatch, the chunk, the page tables), write the
+pool in place and their results into fixed outputs, and make no host
+sync: a graph bakes in every address and host value. Positions come from
+the pool on the device (a sampled prefill tail is keyed by the pool's
+position after the chunk); the sampling seed is fixed per engine, and its
+key is a buffer made before any capture. On the CPU the bodies run
+eagerly.
 
 Token-identity contract: engine outputs equal serial single-request decode
 token for token, because (a) every op is row-independent (``layers`` keeps
@@ -34,7 +44,11 @@ absolute positions, so chunk boundaries and window buckets leave every row's
 bits unchanged; (c) rows that are not live in a dispatch never advance
 ``pos``, and whatever they write sits at or past their own position, where
 it stays masked until a real write replaces it; in paged mode they are
-pointed at the trash page, so their writes never reach a live page.
+pointed at the trash page, so their writes never reach a live page. A
+speculative dispatch writes behind a row's position (its healing chunk
+at pos-1), so it parks the rows that are not live past ``max_seq`` for
+the dispatch (``speculative.park_position``), and a shared page that a
+live row's healing chunk writes into is copied first (copy-on-write).
 
 A fault in a step propagates to the caller: request-scoped fault isolation
 comes with the service plane (ROADMAP), and catching every exception here
@@ -58,13 +72,15 @@ from repro_torch.serving import state_pool as sp
 from repro_torch.serving.dispatch import GraphCache, Inputs
 from repro_torch.serving.scheduler import (DECODE, PREFILL, Scheduler,
                                            SchedulerConfig)
+from repro_torch.serving.speculative import (SpecDecoder, park_position,
+                                             pool_margin)
 
 FREE = "free"
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request (token ids in, token ids out; greedy).
+    """One generation request (token ids in, token ids out).
 
     ``uid`` is engine-assigned at submit() (the return value)."""
     prompt: Sequence[int]
@@ -100,10 +116,15 @@ class _Slot:
     prompt: Optional[np.ndarray] = None
     prefill_done: int = 0
     last_token: int = 0
+    prev_token: int = 0               # the token at pos-1, which the
+                                      # speculative healing chunk re-feeds
     result: Optional[RequestResult] = None
     eos_id: Optional[int] = None
     max_new_tokens: int = 0
     pages: List[int] = dataclasses.field(default_factory=list)
+    n_shared: int = 0                 # leading pages the prefix cache or
+                                      # other slots also hold: written only
+                                      # after copy-on-write
 
 
 def _kv_bytes(pool) -> int:
@@ -115,7 +136,21 @@ class Engine:
     """Continuous-batching engine serving a (possibly HQP-quantized) LM.
 
     ``params`` must lie on ``device`` (default: the card). ``quantized_kv``
-    selects the INT8 KV cache (HQP serving).
+    selects the INT8 KV cache (HQP serving). ``sampling`` draws tokens by
+    temperature and top-k from a seed on every surface (None: greedy, the
+    argmax with no keys).
+
+    ``draft_params`` makes the engine speculative: ``params`` become the
+    verifier (the bf16 parent), ``draft_params`` the drafter (its HQP
+    artifact), whose pool has INT8 KV unless ``draft_quantized_kv`` is
+    False and is sized from its own (possibly pruned) params. Each decode
+    dispatch runs ``spec_cycles`` cycles of ``spec_k`` drafts and one
+    multi-position verify (``speculative.SpecDecoder``);
+    ``draft_manifest``, the artifact's manifest, is checked against the
+    verifier's config first. Both pools share one page table and one
+    allocator in the paged layout; a contiguous pool keeps
+    ``speculative.pool_margin`` positions past ``max_seq`` for parked
+    rows.
 
     ``page_size`` switches on paged KV: the per-slot pool becomes one arena
     of ``total_pages`` pages (default ``1 + n_slots * ceil(max_seq /
@@ -128,19 +163,25 @@ class Engine:
     layout with one page per slot. Outputs are token-identical to the
     contiguous pool at every page size.
 
-    Shared pages need no copy-on-write here: a hit admits the slot at the
-    hit position, capped at ``(len - 1) // page_size`` pages, so every write
-    of the slot lands at or past it; insertion covers only pages the prompt
-    fills, and decode writes start at the prompt's end. Only a speculative
-    healing chunk writes behind that point, so copy-on-write comes with
-    speculation (ROADMAP A9)."""
+    A slot's leading ``n_shared`` pages are shared (a prefix-cache hit, or
+    its own prompt's pages once inserted). Plain decode never writes
+    there: a hit admits the slot at the hit position, capped at ``(len -
+    1) // page_size`` pages, insertion covers only pages the prompt fills,
+    and decode writes start at the prompt's end. A speculative healing
+    chunk writes at pos-1, which lies in the last shared page when the
+    prompt is page-aligned: that page is copied in both arenas first
+    (``stats["cow_copies"]``)."""
 
     def __init__(self, params: Any, cfg, n_slots: int = 4,
                  max_seq: int = 128, sched: Optional[SchedulerConfig] = None,
                  quantized_kv: bool = False, device=None,
                  page_size: Optional[int] = None,
                  total_pages: Optional[int] = None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True,
+                 sampling: Optional[smp.SamplingConfig] = None,
+                 draft_params: Any = None, spec_k: int = 4,
+                 spec_cycles: int = 1, draft_manifest=None,
+                 draft_quantized_kv: bool = True):
         self.device = resolve_device(device)
         if lm.params_device(params) != self.device:
             raise ValueError(f"params lie on {lm.params_device(params)}, "
@@ -150,6 +191,15 @@ class Engine:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.scheduler = Scheduler(sched)
+        self.sampling = sampling or smp.GREEDY
+        # the seed's key: a fixed buffer every captured dispatch reads
+        self._base = smp.base_key(self.sampling, self.device)
+        self.spec: Optional[SpecDecoder] = None
+        if draft_params is not None:
+            self.spec = SpecDecoder(cfg, draft_params, params, k=spec_k,
+                                    cycles=spec_cycles,
+                                    sampling=self.sampling,
+                                    draft_manifest=draft_manifest)
         self.paged = page_size is not None
         self.alloc: Optional[sp.PageAllocator] = None
         self.prefix: Optional[sp.PrefixCache] = None
@@ -167,47 +217,70 @@ class Engine:
             # host mirror of every slot's page table; the dispatches read
             # fixed device copies of it (_dispatch_table)
             self.table = np.zeros((n_slots, self.max_pages), np.int32)
-            self.pool = sp.init_paged_pool(
-                cfg, n_slots, max_seq, page_size=page_size,
-                total_pages=total_pages, params=params,
-                quantized_kv=quantized_kv, device=self.device)
-            kv_bytes = _kv_bytes(self.pool)
+
+            def pool(p, qkv):
+                return sp.init_paged_pool(
+                    cfg, n_slots, max_seq, page_size=page_size,
+                    total_pages=total_pages, params=p, quantized_kv=qkv,
+                    device=self.device)
+        else:
+            pool_seq = max_seq + (0 if self.spec is None
+                                  else pool_margin(spec_k))
+
+            def pool(p, qkv):
+                return sp.init_pool(cfg, n_slots, pool_seq, params=p,
+                                    quantized_kv=qkv, device=self.device)
+        self.pool = pool(params, quantized_kv)
+        self.draft_pool = (None if self.spec is None
+                           else pool(draft_params, draft_quantized_kv))
+        kv_bytes = _kv_bytes(self.pool) + (
+            0 if self.draft_pool is None else _kv_bytes(self.draft_pool))
+        if self.paged:
             self._kv_page_bytes = kv_bytes // total_pages
             self._kv_token_bytes = self._kv_page_bytes // page_size
-        else:
-            self.pool = sp.init_pool(cfg, n_slots, max_seq, params=params,
-                                     quantized_kv=quantized_kv,
-                                     device=self.device)
-            kv_bytes = _kv_bytes(self.pool)
         self.slots = [_Slot(i) for i in range(n_slots)]
         self.waiting: List[Request] = []
         self._uid = itertools.count()
         self.ticks = 0
         self.clock = time.monotonic
+        # drafted_tokens counts the candidates the device made for slots
+        # live at dispatch (speculative drafts, or plain decode steps,
+        # those burnt by slots that stopped mid-dispatch included);
+        # accepted_tokens the drafts that became emitted tokens (a
+        # speculative correction or bonus token is emitted, not accepted),
+        # so their ratio is the acceptance rate in both modes; spec_cycles
+        # counts verify passes
         self.stats = {"prefill_ticks": 0, "decode_ticks": 0,
                       "decode_slot_steps": 0, "prefill_tokens": 0,
                       "host_syncs": 0, "device_steps": 0,
+                      "drafted_tokens": 0, "accepted_tokens": 0,
+                      "spec_cycles": 0, "cow_copies": 0,
                       "kv_bytes": kv_bytes, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "bytes_saved": 0,
                       "pages_in_use": 0, "pages_peak": 0,
                       "kv_bytes_peak": 0 if self.paged else kv_bytes}
         # the reference's max_lowerings: one decode executable per window
         # bucket, one prefill executable per (window, chunk width), and here
-        # per slot too in the contiguous layout
+        # per slot too in the contiguous layout; speculative: one per
+        # (window, k_eff, cycles_eff) that plan() can give, and the fused
+        # prefill of both pools as prefill
         sc = self.scheduler.cfg
         n_windows = -(-max_seq // sc.window_block)
-        self.graphs = GraphCache(self.device, {
-            "decode": n_windows,
-            "prefill": n_windows * sc.prefill_chunk
-                       * (1 if self.paged else n_slots)}, self.stats)
+        n_prefill = (n_windows * sc.prefill_chunk
+                     * (1 if self.paged else n_slots))
+        self.graphs = GraphCache(self.device, (
+            {"decode": n_windows, "prefill": n_prefill} if self.spec is None
+            else {"spec": n_windows * self.spec.n_plans(),
+                  "spec_prefill": n_prefill}), self.stats)
         self.inputs = Inputs(self.device)
         # the dispatches' outputs, made outside any capture: a decode
-        # dispatch's (tokens, emitted) per step and slot, and a chunk's
-        # greedy token
+        # dispatch's (tokens, emitted) per step and slot, a chunk's token,
+        # and a speculative dispatch's results per (k_eff, cycles_eff)
         self._decode_out = torch.zeros((2, sc.decode_steps, n_slots),
                                        dtype=torch.long, device=self.device)
         self._chunk_token = torch.zeros((1,), dtype=torch.int32,
                                         device=self.device)
+        self._spec_out: Dict[tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------ paged KV
     def _note_pages(self) -> None:
@@ -245,6 +318,7 @@ class Engine:
                 self.alloc.unref(pages)
             raise
         slot.pages = pages
+        slot.n_shared = hit // self.page_size
         self.table[slot.idx] = 0
         self.table[slot.idx, :len(pages)] = pages
         if hit:
@@ -265,12 +339,37 @@ class Engine:
             slot.pages.extend(new)
             self._note_pages()
 
+    def _ensure_writable(self, slot: _Slot, pos: int) -> None:
+        """Copy-on-write ahead of a dispatch whose first KV write lands at
+        ``pos``. A position inside the slot's shared pages can only be the
+        speculative healing chunk's pos-1 after a page-aligned prompt whose
+        last page went into the prefix cache: if another holder still
+        references that page, it is copied in both arenas and the slot's
+        table repointed, so the other holders never see the write. Pages
+        before it are never written again."""
+        if pos < 0 or pos >= slot.n_shared * self.page_size:
+            return
+        idx = pos // self.page_size
+        old = slot.pages[idx]
+        if self.alloc.refs[old] > 1:
+            new = self._alloc_pages(1)[0]
+            for pool in (self.pool, self.draft_pool):
+                if pool is not None:
+                    sp.copy_page(pool, old, new)
+            self.alloc.unref([old])
+            slot.pages[idx] = new
+            self.table[slot.idx, idx] = new
+            self.stats["cow_copies"] += 1
+        slot.n_shared = idx
+        self._note_pages()
+
     def _release_slot_pages(self, slot: _Slot) -> None:
         """Eviction: drop the slot's page references (pages the prefix cache
         also holds stay resident for later hits) and zero its table row."""
         if slot.pages:
             self.alloc.unref(slot.pages)
             slot.pages = []
+            slot.n_shared = 0
             self.table[slot.idx] = 0
             self._note_pages()
 
@@ -328,6 +427,8 @@ class Engine:
             pos0 = (self._map_slot_pages(slot, req.prompt) if self.paged
                     else 0)
             sp.reset_slot(self.pool, slot.idx, pos0)
+            if self.spec is not None:
+                sp.reset_slot(self.draft_pool, slot.idx, pos0)
             slot.stage = PREFILL
             slot.prompt = req.prompt
             slot.prefill_done = pos0
@@ -386,6 +487,7 @@ class Engine:
                                              slot.prefill_done)
         chunk = self.inputs.put(("chunk", hi - lo), slot.prompt[None, lo:hi])
         window = self._window(hi)
+        kind = "prefill" if self.spec is None else "spec_prefill"
         if self.paged:
             # the slot's table row and index in fixed buffers: one graph
             # serves every slot
@@ -393,11 +495,11 @@ class Engine:
             row = self.inputs.put(("row", n_blk),
                                   self.table[slot.idx:slot.idx + 1, :n_blk])
             idx = self.inputs.put("slot", np.array([slot.idx]))
-            self.graphs.run("prefill", (hi - lo, window),
+            self.graphs.run(kind, (hi - lo, window),
                             lambda: self._prefill_chunk(idx, chunk, window,
                                                         row))
         else:
-            self.graphs.run("prefill", (hi - lo, window, slot.idx),
+            self.graphs.run(kind, (hi - lo, window, slot.idx),
                             lambda: self._prefill_chunk(slot.idx, chunk,
                                                         window))
         slot.prefill_done = hi
@@ -406,29 +508,49 @@ class Engine:
         if hi == slot.prompt.size:
             if self.prefix is not None:
                 # the prompt's KV is complete: register its page-aligned
-                # heads for later admissions
-                self.prefix.insert(slot.prompt, slot.pages, hi)
+                # heads for later admissions; the slot's pages up to there
+                # are shared from now on
+                ins = self.prefix.insert(slot.prompt, slot.pages, hi)
+                slot.n_shared = max(slot.n_shared, ins // self.page_size)
                 self._note_pages()
             tok = int(self._chunk_token.item())
             self.stats["host_syncs"] += 1
+            # the speculative healing chunk re-feeds [prev, last]: after
+            # prefill, pos-1 holds the last prompt token
+            slot.prev_token = int(slot.prompt[-1])
             self._emit(slot, tok, finished)
 
     def _prefill_chunk(self, slot, chunk: torch.Tensor, window: int,
                        pages: Optional[torch.Tensor] = None) -> None:
         """One prefill chunk (1, width) of slot ``slot`` (an int, or a (1,)
         index tensor in paged mode) from the slot's device position, which
-        it advances in place; the greedy token of the chunk's last position
-        goes to ``_chunk_token``."""
-        st = sp.gather_slot(self.pool, slot, pages=pages)
+        it advances in place, in the pool and, speculative, in the
+        drafter's pool too (the first token always comes from the
+        verifier). The token of the chunk's last position goes to
+        ``_chunk_token``: greedy, or drawn with the key of the position
+        after the chunk, read from the device."""
         # route="prefill" for every chunk, the 1-token tail included: the
         # same op serial whole-prompt prefill takes, so the bits agree
+        st = sp.gather_slot(self.pool, slot, pages=pages)
         logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
                                      window=window, route="prefill")
+        if self.spec is not None:
+            dst = sp.gather_slot(self.draft_pool, slot, pages=pages)
+            _, dnew = lm.decode_step(self.spec.draft_params, self.cfg, dst,
+                                     chunk, window=window, route="prefill")
+            sp.scatter_slot(self.draft_pool, slot, dnew)
         sp.scatter_slot(self.pool, slot, new)
-        self._chunk_token.copy_(smp.greedy(logits[0, -1]))
+        if self.sampling.is_greedy:
+            self._chunk_token.copy_(smp.greedy(logits[0, -1]))
+        else:
+            self._chunk_token.copy_(smp.sample_batch(
+                logits[:, -1], self.sampling, self._base, new["pos"]))
 
     def _decode(self, slot_ids: Sequence[int],
                 finished: List[RequestResult]) -> None:
+        if self.spec is not None:
+            self._spec_decode(slot_ids, finished)
+            return
         k_steps = self.scheduler.cfg.decode_steps
         n = self.n_slots
         # rows: last token, live, EOS id (-1 = none), tokens left
@@ -461,6 +583,8 @@ class Engine:
         toks, emitted = out[0], out[1].astype(bool)
         self.stats["host_syncs"] += 1
         self.stats["device_steps"] += k_steps
+        self.stats["drafted_tokens"] += k_steps * len(slot_ids)
+        self.stats["accepted_tokens"] += int(emitted.sum())
         for t in range(k_steps):
             for i in slot_ids:
                 if emitted[t, i]:
@@ -470,7 +594,7 @@ class Engine:
 
     def _decode_steps(self, inputs: torch.Tensor, k_steps: int, window: int,
                       table: Optional[torch.Tensor]) -> None:
-        """``k_steps`` greedy steps over every slot, on the device.
+        """``k_steps`` decode steps over every slot, on the device.
         ``inputs`` (4, B): each live slot's last token, live (0/1), EOS id
         (-1 = none), tokens each slot may still emit; ``table`` the
         dispatch's page table (paged mode). Slots that hit EOS or their
@@ -484,7 +608,12 @@ class Engine:
         for _ in range(k_steps):
             logits, new = lm.decode_step(self.params, self.cfg, state, tok,
                                          window=window, route="decode")
-            nxt = smp.greedy(logits[:, -1]).long()
+            if self.sampling.is_greedy:
+                nxt = smp.greedy(logits[:, -1]).long()
+            else:
+                # keyed by the position the token's KV is written at
+                nxt = smp.sample_batch(logits[:, -1], self.sampling,
+                                       self._base, new["pos"])
             pool["pos"].copy_(torch.where(live, new["pos"], pool["pos"]))
             left = torch.where(live, left - 1, left)
             stop = ((eos >= 0) & (nxt == eos)) | (left <= 0)
@@ -494,6 +623,66 @@ class Engine:
             live = live & ~stop
         self._decode_out[0].copy_(torch.stack(toks))
         self._decode_out[1].copy_(torch.stack(emitted))
+
+    def _spec_decode(self, slot_ids: Sequence[int],
+                     finished: List[RequestResult]) -> None:
+        """``cycles_eff`` speculative cycles of ``k_eff`` drafts over every
+        decoding slot, then one host sync. ``SpecDecoder.plan`` keeps the
+        deepest write, the last cycle's verify tail, inside ``max_seq``."""
+        n = self.n_slots
+        # rows: token at pos-1, pending token, live, EOS id (-1 = none),
+        # tokens left
+        host = np.zeros((5, n), np.int64)
+        host[3] = -1
+        host[4] = 1
+        active = np.zeros((n,), bool)
+        for i in slot_ids:
+            slot = self.slots[i]
+            host[:, i] = (slot.prev_token, slot.last_token, 1,
+                          -1 if slot.eos_id is None else slot.eos_id,
+                          slot.max_new_tokens - len(slot.result.tokens))
+            active[i] = True
+        max_pos = max(self._slot_pos(self.slots[i]) for i in slot_ids)
+        k_eff, c_eff = self.spec.plan(max_pos, self.max_seq,
+                                      int(host[4][active].max()))
+        if self.paged:
+            for i in slot_ids:
+                slot = self.slots[i]
+                # the healing chunk writes at pos-1, possibly inside a
+                # shared page; the last verify tail is the deepest write
+                self._ensure_writable(slot, self._slot_pos(slot) - 1)
+                self._ensure_capacity(
+                    slot, self._slot_pos(slot) + c_eff * (k_eff + 1))
+        # the deepest attend: the last cycle's verify chunk tail
+        window = self._window(max_pos + c_eff * (k_eff + 1))
+        inputs = self.inputs.put("spec", host)
+        table = self._dispatch_table(window, active) if self.paged else None
+        t = c_eff * (k_eff + 1)
+        out = self._spec_out.get((k_eff, c_eff))
+        if out is None:
+            out = self._spec_out[(k_eff, c_eff)] = torch.zeros(
+                (2 * t + 2, n), dtype=torch.long, device=self.device)
+        park = park_position(self.max_seq)
+        self.graphs.run("spec", (window, k_eff, c_eff),
+                        lambda: self.spec.dispatch(
+                            self.draft_pool, self.pool, table, inputs, out,
+                            k_eff, c_eff, window, park))
+        res = out.cpu().numpy()
+        toks, emitted = res[:t], res[t:2 * t].astype(bool)
+        self.stats["host_syncs"] += 1
+        # k_eff drafter passes (the healing chunk included) and one verify
+        # a cycle
+        self.stats["device_steps"] += t
+        self.stats["spec_cycles"] += c_eff
+        self.stats["accepted_tokens"] += int(res[2 * t].sum())
+        self.stats["drafted_tokens"] += int(res[2 * t + 1].sum())
+        # np.nonzero is row-major: each slot's tokens come in order
+        for step, i in zip(*np.nonzero(emitted)):
+            slot = self.slots[i]
+            slot.prev_token = slot.last_token
+            self._emit(slot, int(toks[step, i]), finished)
+        self.stats["decode_ticks"] += 1
+        self.stats["decode_slot_steps"] += int(emitted.sum())
 
     # ------------------------------------------------------------------- run
     def run(self, requests: Sequence[Request],
@@ -565,22 +754,36 @@ def summarize_results(results: Dict[int, RequestResult],
 # ---------------------------------------------------------------- reference
 def serial_decode(params, cfg, prompt: Sequence[int], max_new_tokens: int,
                   max_seq: int = 128, eos_id: Optional[int] = None,
-                  quantized_kv: bool = False, device=None) -> List[int]:
+                  quantized_kv: bool = False, device=None,
+                  sampling: Optional[smp.SamplingConfig] = None,
+                  route: str = "decode") -> List[int]:
     """The serial single-request path the engine must match token for
     token: whole-prompt prefill (the prefill route, whatever the prompt's
-    length), then one decode step per token, greedy. ``params`` must lie on
-    ``device`` (default: the card)."""
+    length), then one step per token on ``route``, greedy or drawn by
+    ``sampling`` with the key of the token's position. ``route="prefill"``
+    is the speculative engine's oracle on the card, where the verify pass
+    takes the prefill route. ``params`` must lie on ``device`` (default:
+    the card)."""
     dev = resolve_device(device)
     if lm.params_device(params) != dev:
         raise ValueError(f"params lie on {lm.params_device(params)}, "
                          f"serial_decode runs on {dev}")
+    scfg = sampling or smp.GREEDY
+    base = None if scfg.is_greedy else smp.base_key(scfg, dev)
+
+    def pick(logits, pos: int) -> int:
+        if base is None:
+            return int(smp.greedy(logits[0, -1]))
+        return int(smp.sample(logits[0, -1], scfg,
+                              smp.token_key(base, pos)))
+
     prompt = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)
     state = lm.init_decode_state(cfg, 1, max_seq, params=params,
                                  quantized_kv=quantized_kv, device=dev)
     logits, state = lm.decode_step(params, cfg, state, prompt[None],
                                    route="prefill")
     out: List[int] = []
-    tok = int(smp.greedy(logits[0, -1]))
+    tok = pick(logits, int(prompt.numel()))
     while True:
         out.append(tok)
         if tok == eos_id or len(out) >= max_new_tokens:
@@ -588,5 +791,5 @@ def serial_decode(params, cfg, prompt: Sequence[int], max_new_tokens: int,
         logits, state = lm.decode_step(
             params, cfg, state,
             torch.full((1, 1), tok, dtype=torch.long, device=dev),
-            route="decode")
-        tok = int(smp.greedy(logits[0, -1]))
+            route=route)
+        tok = pick(logits, int(prompt.numel()) + len(out))

@@ -92,6 +92,44 @@ def reset_slot(pool: Dict[str, Any], slot: int, pos0: int = 0) -> None:
     pool["pos"][slot] = pos0
 
 
+def rollback_slots(pool: Dict[str, Any], pos: torch.Tensor) -> None:
+    """Set every row's position to ``pos`` (B,), in place: a speculative
+    verify wrote k+1 candidate positions, and each row keeps the accepted
+    ones (a row that emitted nothing goes back where it was). Only ``pos``
+    moves. The rejected candidates' K/V stays where it is, masked by the
+    absolute causal limit of every later attend until a later write
+    replaces it, as after slot reuse."""
+    pool["pos"].copy_(pos)
+
+
+def park_slots(pool: Dict[str, Any], active: torch.Tensor,
+               park: int) -> torch.Tensor:
+    """Move the rows not ``active`` to position ``park`` for a dispatch that
+    writes behind a row's position, in place, and return every row's
+    position as it was (``select_slots`` puts it back)."""
+    saved = pool["pos"].clone()
+    pool["pos"].copy_(torch.where(active, pool["pos"], park))
+    return saved
+
+
+def select_slots(pool: Dict[str, Any], saved: torch.Tensor,
+                 active: torch.Tensor) -> None:
+    """Keep the pool's positions where ``active``, else restore ``saved``,
+    in place: after a speculative dispatch the rows that were not live get
+    their positions back. Their K/V needs no restoring: parked
+    (``park_slots``), they wrote only on the trash page or past
+    ``max_seq``."""
+    pool["pos"].copy_(torch.where(active, pool["pos"], saved))
+
+
+def copy_page(pool: Dict[str, Any], src: int, dst: int) -> None:
+    """Copy-on-write: arena page ``src`` into page ``dst`` in every KV leaf
+    of a paged pool, in place."""
+    for entry in pool["caches"]:
+        for leaf in entry.values():
+            leaf[dst].copy_(leaf[src])
+
+
 # --------------------------------------------------------- host-side paging
 class PageAllocator:
     """Host-side free-list allocator with refcounts over the KV page arena.

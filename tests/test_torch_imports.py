@@ -46,6 +46,8 @@ def test_port_imports_without_jax():
         "import repro_torch.launch.serve, repro_torch.weights\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.kv_layout\n"
         "import repro_torch.serving.state_pool\n"
+        "import repro_torch.serving.speculative, repro_torch.serving.sampling\n"
+        "import repro_torch.serving.prng\n"
         "import repro_torch.launch.train, repro_torch.launch.quickstart\n"
         "import repro_torch.launch.checkpoint, repro_torch.data.synthetic\n"
         "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
