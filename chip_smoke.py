@@ -21,8 +21,14 @@ sample and serve self-speculatively (the seed-0 INT8 artifact drafts, its
 bf16 parent verifies on B4/B6, contiguous and paged, with copy-on-write;
 the trained pair too), each against serial decode of the verifier whose
 one-token steps take the prefill route, bit for bit, with B3 held against
-B4 at one query; last, profile a steady decode dispatch and a prefill
-chunk (where their time goes on the card).
+B4 at one query; then the service plane: the HTTP/SSE front door in
+process (streams equal to serial decode, an injected fault failing only
+its dispatch's requests, a deadline expiring mid-prefill, a disconnect,
+429 infeasible and saturated, /metrics, a drain, all CUDA work on the
+pump thread), a speculative dispatch fault with a slot mid-prefill, and
+the launcher's ``serve --engine --http`` on the trained artifact in a
+subprocess, drained by SIGTERM; last, profile a steady decode dispatch
+and a prefill chunk (where their time goes on the card).
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -44,12 +50,18 @@ same way, and ``wrapper_ms`` is the host-issued rate of the wrapper.
 """
 from __future__ import annotations
 
+import faulthandler
+import gc
 import itertools
 import json
 import math
+import os
 import pathlib
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -141,6 +153,14 @@ B5_LONG = 40960      # qwen3-0.6b's max_seq_len: 2,560 pages of 16 a slot
 # 32,768 positions), checked, and the first one timed
 B6_LONG_STARTS = (B5_LONG - SERVE_CHUNK, 33000)
 PRUNED_REQUESTS, PRUNED_NEW = 4, 16        # serve load of the pruned artifact
+# the service phase: queue depth beyond the slots, the decode dispatch the
+# injected fault hits, a prompt whose deadline expires mid-prefill, the
+# tokens of each request of the saturating load, and the seconds the
+# launcher's subprocess may take to listen and to drain
+SERVICE_QUEUE, SERVICE_FAULT_AT = 4, 3
+SERVICE_LONG, SERVICE_DEADLINE_S = 240, 0.05
+SERVICE_SAT_NEW, SERVICE_SUBPROCESS_S = 96, 300
+HANG_S = 1140               # the script's own limit, inside the 1200 s a run has
 # speculative serving (phase_spec): drafts a cycle, cycles a dispatch; the
 # sampled loads' temperature, top-k and seed; the copy-on-write load's
 # prompt length (whole pages of SERVE_PAGE); B4/B6 at the verify shape, q
@@ -1392,9 +1412,10 @@ def phase_train(cfg, dev, kernels, card):
       engine == serial, graphs replayed) on prompts from the validation
       set, every token equal to serial decode of the in-memory artifact.
     Returns (the serve runs as (runs, engine, label), the B7 launches of
-    the training steps, and the trained pair for ``phase_spec``: the
-    trained bf16 params, the loaded artifact's params, the served
-    requests)."""
+    the training steps, the trained pair for ``phase_spec``: the trained
+    bf16 params, the loaded artifact's params, the served requests; and
+    the directory holding the saved artifact, ``<dir>/artifact``, which
+    ``phase_service`` serves and the caller removes)."""
     import tempfile
 
     import torch
@@ -1548,16 +1569,17 @@ def phase_train(cfg, dev, kernels, card):
           f"flash launches {hqp_launches['flash_attention']} over "
           f"{n_forward} forwards  [{card}]")
 
-    # ---- compress once, serve many
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        t0 = time.monotonic()
-        path = ckpt.save_artifact(f"{tmp}/artifact", art)
-        clock("artifact save", t0)
-        art_bytes = sum(f.stat().st_size for f in
-                        pathlib.Path(path).rglob("*") if f.is_file())
-        t0 = time.monotonic()
-        loaded = ckpt.load_artifact(path, device=dev)
-        clock("artifact load", t0)
+    # ---- compress once, serve many; the artifact stays on disk for
+    # phase_service's launcher (the caller removes it)
+    art_dir = tempfile.mkdtemp(dir=scratch)
+    t0 = time.monotonic()
+    path = ckpt.save_artifact(f"{art_dir}/artifact", art)
+    clock("artifact save", t0)
+    art_bytes = sum(f.stat().st_size for f in
+                    pathlib.Path(path).rglob("*") if f.is_file())
+    t0 = time.monotonic()
+    loaded = ckpt.load_artifact(path, device=dev)
+    clock("artifact load", t0)
     if loaded.manifest != m:
         fail("artifact: the loaded manifest differs from the saved one")
     bad = _differ(art.params, loaded.params)
@@ -1603,8 +1625,8 @@ def phase_train(cfg, dev, kernels, card):
     print(f"[train] stage seconds: "
           + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
           + f"  [{card}]")
-    return served, train_launches["flash_attention"], (params,
-                                                        loaded.params, reqs)
+    return (served, train_launches["flash_attention"],
+            (params, loaded.params, reqs), art_dir)
 
 
 def shared_prompt_load(cfg):
@@ -2202,12 +2224,532 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
     return took
 
 
+# ------------------------------------------------------------- service phase
+class _Door:
+    """An ``HttpFrontDoor`` whose event loop runs on a thread of its own, so
+    the script's main thread is a client: it touches no tensor while the
+    door is up, and the door's pump thread does all CUDA work."""
+
+    def __init__(self, svc):
+        import asyncio
+        from repro_torch.serving import HttpFrontDoor
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="door-loop", daemon=True)
+        self.thread.start()
+        self.door = HttpFrontDoor(svc, host="127.0.0.1", port=0)
+        self._call(self.door.start())
+        self.port = self.door.port
+
+    def _call(self, coro, timeout=600):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def stop(self, drain=True) -> None:
+        self._call(self.door.stop(drain=drain))
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+def _http(port, method, path, body=None, timeout=600):
+    """One HTTP/1.1 exchange over a plain socket, read to the server's
+    close: (status line, headers, payload, seconds from the send to the
+    first ``event: token``, or None)."""
+    import socket
+    data = b"" if body is None else json.dumps(body).encode()
+    t0 = time.monotonic()
+    first, buf = None, b""
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        s.sendall(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-"
+                  f"Length: {len(data)}\r\n\r\n".encode() + data)
+        while True:
+            chunk = s.recv(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+            if first is None and b"event: token" in buf:
+                first = time.monotonic() - t0
+    head, _, payload = buf.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = dict(x.split(": ", 1) for x in lines[1:] if ": " in x)
+    return lines[0], headers, payload, first
+
+
+def _generate(port, prompt, max_new, **extra) -> dict:
+    """POST /v1/generate. A 200 gives its tokens (their indices must run
+    0, 1, ...), its terminal events and the client's TTFT; any other status
+    its JSON body."""
+    status, headers, payload, first = _http(
+        port, "POST", "/v1/generate",
+        {"prompt": [int(t) for t in prompt], "max_new_tokens": max_new,
+         **extra})
+    if not status.startswith("HTTP/1.1 200"):
+        return {"status": status, "headers": headers,
+                "body": json.loads(payload)}
+    events = []
+    for block in payload.decode().strip().split("\n\n"):
+        d = dict(line.split(": ", 1) for line in block.splitlines())
+        events.append((d["event"], json.loads(d["data"])))
+    toks = [d for name, d in events if name == "token"]
+    if [d["index"] for d in toks] != list(range(len(toks))):
+        fail(f"SSE stream: token indices {[d['index'] for d in toks]}")
+    return {"status": status, "tokens": [d["token"] for d in toks],
+            "ends": [(name, d) for name, d in events if name != "token"],
+            "ttft_s": first}
+
+
+def _stats(port) -> dict:
+    status, _, payload, _ = _http(port, "GET", "/stats")
+    if not status.startswith("HTTP/1.1 200"):
+        fail(f"GET /stats: {status}")
+    return json.loads(payload)
+
+
+def _wait_stats(port, pred, what, timeout=120) -> dict:
+    t0 = time.monotonic()
+    while True:
+        st = _stats(port)
+        if pred(st):
+            return st
+        if time.monotonic() - t0 > timeout:
+            fail(f"service: {what} not reached in {timeout} s: {st}")
+        time.sleep(0.005)
+
+
+class _Clients:
+    """Client threads, the i-th calling ``fn(*args[i])`` after
+    ``delays[i]`` seconds; ``join`` returns their results in order. They
+    are daemons, so a failed check exits the script even while a stream
+    is open."""
+
+    def __init__(self, fn, args, delays=None):
+        self.out, self.errs = [None] * len(args), []
+
+        def run(i):
+            try:
+                if delays:
+                    time.sleep(delays[i])
+                self.out[i] = fn(*args[i])
+            except BaseException as e:   # fail()'s SystemExit too:
+                self.errs.append(e)      # join raises it again
+        self.threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                        for i in range(len(args))]
+        for t in self.threads:
+            t.start()
+
+    def join(self, timeout=600) -> list:
+        for t in self.threads:
+            t.join(timeout)
+        if any(t.is_alive() for t in self.threads):
+            fail("service: a client thread did not finish")
+        if self.errs:
+            raise self.errs[0]
+        return self.out
+
+
+def _one_end(r, reason, n, what):
+    """A 200 stream with exactly one terminal event: ``done`` with
+    ``reason`` and ``n`` tokens (or ``error``)."""
+    name = "error" if reason == "error" else "done"
+    if not r["status"].startswith("HTTP/1.1 200") or len(r["ends"]) != 1 \
+            or r["ends"][0][0] != name \
+            or r["ends"][0][1]["finish_reason"] != reason \
+            or r["ends"][0][1]["n_tokens"] != n or len(r["tokens"]) != n:
+        fail(f"service {what}: expected one '{name}' ({reason}, {n} tokens),"
+             f" got {r}")
+
+
+def _die_with_parent() -> None:
+    """In a child before it runs: SIGTERM when this script dies, however
+    it dies (Linux ``prctl(PR_SET_PDEATHSIG)``)."""
+    import ctypes
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
+
+
+def _interleaving_scheduler(sched_cfg):
+    """A scheduler that alternates decode dispatches with prefill chunks
+    while both are due, so a speculative dispatch runs with a slot
+    mid-prefill (the port's policy gives prefill priority)."""
+    from repro_torch.serving.scheduler import DECODE, Action, Scheduler
+
+    class Interleave(Scheduler):
+        flip = False
+
+        def next_action(self, prefilling, decoding):
+            self.flip = not self.flip
+            if decoding and (self.flip or not prefilling):
+                return Action(DECODE, slots=tuple(sorted(decoding)))
+            return super().next_action(prefilling, ())
+    return Interleave(sched_cfg)
+
+
+def phase_service(cfg, dev, kernels, params, artifact, card):
+    """The service plane at full width on the card (``serving.service``):
+
+    An in-process ``HttpFrontDoor`` on 127.0.0.1 over a paged (pages of
+    SERVE_PAGE, no prefix cache, so pages return to 0) INT8-KV engine of
+    ``params`` (the seed-0 INT8 PTQ), SERVE_SLOTS slots, max_seq
+    SERVE_MAX_SEQ, queue depth SERVICE_QUEUE, with deadline-feasibility
+    admission. Before the door is up the load runs through ``Engine.run``
+    SERVE_RUNS times on the same engine (eager first uses, captures, then
+    replays), equal to serial decode.
+    Then, with launch counts at 0 and every dispatch recorded (all must run
+    on the pump thread), over plain sockets:
+    - a warm-up request; a SERVICE_LONG-token prompt whose deadline
+      (SERVICE_DEADLINE_S) expires mid-prefill; a client that disconnects
+      after 2 tokens: both slots and their pages freed;
+    - the staggered load from 6 client threads: every stream equals serial
+      decode and ``Engine.run``, one ``done`` each;
+    - the load again with the SERVICE_FAULT_AT-th decode dispatch faulted
+      (a key that would have replayed): exactly that dispatch's requests
+      end with ``event: error``, the others equal serial, /stats counts the
+      faults with no page in use, and a request after it equals serial;
+    - admission: a 0.0001 s deadline gets 429 ``infeasible`` with its
+      Retry-After; n_slots + queue depth requests in flight, then one more
+      gets 429 ``saturated``;
+    - /metrics parses (``telemetry.parse_exposition``) with every family
+      of ``schema.metric_names()``; then ``stop(drain=True)`` with 4
+      requests in flight completes all of them.
+    Then a speculative engine (the bf16 seed-0 parent verifies, ``params``
+    drafts, k SPEC_K, contiguous) whose scheduler interleaves decode with
+    prefill: one injected ``spec`` dispatch fault while a slot is
+    mid-prefill; the dispatch's requests fail, both pools' positions equal
+    the host mirror, and the survivors equal the prefill-route serial
+    decode of the verifier (ROADMAP C6). Last, the launcher's real entry
+    point in a subprocess, ``serve --engine --http --port 0`` on the saved
+    trained artifact (``artifact``: its directory, its loaded params, the
+    validation requests): one SSE request equal to serial decode of the
+    artifact, then SIGTERM: "drained cleanly", exit 0.
+    Returns the launches of the door's session."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models import lm
+    from repro_torch.serving import (AdmissionController, Engine, Request,
+                                     SchedulerConfig, Service, ServiceConfig,
+                                     faults, serial_decode,
+                                     summarize_results)
+    from repro_torch.serving.engine import DECODE, FREE, PREFILL
+    from repro_torch.telemetry import parse_exposition, schema
+    t_phase = time.monotonic()
+    reqs, arrivals = synth_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                                    SERVE_NEW)
+    want = [serial_decode(params, cfg, r.prompt, r.max_new_tokens,
+                          max_seq=SERVE_MAX_SEQ, quantized_kv=True,
+                          device=dev) for r in reqs]
+    sched = SchedulerConfig(prefill_chunk=SERVE_CHUNK,
+                            decode_steps=SERVE_STEPS)
+    eng = Engine(params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                 sched=sched, quantized_kv=True, page_size=SERVE_PAGE,
+                 prefix_cache=False, device=dev)
+    direct = []
+    for run in range(SERVE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.run(reqs, arrivals_s=arrivals)
+        torch.cuda.synchronize()
+        direct.append(summarize_results(res, time.monotonic() - t0))
+        if [res[i].tokens for i in range(len(reqs))] != want:
+            fail(f"service: Engine.run run {run + 1} differs from serial "
+                 f"decode")
+    dispatches = []
+    base = eng.graphs.run
+
+    def record(kind, key, body):
+        dispatches.append((threading.get_ident(), kind, [
+            int(s.prompt.size) for s in eng.slots if s.stage == PREFILL]))
+        return base(kind, key, body)
+    eng.graphs.run = record
+    svc = Service(eng, ServiceConfig(queue_depth=SERVICE_QUEUE),
+                  admission=AdmissionController())
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    door = _Door(svc)
+    port = door.port
+    r = _generate(port, [3, 1, 4, 1, 5, 9], 2)
+    _one_end(r, "length", 2, "warm-up")
+    # ---- check 3: a deadline that expires mid-prefill, a disconnect
+    st0 = _stats(port)
+    long_prompt = np.random.RandomState(5).randint(
+        0, cfg.vocab_size, SERVICE_LONG).tolist()
+    r = _generate(port, long_prompt, 8, deadline_s=SERVICE_DEADLINE_S)
+    _one_end(r, "deadline", 0, "deadline")
+    chunks = sum(1 for _, kind, pre in list(dispatches)
+                 if kind == "prefill" and SERVICE_LONG in pre)
+    if not 0 < chunks < -(-SERVICE_LONG // SERVE_CHUNK):
+        fail(f"service deadline: {chunks} chunks of the "
+             f"{SERVICE_LONG}-token prompt ran: not mid-prefill")
+    seen = faults.http_disconnect_mid_stream(
+        "127.0.0.1", port, {"prompt": reqs[0].prompt, "max_new_tokens": 150},
+        after_tokens=2)
+    st = _wait_stats(port, lambda s: (
+        s["service"]["cancelled"] == st0["service"]["cancelled"] + 1
+        and s["slots_active"] == 0 and s["engine"]["pages_in_use"] == 0),
+        "the disconnected request's slot and pages freed")
+    if st["service"]["expired"] != st0["service"]["expired"] + 1 or \
+            st["engine"]["cancelled"] != st0["engine"]["cancelled"] + 2:
+        fail(f"service: expiry and disconnect not counted: {st}")
+    print(f"[service] deadline {SERVICE_DEADLINE_S} s on a {SERVICE_LONG}-"
+          f"token prompt expired after {chunks} of "
+          f"{-(-SERVICE_LONG // SERVE_CHUNK)} chunks; a client gone after "
+          f"{seen} tokens cancelled: slots and pages freed  [{card}]")
+    # ---- check 1: the staggered load over HTTP
+    t0 = time.monotonic()
+    outs = _Clients(lambda r_: _generate(port, r_.prompt, r_.max_new_tokens),
+                    [(r_,) for r_ in reqs], delays=arrivals).join()
+    wall = time.monotonic() - t0
+    for i, o in enumerate(outs):
+        _one_end(o, "length", SERVE_NEW, f"stream {i}")
+        if o["tokens"] != want[i]:
+            fail(f"service stream {i}: tokens differ from serial decode and "
+                 f"Engine.run\n http   {o['tokens']}\n serial {want[i]}")
+    http_tps = sum(len(o["tokens"]) for o in outs) / wall
+    ttft = sorted(o["ttft_s"] for o in outs)
+    # ---- check 2: a decode fault at a replayed dispatch, a load in flight
+    st0 = _stats(port)
+    h = faults.inject_decode_fault(eng, at=SERVICE_FAULT_AT)
+    injected, at_fault = eng.graphs.run, []
+
+    def outer(kind, key, body):      # sees the faulting call too
+        if kind in faults.DECODE_KINDS:
+            at_fault.append(((kind, key) in eng.graphs._graphs, {
+                tuple(s.prompt.tolist()) for s in eng.slots
+                if s.stage == DECODE}))
+        return injected(kind, key, body)
+    eng.graphs.run = outer
+    outs = _Clients(lambda r_: _generate(port, r_.prompt, r_.max_new_tokens),
+                    [(r_,) for r_ in reqs], delays=arrivals).join()
+    eng.graphs.run = injected
+    h.restore()
+    replayed, batch = at_fault[SERVICE_FAULT_AT - 1]
+    if h.fired != 1 or not replayed:
+        fail(f"service fault: fired {h.fired}, at a captured key: "
+             f"{replayed}")
+    errored = {i for i, o in enumerate(outs)
+               if o["ends"] and o["ends"][0][0] == "error"}
+    if {tuple(reqs[i].prompt) for i in errored} != batch or not errored:
+        fail(f"service fault: requests {sorted(errored)} ended in error, "
+             f"the faulted dispatch held {len(batch)}")
+    for i, o in enumerate(outs):
+        if i in errored:
+            if len(o["ends"]) != 1 or \
+                    o["ends"][0][1]["finish_reason"] != "error":
+                fail(f"service fault: stream {i} ends {o['ends']}")
+        else:
+            _one_end(o, "length", SERVE_NEW, f"fault load {i}")
+            if o["tokens"] != want[i]:
+                fail(f"service fault: survivor {i} differs from serial")
+    st = _wait_stats(port, lambda s: s["slots_active"] == 0,
+                     "the fault load drained")
+    n_err = len(errored)
+    if (st["service"]["faults"] - st0["service"]["faults"],
+            st["engine"]["faults"] - st0["engine"]["faults"],
+            st["engine"]["pages_in_use"]) != (n_err, n_err, 0):
+        fail(f"service fault: /stats {st} after {n_err} errored")
+    r = _generate(port, reqs[0].prompt, SERVE_NEW)
+    if r["tokens"] != want[0]:
+        fail("service: the request after the fault differs from serial")
+    print(f"[service] decode fault at dispatch {SERVICE_FAULT_AT} (a "
+          f"captured key): {n_err} of {len(reqs)} requests ended with event: "
+          f"error (that dispatch's), the rest and a request after it equal "
+          f"serial decode; faults {n_err}, pages_in_use 0  [{card}]")
+    # ---- check 4: admission
+    r = _generate(port, reqs[1].prompt, SERVE_NEW, deadline_s=0.0001)
+    if not r["status"].startswith("HTTP/1.1 429") or \
+            r["body"].get("error") != "infeasible" or \
+            "retry_after_s" not in r["body"] or \
+            "Retry-After" not in r["headers"]:
+        fail(f"service: a 0.0001 s deadline was not shed infeasible: {r}")
+    infeasible = r["body"]
+    st0 = _stats(port)
+    cap = SERVE_SLOTS + SERVICE_QUEUE
+    sat = _Clients(lambda r_: _generate(port, r_.prompt, SERVICE_SAT_NEW),
+                   [(reqs[i % len(reqs)],) for i in range(cap)])
+    _wait_stats(port, lambda s: s["slots_active"] + s["queued"] == cap
+                and s["service"]["submitted"]
+                == st0["service"]["submitted"] + cap,
+                f"{cap} requests in flight")
+    r = _generate(port, reqs[2].prompt, 4)
+    if not r["status"].startswith("HTTP/1.1 429") or \
+            r["body"].get("error") != "saturated":
+        fail(f"service: request {cap + 1} was not shed saturated: {r}")
+    for i, o in enumerate(sat.join()):
+        _one_end(o, "length", SERVICE_SAT_NEW, f"saturating load {i}")
+    print(f"[service] admission: deadline 0.0001 s -> 429 {infeasible}; "
+          f"{cap} in flight -> 429 {r['body']}  [{card}]")
+    # ---- check 7: metrics
+    status, headers, payload, _ = _http(port, "GET", "/metrics")
+    parsed = parse_exposition(payload.decode())
+    missing = set(schema.metric_names()) - set(parsed["types"])
+    if not status.startswith("HTTP/1.1 200") or missing:
+        fail(f"service /metrics: {status}, families missing {missing}")
+    # ---- check 6: drain with requests in flight
+    st0 = _stats(port)
+    drain = _Clients(lambda r_: _generate(port, r_.prompt, SERVE_NEW),
+                     [(r_,) for r_ in reqs[:4]])
+    _wait_stats(port, lambda s: s["service"]["submitted"]
+                == st0["service"]["submitted"] + 4, "4 requests admitted")
+    t_stop = time.monotonic()
+    door.stop(drain=True)
+    stop_s = time.monotonic() - t_stop
+    for i, o in enumerate(drain.join()):
+        _one_end(o, "length", SERVE_NEW, f"drained {i}")
+        if o["tokens"] != want[i]:
+            fail(f"service drain: request {i} differs from serial")
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    pump = door.door._pump_thread.ident
+    threads = {t for t, _, _ in dispatches}
+    if threads != {pump} or door.door.pump_error is not None:
+        fail(f"service: dispatches ran on threads {threads}, the pump is "
+             f"{pump}; pump error {door.door.pump_error!r}")
+    idle = [n for n in DENSE + PAGED if not launches[n]]
+    stray = [n for n in CONTIGUOUS + UNFUSED if launches[n]]
+    if idle or stray:
+        fail(f"service: kernels idle {idle}, stray {stray}: {launches}")
+    # mean and median (a bucket's upper edge) of each phase: the means
+    # carry the session's eager first uses and captures, the medians the
+    # replays
+    phases = {p: (h.sum / h.count * 1e3, h.quantile(0.5) * 1e3)
+              for p, h in svc._phase_hists.items() if h.count}
+    s = svc.stats
+    print(f"[service] HTTP front door, paged INT8 KV page {SERVE_PAGE}, "
+          f"{SERVE_SLOTS} slots, queue {SERVICE_QUEUE}: staggered load "
+          f"{http_tps:.2f} tok/s over HTTP against Engine.run "
+          f"{direct[-1]['tokens_per_s']:.2f} warm (run {SERVE_RUNS} of "
+          f"{SERVE_RUNS}; cold {direct[0]['tokens_per_s']:.2f}), client "
+          f"TTFT p50 {ttft[(len(ttft) - 1) // 2] * 1e3:.1f} ms (Engine.run "
+          f"warm {direct[-1]['ttft_p50_ms']:.1f}); step phases ms, mean / "
+          f"median bucket "
+          + ", ".join(f"{p} {m:.3f} / {q:.3g}"
+                      for p, (m, q) in phases.items())
+          + f"; faults {s['faults']}, shed {s['shed']} (infeasible "
+          f"{s['shed_infeasible']}), expired {s['expired']}, cancelled "
+          f"{s['cancelled']}, completed {s['completed']}; {len(dispatches)} "
+          f"dispatches, all on the pump thread; drain {stop_s:.2f} s; "
+          f"launches {launches}  [{card}]")
+    # ---- check 5: a speculative dispatch fault with a slot mid-prefill
+    verifier = lm.init_params(cfg, seed=0, device=dev)
+    seng = Engine(verifier, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                  sched=sched, device=dev, draft_params=params,
+                  spec_k=SPEC_K, spec_cycles=SPEC_CYCLES)
+    seng.scheduler = _interleaving_scheduler(sched)
+    mid = np.random.RandomState(6).randint(0, cfg.vocab_size, 120).tolist()
+    sreqs = [Request(prompt=reqs[0].prompt, max_new_tokens=24),
+             Request(prompt=reqs[1].prompt, max_new_tokens=24),
+             Request(prompt=mid, max_new_tokens=16),
+             Request(prompt=reqs[2].prompt, max_new_tokens=16)]
+    oracle = {i: serial_decode(verifier, cfg, sreqs[i].prompt,
+                               sreqs[i].max_new_tokens, max_seq=SERVE_MAX_SEQ,
+                               device=dev, route="prefill") for i in (2, 3)}
+    inner, fired = seng.graphs.run, []
+
+    def inject(kind, key, body):
+        if kind == "spec" and not fired and any(
+                sl.stage == PREFILL for sl in seng.slots):
+            fired.append({sl.result.uid for sl in seng.slots
+                          if sl.stage == DECODE})
+            raise faults.InjectedFault("injected: spec dispatch")
+        return inner(kind, key, body)
+    seng.graphs.run = inject
+    absorb, mirror = seng._absorb_fault, []
+
+    def checked():
+        absorb()
+        mirror.append([(name, sl.idx) for sl in seng.slots
+                       if sl.stage != FREE
+                       for name, pool in (("verifier", seng.pool),
+                                          ("drafter", seng.draft_pool))
+                       if int(pool["pos"][sl.idx]) != seng._host_pos(sl)])
+    seng._absorb_fault = checked
+    sres = seng.run(sreqs, arrival_ticks=[0, 0, 6, 60])
+    errored = {sres[i].uid for i in sres if sres[i].finish_reason == "error"}
+    if len(fired) != 1 or errored != fired[0] or mirror != [[]]:
+        fail(f"service spec fault: fired {fired}, errored {errored}, "
+             f"positions off the mirror {mirror}")
+    for i, toks in oracle.items():
+        if sres[i].tokens != toks:
+            fail(f"service spec fault: survivor {i} differs from the "
+                 f"prefill-route serial decode of the verifier")
+    print(f"[service] speculative (k {SPEC_K}, contiguous, interleaved "
+          f"scheduler): a spec dispatch fault with a slot mid-prefill failed "
+          f"its {len(errored)} requests; both pools' positions equal the "
+          f"host mirror; the survivor mid-prefill and a later request equal "
+          f"the prefill-route serial decode  [{card}]")
+    del seng, verifier
+    # ---- check 8: the launcher's serve --engine --http in a subprocess
+    art_dir, art_params, treqs = artifact
+    treq = treqs[0]
+    art_want = serial_decode(art_params, cfg, treq.prompt,
+                             treq.max_new_tokens, max_seq=SERVE_MAX_SEQ,
+                             quantized_kv=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "repro_torch.launch.serve", "--engine",
+         "--http", "--port", "0", "--page-size", str(SERVE_PAGE),
+         "--no-prefix-cache", "--max-seq", str(SERVE_MAX_SEQ),
+         "--load-artifact", f"{art_dir}/artifact", "--watchdog-s", "120"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=_die_with_parent)
+    lines, listening = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "listening on" in line:
+                listening.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not listening.wait(SERVICE_SUBPROCESS_S):
+            fail("serve --http: not listening in time:\n" + "".join(lines))
+        sub_port = int(next(x for x in lines if "listening on" in x)
+                       .split("http://127.0.0.1:")[1].split()[0])
+        ready_s = time.monotonic() - t0
+        r = _generate(sub_port, treq.prompt, treq.max_new_tokens)
+        _one_end(r, "length", treq.max_new_tokens, "serve --http")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(SERVICE_SUBPROCESS_S)
+        reader.join(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    out = "".join(lines)
+    if proc.returncode != 0 or "drained cleanly" not in out:
+        fail(f"serve --http: exit {proc.returncode}\n{out}")
+    if r["tokens"] != art_want:
+        fail(f"serve --http: tokens differ from serial decode of the "
+             f"artifact\n http   {r['tokens']}\n serial {art_want}")
+    print(f"[service] serve --engine --http --load-artifact (the trained "
+          f"artifact, pages of {SERVE_PAGE}): listening after "
+          f"{ready_s:.1f} s, one SSE request equal to serial decode of the "
+          f"artifact, SIGTERM -> drained cleanly, exit 0; "
+          + " | ".join(x.strip() for x in lines if x.startswith("[http]"))
+          + f"  [{card}]")
+    print(f"[service] phase {time.monotonic() - t_phase:.1f} s  [{card}]")
+    # the engines here are cyclic garbage (a Service and its engine, the
+    # wrappers that record their dispatches): free their device memory now
+    del eng, svc, door
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # lines reach a pipe as they are printed, and a hang dumps every
+    # thread's stack and exits nonzero before the 1200 s limit
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2418,12 +2960,20 @@ def main() -> int:
     del pruned_params, ragged
 
     # train, then compress once and serve many
-    served, train_launches, trained = phase_train(cfg, dev, kernels, card)
+    served, train_launches, trained, art_dir = phase_train(cfg, dev, kernels,
+                                                           card)
     for runs, eng, label in served:
         line(runs, eng, label)
     del served
     # seeded sampling and self-speculative serving
     phase_spec(cfg, dev, kernels, params, trained, report, card)
+    # the service plane: the front door in process, then the launcher's
+    # serve --engine --http on the saved trained artifact
+    try:
+        service_launches = phase_service(cfg, dev, kernels, params,
+                                         (art_dir, *trained[1:]), card)
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
     del trained
     for layout, tot in graph_totals.items():
         print(f"[graphs] {layout}: {tot['loads']} serve loads, "
@@ -2462,6 +3012,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "service_launches": service_launches[name],
             **({"also_replaces": "src/repro/kernels/"
                                  + replaces["quantize_rowwise"]}
                if name == "int8_matmul_quant" else {}),

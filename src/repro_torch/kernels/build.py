@@ -38,6 +38,12 @@ logs: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel that did not build or did not launch. The serving
+    engine's fault boundary never absorbs one: a failing kernel stays
+    visible."""
+
+
 def sources() -> Sequence[str]:
     """Names of every kernel source (``csrc/<name>.cu``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -46,7 +52,7 @@ def sources() -> Sequence[str]:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
@@ -124,7 +130,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         logs[n] = log
         took[n] = time.monotonic() - t0
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
 
 
@@ -169,7 +175,7 @@ class Kernel:
     def launch(self, *args, stream: int) -> None:
         code = self.load()(*args, stream)
         if code != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+            raise KernelError(f"{self.symbol} launch failed: CUDA error "
                                f"{code} ({self._err(code).decode()})")
         self.launches += 1
 

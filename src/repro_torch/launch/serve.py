@@ -31,27 +31,43 @@ not its token sequence.
   python -m repro_torch.launch.serve --smoke --device cpu --engine --hqp \
       --spec-k 4 --verify
   python -m repro_torch.launch.serve --smoke --device cpu --engine \
-      --temperature 0.8 --top-k 50 --seed 7"""
+      --temperature 0.8 --top-k 50 --seed 7
+
+``--engine`` serves ``--batch`` staggered synthetic requests, or replays a
+JSONL request trace (``--trace``). ``--http`` serves live requests instead:
+the engine behind the HTTP/1.1 front door (``serving.service``), tokens
+streamed as server-sent events, with bounded admission (``--queue-depth``),
+deadlines (``--deadline-s``, per request ``deadline_s``), deadline-
+feasibility shedding (off with ``--no-feasibility``), a pump watchdog
+(``--watchdog-s``), Prometheus ``GET /metrics``, and a drain on SIGTERM.
+``--trace-dir`` writes the engine's spans (Chrome trace and JSONL) after
+the run, ``--profile-dir`` a ``torch.profiler`` Chrome trace of it.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --engine --http \
+      --port 8080 --page-size 16 --no-prefix-cache
+  curl -N -d '{"prompt_len": 8, "max_new_tokens": 4}' \
+      http://127.0.0.1:8080/v1/generate"""
 from __future__ import annotations
 
 import argparse
+import json
+import pathlib
 import time
 
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device, tree
+from repro_torch import configs, resolve_device, telemetry, tree
 from repro_torch.compress.artifact import HQPArtifact, compress
 from repro_torch.core.pipeline import HQPConfig
 from repro_torch.core.sensitivity import fisher_diag, loss_grad_fn
 from repro_torch.launch.checkpoint import load_artifact, save_artifact
 from repro_torch.models import lm
-from repro_torch.serving import (Engine, Request, SchedulerConfig,
-                                 serial_decode, summarize_results)
+from repro_torch.serving import (AdmissionController, Engine, Request,
+                                 SchedulerConfig, serial_decode,
+                                 summarize_results)
 from repro_torch.serving import sampling as smp
 from repro_torch.train.train_step import make_eval_step
-
-N_REQUESTS = 4
 
 
 def synth_requests(cfg, n: int, prompt_len: int, max_new_tokens: int,
@@ -131,6 +147,132 @@ def acquire_params(args, cfg, device, log=print):
     return params, False, None, None
 
 
+# ------------------------------------------------------------------ engine
+def _attach_tracer(eng, trace_dir):
+    """A span recorder on the engine when ``--trace-dir`` asks for one: a
+    passive sink the engine stamps with its own clock."""
+    if not trace_dir:
+        return None
+    eng.tracer = telemetry.SpanRecorder()
+    return eng.tracer
+
+
+def _write_tracer(tracer, trace_dir, log):
+    if tracer is None:
+        return
+    trace_path, jsonl_path = telemetry.write_trace(trace_dir, tracer)
+    log(f"[trace] wrote {trace_path} (Perfetto/chrome://tracing) and "
+        f"{jsonl_path}")
+
+
+def _profiler(profile_dir, device):
+    """``--profile-dir``: a ``torch.profiler`` (not started) to run over
+    the engine's work, the card's kernels included on CUDA. A profiler
+    that fails raises."""
+    if not profile_dir:
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def _write_profile(prof, profile_dir, log) -> None:
+    if prof is None:
+        return
+    path = pathlib.Path(profile_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / "profile.json"))
+    log(f"[profile] torch.profiler trace written to {path / 'profile.json'}")
+
+
+def load_trace(path: str, cfg, seed: int = 0):
+    """JSONL request trace: one object per line with ``arrival_s`` (float,
+    offset from replay start) and either ``prompt`` (token ids) or
+    ``prompt_len`` (synthesized from ``seed``); optional ``max_new_tokens``
+    (default 16) and ``eos_id``."""
+    rng = np.random.RandomState(seed)
+    reqs, arrivals = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            if "prompt" in d:
+                prompt = d["prompt"]
+                if not prompt:
+                    raise ValueError(f"trace line has an empty prompt: {d}")
+            elif "prompt_len" in d:
+                prompt = rng.randint(
+                    0, cfg.vocab_size, int(d["prompt_len"])).tolist()
+            else:
+                raise ValueError(
+                    f"trace line needs 'prompt' or 'prompt_len': {d}")
+            reqs.append(Request(prompt=prompt,
+                                max_new_tokens=int(d.get("max_new_tokens",
+                                                         16)),
+                                eos_id=d.get("eos_id")))
+            arrivals.append(float(d.get("arrival_s", 0.0)))
+    return reqs, arrivals
+
+
+def build_engine(params, cfg, args, quantized_kv: bool, device,
+                 sampling=None, draft=None) -> Engine:
+    """One Engine from the serve flags, shared by the synthetic or trace
+    replay (``run_engine``) and the HTTP front door (``serve_http``).
+    ``draft`` = (draft params, manifest) makes it speculative."""
+    return Engine(params, cfg, n_slots=args.engine_slots,
+                  max_seq=args.max_seq,
+                  sched=SchedulerConfig(prefill_chunk=args.prefill_chunk,
+                                        decode_steps=args.decode_steps),
+                  quantized_kv=quantized_kv, device=device,
+                  page_size=args.page_size or None,
+                  total_pages=args.total_pages or None,
+                  prefix_cache=not args.no_prefix_cache, sampling=sampling,
+                  **({} if draft is None else dict(
+                      draft_params=draft[0], draft_manifest=draft[1],
+                      spec_k=args.spec_k)))
+
+
+def serve_http(params, cfg, args, quantized_kv: bool, device, log=print,
+               sampling=None, draft=None):
+    """``serve --http``: the engine behind the SSE front door, until
+    SIGTERM or SIGINT, then a drain of the requests in flight. Before it
+    listens, one warm-up request runs twice: its first run makes each of
+    its dispatch keys' eager first use, the second their capture (on the
+    card), so the first client's TTFT measures serving. The warm-up's
+    counters are then zeroed."""
+    from repro_torch.serving.service import Service, ServiceConfig, run_http
+    eng = build_engine(params, cfg, args, quantized_kv, device,
+                       sampling=sampling, draft=draft)
+    t0 = time.monotonic()
+    for _ in range(2):
+        eng.run([Request(prompt=[3, 1, 4, 1, 5, 9], max_new_tokens=2)])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log(f"[http] warm-up: {time.monotonic() - t0:.1f}s, "
+        f"{eng.stats['eager_dispatches']} eager dispatches, "
+        f"{eng.stats['graphs_captured']} CUDA graphs captured")
+    for key, (kind, _) in telemetry.schema.ENGINE_STATS.items():
+        if kind == "counter" and key in eng.stats:
+            eng.stats[key] = type(eng.stats[key])(0)
+    admission = None if args.no_feasibility else AdmissionController()
+    svc = Service(eng, ServiceConfig(queue_depth=args.queue_depth,
+                                     default_deadline_s=args.deadline_s),
+                  admission=admission)
+    # attached after the warm-up: the trace starts at the first client's
+    # submit
+    tracer = _attach_tracer(eng, args.trace_dir)
+    # the profiler runs on the pump thread, where the engine's work runs
+    prof = _profiler(args.profile_dir, device)
+    run_http(svc, host=args.host, port=args.port, log=log,
+             watchdog_s=args.watchdog_s or None, pump_context=prof)
+    _write_profile(prof, args.profile_dir, log)
+    _write_tracer(tracer, args.trace_dir, log)
+    return svc
+
+
 def run_engine(params, cfg, args, quantized_kv: bool, device, log=print,
                sampling=None, draft=None):
     """``draft`` = (draft params, manifest) makes the engine speculative:
@@ -140,27 +282,34 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print,
     steps take the prefill route, as the verify pass does (on the CPU
     both routes give the same bits, on the card near ties may break
     apart)."""
-    reqs, arrivals = synth_requests(cfg, N_REQUESTS, args.prompt_len,
-                                    args.tokens)
+    if args.trace:
+        reqs, arrivals = load_trace(args.trace, cfg)
+        log(f"[engine] replaying trace {args.trace}: {len(reqs)} requests")
+    else:
+        n = max(3, args.batch)
+        reqs, arrivals = synth_requests(cfg, n, args.prompt_len, args.tokens)
+        log(f"[engine] synthetic load: {n} staggered requests")
+    if not reqs:
+        raise SystemExit("[engine] trace contains no requests")
     need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
     if need > args.max_seq:
         raise SystemExit(f"requests need max-seq >= {need}, "
                          f"got {args.max_seq}")
-    eng = Engine(params, cfg, n_slots=args.engine_slots, max_seq=args.max_seq,
-                 sched=SchedulerConfig(prefill_chunk=args.prefill_chunk,
-                                       decode_steps=args.decode_steps),
-                 quantized_kv=quantized_kv, device=device,
-                 page_size=args.page_size or None,
-                 total_pages=args.total_pages or None,
-                 prefix_cache=not args.no_prefix_cache, sampling=sampling,
-                 **({} if draft is None else dict(
-                     draft_params=draft[0], draft_manifest=draft[1],
-                     spec_k=args.spec_k)))
+    eng = build_engine(params, cfg, args, quantized_kv, device,
+                       sampling=sampling, draft=draft)
+    tracer = _attach_tracer(eng, args.trace_dir)
+    prof = _profiler(args.profile_dir, device)
+    if prof is not None:
+        prof.start()
     t0 = time.monotonic()
     results = eng.run(reqs, arrivals_s=arrivals)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.monotonic() - t0
+    if prof is not None:
+        prof.stop()
+    _write_profile(prof, args.profile_dir, log)
+    _write_tracer(tracer, args.trace_dir, log)
     stats = {**summarize_results(results, wall), **eng.stats}
     stats["acceptance_rate"] = (eng.stats["accepted_tokens"]
                                 / max(eng.stats["drafted_tokens"], 1))
@@ -211,12 +360,12 @@ def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print,
         at = torch.full((logits.shape[0],), pos, device=device)
         return smp.sample_batch(logits[:, -1], scfg, base, at)[:, None]
 
-    state = lm.init_decode_state(cfg, N_REQUESTS, args.max_seq,
+    state = lm.init_decode_state(cfg, args.batch, args.max_seq,
                                  params=params, quantized_kv=quantized_kv,
                                  device=device)
     rng = np.random.RandomState(0)
     prompts = torch.as_tensor(rng.randint(
-        0, cfg.vocab_size, (N_REQUESTS, args.prompt_len)), device=device)
+        0, cfg.vocab_size, (args.batch, args.prompt_len)), device=device)
     logits, state = lm.decode_step(params, cfg, state, prompts,
                                    route="prefill")
     pos = args.prompt_len
@@ -232,7 +381,7 @@ def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print,
     out = torch.cat(outputs, dim=1).cpu().numpy()
     t_decode = time.monotonic() - t0
     log(f"[serve] decode {args.tokens - 1} steps on {device}: "
-        f"{N_REQUESTS * (args.tokens - 1) / max(t_decode, 1e-9):.1f} tok/s")
+        f"{args.batch * (args.tokens - 1) / max(t_decode, 1e-9):.1f} tok/s")
     log(f"[serve] sample continuation (req 0): {out[0][:16]}")
     return out
 
@@ -244,6 +393,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="requests of the lockstep batch, and of the "
+                         "engine's synthetic load (at least 3)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--hqp", action="store_true",
@@ -285,10 +437,60 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="sampling seed: the same seed gives the same "
                          "tokens, engine and serial alike")
+    ap.add_argument("--trace", default=None,
+                    help="JSONL request trace to replay (engine mode): "
+                         "arrival_s, prompt or prompt_len, max_new_tokens, "
+                         "eos_id a line")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write the engine's per-request spans here after "
+                         "the run: trace.json (Chrome trace-event JSON, for "
+                         "Perfetto or chrome://tracing) and spans.jsonl")
+    ap.add_argument("--profile-dir", default=None,
+                    help="run the engine under torch.profiler and write its "
+                         "Chrome trace here (profile.json)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP with SSE token streaming instead "
+                         "of a synthetic load or a trace (implies --engine; "
+                         "blocks until SIGTERM, then drains the requests "
+                         "in flight)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="HTTP bind address (--http)")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="HTTP bind port; 0 picks a free port (--http)")
+    ap.add_argument("--queue-depth", type=int, default=16,
+                    help="admission bound beyond the slots: past slots + "
+                         "depth requests in flight a submit is shed with 429 "
+                         "(--http)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="default per-request deadline in seconds; an "
+                         "expired request is evicted wherever it is and "
+                         "streams finish_reason=deadline (--http; a "
+                         "request's 'deadline_s' wins)")
+    ap.add_argument("--no-feasibility", action="store_true",
+                    help="no deadline-feasibility admission (the EWMA "
+                         "throughput predictor that sheds a deadlined "
+                         "request it cannot serve in time); the static "
+                         "slots + queue-depth bound always holds")
+    ap.add_argument("--watchdog-s", type=float, default=300.0,
+                    help="pump watchdog: if the engine thread makes no "
+                         "progress for this long the server exits 2 "
+                         "instead of hanging (0 = off; --http). On the "
+                         "card a dispatch key's first use runs eagerly "
+                         "(~50-75 ms at full width) and its second "
+                         "captures a CUDA graph (~0.15 s), so a value of "
+                         "seconds or less fires on a cold server")
     ap.add_argument("--verify", action="store_true", default=None,
                     help="check engine outputs == serial decode "
                          "(default: on under --smoke)")
     args = ap.parse_args(argv)
+    if args.http:
+        args.engine = True           # the front door is an engine transport
+        if args.trace:
+            ap.error("--http serves live requests; --trace replays a file — "
+                     "pick one")
+    if (args.trace_dir or args.profile_dir or args.trace) \
+            and not args.engine:
+        ap.error("--trace/--trace-dir/--profile-dir need --engine")
     if args.hqp and args.load_artifact:
         ap.error("--hqp builds an artifact; --load-artifact loads one — "
                  "pick one")
@@ -329,6 +531,9 @@ def main(argv=None):
                 parent = lm.init_params(cfg, seed=0, device=device)
             draft = (params, manifest)
             params, quantized_kv = parent, False    # the bf16 verifier
+        if args.http:
+            return serve_http(params, cfg, args, quantized_kv, device,
+                              sampling=sampling, draft=draft).stats
         return run_engine(params, cfg, args, quantized_kv, device,
                           sampling=sampling, draft=draft)[1]
     return run_lockstep(params, cfg, args, quantized_kv, device,

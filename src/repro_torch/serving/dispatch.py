@@ -9,7 +9,10 @@ makes whatever the kernels make at first use (a library loaded, B1's
 split-K and B3/B5's split-KV workspaces, which ``build.Workspaces`` refuses
 to make inside a capture). The second use captures ``body``, which executes
 nothing, and replays the graph for the real dispatch; every later use
-replays. A key seen once never pays for a capture. On the CPU ``body`` runs
+replays. A key seen once never pays for a capture. A first use that raises
+leaves its key unseen, so the next use runs eagerly again; a capture that
+raises keeps no graph, so the next use captures again (the engine's fault
+boundary serves on after both). On the CPU ``body`` runs
 eagerly every time (dispatch by device, as ``kernels.ops``). Nothing turns
 the graphs off and nothing falls back: a capture or a replay that fails
 raises.
@@ -28,6 +31,7 @@ launches its body counted (``build.Kernel.launches``) are taken back, and
 credited again on every replay."""
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable
 
@@ -109,15 +113,16 @@ class GraphCache:
         replayed from then on."""
         seen = self.keys[kind]
         first = key not in seen
-        if first:
-            if len(seen) >= self.bounds[kind]:
-                raise RuntimeError(
-                    f"{kind} dispatch key {key!r} would be the "
-                    f"{len(seen) + 1}-th, past the bound of "
-                    f"{self.bounds[kind]}: {sorted(seen, key=repr)}")
-            seen.add(key)
+        if first and len(seen) >= self.bounds[kind]:
+            raise RuntimeError(
+                f"{kind} dispatch key {key!r} would be the "
+                f"{len(seen) + 1}-th, past the bound of "
+                f"{self.bounds[kind]}: {sorted(seen, key=repr)}")
         if first or self.device.type != "cuda":
             body()
+            # seen only once its eager use returned: a first use that
+            # raised may not have made what a capture needs made before it
+            seen.add(key)
             self.stats["eager_dispatches"] += 1
             return
         entry = self._graphs.get((kind, key))
@@ -143,13 +148,26 @@ class GraphCache:
         reserved = torch.cuda.memory_reserved(self.device)
         before = [k.launches for k in build.KERNELS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            body()
         credits = []
-        for kern, n0 in zip(build.KERNELS, before):
-            if kern.launches != n0:
-                credits.append((kern, kern.launches - n0))
-                kern.launches = n0
+        # no cyclic garbage collection while capturing: a collection could
+        # free a dead engine's graphs (a Service and its engine hold each
+        # other) and destroying a graph mid-capture, from any thread,
+        # invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
+            # a capture launches nothing, whether it ended or raised (then
+            # the half-made graph is dropped and the key captured again at
+            # its next use)
+            for kern, n0 in zip(build.KERNELS, before):
+                if kern.launches != n0:
+                    credits.append((kern, kern.launches - n0))
+                    kern.launches = n0
         self.stats["graph_pool_bytes"] += (
             torch.cuda.memory_reserved(self.device) - reserved)
         self.stats["graphs_captured"] += 1

@@ -50,9 +50,26 @@ at pos-1), so it parks the rows that are not live past ``max_seq`` for
 the dispatch (``speculative.park_position``), and a shared page that a
 live row's healing chunk writes into is copied first (copy-on-write).
 
-A fault in a step propagates to the caller: request-scoped fault isolation
-comes with the service plane (ROADMAP), and catching every exception here
-would hide a kernel that fails.
+Request-scoped fault isolation (``step``): a fault in a tick that leaves
+the CUDA context usable (``absorbable``) fails only the requests the
+failing phase was working on, and the engine serves on. The pool is
+written in place, never donated, so a dispatch that raised part way may
+have written some of it: every slot it touched fails, and every slot that
+survives gets its device position back from the host's mirror, in both
+pools (a speculative dispatch parks the rows that are not live). A CUDA
+error (``torch.AcceleratorError``), a kernel that did not build or launch
+(``build.KernelError``) and an ``AssertionError`` propagate: a failing
+kernel and a broken invariant stay visible.
+
+``cancel`` frees a request wherever it is (queued, mid-prefill, mid-decode),
+``last_step`` holds the measurement of the last tick (its wall time split
+into ``telemetry.schema.PHASES`` and its token deltas), ``on_token`` streams
+each emitted token and ``tracer`` (a ``telemetry.SpanRecorder``) records
+spans, all on the injectable ``clock``. On the card a dispatch returns once
+its work is enqueued: under CUDA graphs ``prefill_dispatch`` and
+``decode_scan`` time the enqueue of a replay (or a key's eager first use,
+or its capture), and ``host_sync`` (the harvest of the dispatch's tokens)
+carries the device time.
 """
 from __future__ import annotations
 
@@ -64,7 +81,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.kv_layout import page_count
 from repro_torch.models import lm
 from repro_torch.serving import sampling as smp
@@ -76,6 +94,20 @@ from repro_torch.serving.speculative import (SpecDecoder, park_position,
                                              pool_margin)
 
 FREE = "free"
+
+# what a tick never absorbs, though a RuntimeError: a CUDA error (sticky,
+# it poisons the context) and a kernel that did not build or launch
+FATAL = (torch.AcceleratorError, KernelError)
+
+
+def absorbable(exc: BaseException) -> bool:
+    """Whether a fault in a tick leaves the engine able to serve on: an
+    injected fault, ``MemoryError`` from the page allocator,
+    ``torch.OutOfMemoryError`` from the caching allocator, or a
+    ``ValueError`` / ``RuntimeError`` raised by host code; never a CUDA
+    error, a kernel's failure or an ``AssertionError``."""
+    return (isinstance(exc, (MemoryError, ValueError, RuntimeError))
+            and not isinstance(exc, FATAL))
 
 
 @dataclasses.dataclass
@@ -94,7 +126,7 @@ class RequestResult:
     uid: int
     prompt_len: int
     tokens: List[int]                 # generated ids (EOS included if hit)
-    finish_reason: str                # "eos" | "length"
+    finish_reason: str                # "eos" | "length" | "error"
     t_submit: float
     t_admit: float = 0.0
     t_first_token: float = 0.0
@@ -170,7 +202,12 @@ class Engine:
     and decode writes start at the prompt's end. A speculative healing
     chunk writes at pos-1, which lies in the last shared page when the
     prompt is page-aligned: that page is copied in both arenas first
-    (``stats["cow_copies"]``)."""
+    (``stats["cow_copies"]``).
+
+    ``clock`` is the monotonic clock behind every timestamp the engine
+    takes: request times, ``last_step`` and the tracer's spans. A
+    ``serving.Service`` points it at its own clock, so one fake clock
+    drives the whole plane in tests."""
 
     def __init__(self, params: Any, cfg, n_slots: int = 4,
                  max_seq: int = 128, sched: Optional[SchedulerConfig] = None,
@@ -181,7 +218,8 @@ class Engine:
                  sampling: Optional[smp.SamplingConfig] = None,
                  draft_params: Any = None, spec_k: int = 4,
                  spec_cycles: int = 1, draft_manifest=None,
-                 draft_quantized_kv: bool = True):
+                 draft_quantized_kv: bool = True,
+                 clock=telemetry.default_clock):
         self.device = resolve_device(device)
         if lm.params_device(params) != self.device:
             raise ValueError(f"params lie on {lm.params_device(params)}, "
@@ -242,7 +280,23 @@ class Engine:
         self.waiting: List[Request] = []
         self._uid = itertools.count()
         self.ticks = 0
-        self.clock = time.monotonic
+        self.clock = clock
+        # optional telemetry.SpanRecorder: a passive sink fed the engine's
+        # timestamps; None costs nothing
+        self.tracer: Optional[telemetry.SpanRecorder] = None
+        # the last tick's measurement: {"wall_s", "phases",
+        # "prefill_tokens", "decode_tokens"}; the service feeds its
+        # admission EWMAs and phase histograms from it
+        self.last_step: Optional[dict] = None
+        self._ph: Dict[str, float] = {}
+        self._finished: List[RequestResult] = []
+        # optional per-token sink, on_token(uid, token), called for every
+        # emitted token before its request's finish bookkeeping
+        self.on_token = None
+        # the blast radius of whatever raises next: ("admit", request,
+        # slot) | ("slots", [idx, ...]) | None, set before each phase that
+        # can fail
+        self._fault_phase = None
         # drafted_tokens counts the candidates the device made for slots
         # live at dispatch (speculative drafts, or plain decode steps,
         # those burnt by slots that stopped mid-dispatch included);
@@ -258,6 +312,7 @@ class Engine:
                       "kv_bytes": kv_bytes, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "bytes_saved": 0,
                       "pages_in_use": 0, "pages_peak": 0,
+                      "cancelled": 0, "faults": 0,
                       "kv_bytes_peak": 0 if self.paged else kv_bytes}
         # the reference's max_lowerings: one decode executable per window
         # bucket, one prefill executable per (window, chunk width), and here
@@ -410,12 +465,43 @@ class Engine:
         uid = next(self._uid)
         req = dataclasses.replace(request, uid=uid, prompt=prompt)
         req._t_submit = self.clock()       # type: ignore[attr-defined]
+        if self.tracer is not None:
+            self.tracer.submit(uid, req._t_submit, int(prompt.size))
         self.waiting.append(req)
         return uid
+
+    def cancel(self, uid: int) -> bool:
+        """Abort a request wherever it is: a queued one leaves the waiting
+        list; a slotted one (mid-prefill included) frees its slot now and,
+        paged, its page references (once: a speculative engine's two arenas
+        share one table and one allocator). Neither pool needs scrubbing:
+        admission resets the slot's position in both. Returns False when
+        the uid is unknown or already finished."""
+        for i, req in enumerate(self.waiting):
+            if req.uid == uid:
+                del self.waiting[i]
+                self.stats["cancelled"] += 1
+                if self.tracer is not None:
+                    self.tracer.finish(uid, self.clock(), "cancelled")
+                return True
+        for slot in self.slots:
+            if slot.stage != FREE and slot.result.uid == uid:
+                if self.tracer is not None:
+                    self.tracer.finish(uid, self.clock(), "cancelled",
+                                       n_tokens=len(slot.result.tokens),
+                                       pages_held=len(slot.pages))
+                self._free_slot(slot)
+                self.stats["cancelled"] += 1
+                return True
+        return False
 
     @property
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s.stage != FREE for s in self.slots)
+
+    @property
+    def n_active(self) -> int:
+        return sum(s.stage != FREE for s in self.slots)
 
     def _admit(self) -> None:
         for slot in self.slots:
@@ -424,6 +510,7 @@ class Engine:
             if slot.stage != FREE:
                 continue
             req = self.waiting.pop(0)
+            self._fault_phase = ("admit", req, slot)
             pos0 = (self._map_slot_pages(slot, req.prompt) if self.paged
                     else 0)
             sp.reset_slot(self.pool, slot.idx, pos0)
@@ -434,28 +521,45 @@ class Engine:
             slot.prefill_done = pos0
             slot.eos_id = req.eos_id
             slot.max_new_tokens = req.max_new_tokens
+            t_admit = self.clock()
             slot.result = RequestResult(
                 uid=req.uid, prompt_len=int(req.prompt.size), tokens=[],
-                finish_reason="", t_submit=req._t_submit,
-                t_admit=self.clock())
+                finish_reason="", t_submit=req._t_submit, t_admit=t_admit)
+            if self.tracer is not None:
+                self.tracer.admit(req.uid, t_admit, slot.idx)
+            self._fault_phase = None
+
+    def _free_slot(self, slot: _Slot) -> None:
+        """The slot is reusable from the next tick on; paged, its page
+        references are dropped (pages the prefix cache also holds stay)."""
+        slot.stage = FREE
+        slot.result = None
+        slot.prompt = None
+        slot.prev_token = slot.last_token = 0
+        if self.paged:
+            self._release_slot_pages(slot)
 
     def _emit(self, slot: _Slot, tok: int,
               finished: List[RequestResult]) -> None:
         res = slot.result
         if not res.tokens:
             res.t_first_token = self.clock()
+            if self.tracer is not None:
+                self.tracer.first_token(res.uid, res.t_first_token)
         res.tokens.append(tok)
+        if self.on_token is not None:
+            self.on_token(res.uid, tok)
         done_eos = slot.eos_id is not None and tok == slot.eos_id
         done_len = len(res.tokens) >= slot.max_new_tokens
         if done_eos or done_len:
             res.finish_reason = "eos" if done_eos else "length"
             res.t_finish = self.clock()
+            if self.tracer is not None:
+                self.tracer.finish(res.uid, res.t_finish, res.finish_reason,
+                                   n_tokens=len(res.tokens),
+                                   pages_held=len(slot.pages))
             finished.append(res)
-            slot.stage = FREE          # eviction: slot reusable next tick
-            slot.result = None
-            slot.prompt = None
-            if self.paged:
-                self._release_slot_pages(slot)
+            self._free_slot(slot)      # eviction: reusable next tick
         else:
             slot.last_token = tok
             slot.stage = DECODE
@@ -465,26 +569,75 @@ class Engine:
         prompt plus every emitted token except the newest."""
         return int(slot.prompt.size) + len(slot.result.tokens) - 1
 
+    def _host_pos(self, slot: _Slot) -> int:
+        """The host's mirror of the slot's device ``pos``."""
+        return (slot.prefill_done if slot.stage == PREFILL
+                else self._slot_pos(slot))
+
     # ------------------------------------------------------------------ step
     def step(self) -> List[RequestResult]:
         """One engine tick: admit, then run one scheduler action (a decode
         action runs ``decode_steps`` device steps). Returns the requests that
-        finished this tick."""
+        finished this tick.
+
+        A fault in the tick that ``absorbable`` accepts fails the requests
+        the failing phase was working on (an admission's request; the
+        prefill slot; every slot of a decode dispatch, or the one slot
+        whose pages were being grown or copied): they finish with
+        ``finish_reason="error"``, their slots and pages are freed,
+        ``stats["faults"]`` counts them, and the engine serves on. Any
+        other fault, and one with no request to blame, propagates.
+
+        The tick's measurement is left in ``last_step``: wall time, the
+        per-phase split (admit / prefill dispatch / decode scan / host
+        sync / token fanout, and the total) and the prefill and decode
+        token deltas."""
+        self._fault_phase = None
+        self._ph = {}
+        self._finished = []
+        p0 = self.stats["prefill_tokens"]
+        a0 = self.stats["accepted_tokens"]
+        t0 = self.clock()
+        try:
+            self._step_inner()
+        except Exception as exc:
+            if not absorbable(exc) or self._fault_phase is None:
+                raise
+            self._absorb_fault()
+        wall = self.clock() - t0
+        self._ph["total"] = wall
+        self.last_step = {
+            "wall_s": wall,
+            "phases": self._ph,
+            "prefill_tokens": self.stats["prefill_tokens"] - p0,
+            "decode_tokens": self.stats["accepted_tokens"] - a0,
+        }
+        if self.tracer is not None:
+            self.tracer.span("step", None, t0, t0 + wall,
+                             **{k: round(v, 9) for k, v in self._ph.items()})
+        return self._finished
+
+    def _step_inner(self) -> None:
+        clk, ph = self.clock, self._ph
+        t_in = clk()
         self._admit()
+        ph["admit"] = clk() - t_in
         prefilling = [s.idx for s in self.slots if s.stage == PREFILL]
         decoding = [s.idx for s in self.slots if s.stage == DECODE]
         action = self.scheduler.next_action(prefilling, decoding)
-        finished: List[RequestResult] = []
         if action.kind == PREFILL:
-            self._prefill(self.slots[action.slot], finished)
+            self._prefill(self.slots[action.slot], self._finished)
         elif action.kind == DECODE:
-            self._decode(action.slots, finished)
+            self._decode(action.slots, self._finished)
         self.ticks += 1
-        return finished
 
     def _prefill(self, slot: _Slot, finished: List[RequestResult]) -> None:
+        clk, ph = self.clock, self._ph
+        uid = slot.result.uid
+        self._fault_phase = ("slots", [slot.idx])
         lo, hi = self.scheduler.chunk_bounds(slot.prompt.size,
                                              slot.prefill_done)
+        t_d0 = clk()
         chunk = self.inputs.put(("chunk", hi - lo), slot.prompt[None, lo:hi])
         window = self._window(hi)
         kind = "prefill" if self.spec is None else "spec_prefill"
@@ -502,23 +655,37 @@ class Engine:
             self.graphs.run(kind, (hi - lo, window, slot.idx),
                             lambda: self._prefill_chunk(slot.idx, chunk,
                                                         window))
+        t_d1 = clk()
+        ph["prefill_dispatch"] = t_d1 - t_d0
         slot.prefill_done = hi
         self.stats["prefill_ticks"] += 1
         self.stats["prefill_tokens"] += hi - lo
-        if hi == slot.prompt.size:
-            if self.prefix is not None:
-                # the prompt's KV is complete: register its page-aligned
-                # heads for later admissions; the slot's pages up to there
-                # are shared from now on
-                ins = self.prefix.insert(slot.prompt, slot.pages, hi)
-                slot.n_shared = max(slot.n_shared, ins // self.page_size)
-                self._note_pages()
-            tok = int(self._chunk_token.item())
-            self.stats["host_syncs"] += 1
-            # the speculative healing chunk re-feeds [prev, last]: after
-            # prefill, pos-1 holds the last prompt token
-            slot.prev_token = int(slot.prompt[-1])
-            self._emit(slot, tok, finished)
+        if hi < slot.prompt.size:
+            if self.tracer is not None:
+                self.tracer.span("prefill", uid, t_d0, clk(), lo=lo, hi=hi,
+                                 tokens=0)
+            return
+        if self.prefix is not None:
+            # the prompt's KV is complete: register its page-aligned heads
+            # for later admissions; the slot's pages up to there are shared
+            # from now on
+            ins = self.prefix.insert(slot.prompt, slot.pages, hi)
+            slot.n_shared = max(slot.n_shared, ins // self.page_size)
+            self._note_pages()
+        tok = int(self._chunk_token.item())
+        t_s1 = clk()
+        ph["host_sync"] = t_s1 - t_d1
+        self.stats["host_syncs"] += 1
+        # the speculative healing chunk re-feeds [prev, last]: after
+        # prefill, pos-1 holds the last prompt token
+        slot.prev_token = int(slot.prompt[-1])
+        # the span before the emit: a request of one token finishes in it,
+        # and its finish must count this chunk's token
+        if self.tracer is not None:
+            self.tracer.span("prefill", uid, t_d0, t_s1, lo=lo, hi=hi,
+                             tokens=1)
+        self._emit(slot, tok, finished)
+        ph["token_fanout"] = clk() - t_s1
 
     def _prefill_chunk(self, slot, chunk: torch.Tensor, window: int,
                        pages: Optional[torch.Tensor] = None) -> None:
@@ -551,6 +718,8 @@ class Engine:
         if self.spec is not None:
             self._spec_decode(slot_ids, finished)
             return
+        clk, ph = self.clock, self._ph
+        t_d0 = clk()
         k_steps = self.scheduler.cfg.decode_steps
         n = self.n_slots
         # rows: last token, live, EOS id (-1 = none), tokens left
@@ -565,11 +734,16 @@ class Engine:
                           slot.max_new_tokens - len(slot.result.tokens))
             active[i] = True
             if self.paged:
+                # growing the slot's pages can exhaust the arena: that
+                # fails this slot alone
+                self._fault_phase = ("slots", [i])
                 # deepest write: pos + live steps (a slot that stops early
                 # rewrites its stop position, already covered)
                 self._ensure_capacity(
                     slot, min(self._slot_pos(slot) + k_steps,
                               int(slot.prompt.size) + slot.max_new_tokens))
+        # from here a fault hits the dispatch: every slot in it fails
+        self._fault_phase = ("slots", list(slot_ids))
         # the deepest live slot after k_steps attends positions
         # <= max(pos) + k_steps - 1  ->  window covers max(pos) + k_steps
         needed = max(self._slot_pos(self.slots[i]) for i in slot_ids) + k_steps
@@ -579,16 +753,29 @@ class Engine:
         self.graphs.run("decode", window,
                         lambda: self._decode_steps(inputs, k_steps, window,
                                                    table))
+        t_d1 = clk()
+        ph["decode_scan"] = t_d1 - t_d0
         out = self._decode_out.cpu().numpy()
+        t_s1 = clk()
+        ph["host_sync"] = t_s1 - t_d1
         toks, emitted = out[0], out[1].astype(bool)
         self.stats["host_syncs"] += 1
         self.stats["device_steps"] += k_steps
         self.stats["drafted_tokens"] += k_steps * len(slot_ids)
         self.stats["accepted_tokens"] += int(emitted.sum())
+        # spans before the fanout: a finish must count every token its
+        # spans carry
+        if self.tracer is not None:
+            per_slot = emitted.sum(axis=0)
+            for i in slot_ids:
+                self.tracer.span("decode", self.slots[i].result.uid, t_d0,
+                                 t_s1, tokens=int(per_slot[i]),
+                                 k_steps=k_steps)
         for t in range(k_steps):
             for i in slot_ids:
                 if emitted[t, i]:
                     self._emit(self.slots[i], int(toks[t, i]), finished)
+        ph["token_fanout"] = clk() - t_s1
         self.stats["decode_ticks"] += 1
         self.stats["decode_slot_steps"] += int(emitted.sum())
 
@@ -629,6 +816,8 @@ class Engine:
         """``cycles_eff`` speculative cycles of ``k_eff`` drafts over every
         decoding slot, then one host sync. ``SpecDecoder.plan`` keeps the
         deepest write, the last cycle's verify tail, inside ``max_seq``."""
+        clk, ph = self.clock, self._ph
+        t_d0 = clk()
         n = self.n_slots
         # rows: token at pos-1, pending token, live, EOS id (-1 = none),
         # tokens left
@@ -648,11 +837,14 @@ class Engine:
         if self.paged:
             for i in slot_ids:
                 slot = self.slots[i]
+                # a page copy or growth that fails fails this slot alone
+                self._fault_phase = ("slots", [i])
                 # the healing chunk writes at pos-1, possibly inside a
                 # shared page; the last verify tail is the deepest write
                 self._ensure_writable(slot, self._slot_pos(slot) - 1)
                 self._ensure_capacity(
                     slot, self._slot_pos(slot) + c_eff * (k_eff + 1))
+        self._fault_phase = ("slots", list(slot_ids))
         # the deepest attend: the last cycle's verify chunk tail
         window = self._window(max_pos + c_eff * (k_eff + 1))
         inputs = self.inputs.put("spec", host)
@@ -667,7 +859,11 @@ class Engine:
                         lambda: self.spec.dispatch(
                             self.draft_pool, self.pool, table, inputs, out,
                             k_eff, c_eff, window, park))
+        t_d1 = clk()
+        ph["decode_scan"] = t_d1 - t_d0
         res = out.cpu().numpy()
+        t_s1 = clk()
+        ph["host_sync"] = t_s1 - t_d1
         toks, emitted = res[:t], res[t:2 * t].astype(bool)
         self.stats["host_syncs"] += 1
         # k_eff drafter passes (the healing chunk included) and one verify
@@ -676,13 +872,77 @@ class Engine:
         self.stats["spec_cycles"] += c_eff
         self.stats["accepted_tokens"] += int(res[2 * t].sum())
         self.stats["drafted_tokens"] += int(res[2 * t + 1].sum())
+        if self.tracer is not None:
+            per_slot = emitted.sum(axis=0)
+            for i in slot_ids:
+                self.tracer.span("spec", self.slots[i].result.uid, t_d0,
+                                 t_s1, tokens=int(per_slot[i]),
+                                 drafted=int(res[2 * t + 1, i]),
+                                 accepted=int(res[2 * t, i]), k=k_eff,
+                                 cycles=c_eff)
         # np.nonzero is row-major: each slot's tokens come in order
         for step, i in zip(*np.nonzero(emitted)):
             slot = self.slots[i]
             slot.prev_token = slot.last_token
             self._emit(slot, int(toks[step, i]), finished)
+        ph["token_fanout"] = clk() - t_s1
         self.stats["decode_ticks"] += 1
         self.stats["decode_slot_steps"] += int(emitted.sum())
+
+    # ------------------------------------------------------- fault isolation
+    def _fail_slot(self, slot: _Slot, now: float) -> None:
+        """Evict a faulted slot: its request finishes with
+        ``finish_reason="error"``, its slot and pages are freed."""
+        res = slot.result
+        res.finish_reason = "error"
+        if not res.t_first_token:
+            res.t_first_token = now
+        res.t_finish = now
+        if self.tracer is not None:
+            self.tracer.finish(res.uid, now, "error",
+                               n_tokens=len(res.tokens),
+                               pages_held=len(slot.pages))
+        self._finished.append(res)
+        self._free_slot(slot)
+        self.stats["faults"] += 1
+
+    def _absorb_fault(self) -> None:
+        """The handler of an absorbed fault (``step``): fail what
+        ``_fault_phase`` blames, then give every slot that survives its
+        device position from the host's mirror, in both pools. The pool
+        is written in place, so a dispatch that raised part way may have
+        moved positions (a speculative dispatch parks the rows that are not
+        live, and restores them only at its end); the K/V it wrote lies at
+        or past each survivor's position, masked until a real write
+        replaces it, or on the trash page or past ``max_seq``."""
+        phase, self._fault_phase = self._fault_phase, None
+        now = self.clock()
+        if phase[0] == "admit":
+            _, req, slot = phase
+            if slot.stage != FREE and slot.result.uid == req.uid:
+                self._fail_slot(slot, now)
+            else:
+                # the request left the queue and its slot never went live:
+                # pages mapped for it go back
+                if self.paged:
+                    self._release_slot_pages(slot)
+                self.stats["faults"] += 1
+                if self.tracer is not None:
+                    self.tracer.finish(req.uid, now, "error")
+                self._finished.append(RequestResult(
+                    uid=req.uid, prompt_len=int(req.prompt.size), tokens=[],
+                    finish_reason="error", t_submit=req._t_submit,
+                    t_admit=now, t_first_token=now, t_finish=now))
+        else:
+            for i in phase[1]:
+                if self.slots[i].stage != FREE:
+                    self._fail_slot(self.slots[i], now)
+        for slot in self.slots:
+            if slot.stage != FREE:
+                for pool in (self.pool, self.draft_pool):
+                    if pool is not None:
+                        sp.reset_slot(pool, slot.idx, self._host_pos(slot))
+        self.ticks += 1
 
     # ------------------------------------------------------------------- run
     def run(self, requests: Sequence[Request],
@@ -725,14 +985,27 @@ class Engine:
 
 
 # ------------------------------------------------------------------- stats
+def latency_histogram(values_s: Sequence[float]) -> Dict[str, Any]:
+    """Seconds -> the fixed-bucket latency histogram in its JSON form
+    (``telemetry.schema.LATENCY_BUCKETS_S``, the JAX package's buckets)."""
+    h = telemetry.Histogram("latency_s",
+                            buckets=telemetry.schema.LATENCY_BUCKETS_S)
+    for v in values_s:
+        h.observe(v)
+    return h.to_dict()
+
+
 def summarize_results(results: Dict[int, RequestResult],
                       wall_s: float) -> Dict[str, Any]:
     """Throughput and nearest-rank latency/TTFT percentiles over a finished
-    result set."""
+    result set, and the latency and TTFT distributions as fixed-bucket
+    histograms."""
     if not results:
         return {"n_requests": 0, "out_tokens": 0, "tokens_per_s": 0.0,
                 "latency_p50_ms": 0.0, "latency_p95_ms": 0.0,
-                "ttft_p50_ms": 0.0, "ttft_p95_ms": 0.0}
+                "ttft_p50_ms": 0.0, "ttft_p95_ms": 0.0,
+                "latency_hist": latency_histogram(()),
+                "ttft_hist": latency_histogram(())}
     lat = sorted(r.latency_s for r in results.values())
     ttft = sorted(r.ttft_s for r in results.values())
 
@@ -748,6 +1021,8 @@ def summarize_results(results: Dict[int, RequestResult],
         "latency_p95_ms": pct(lat, 95) * 1e3,
         "ttft_p50_ms": pct(ttft, 50) * 1e3,
         "ttft_p95_ms": pct(ttft, 95) * 1e3,
+        "latency_hist": latency_histogram(lat),
+        "ttft_hist": latency_histogram(ttft),
     }
 
 

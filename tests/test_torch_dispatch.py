@@ -292,6 +292,65 @@ def test_graph_cache_counts_device_launches(fake_graphs, monkeypatch):
     assert kern.launches == 15 and other.launches == 0
 
 
+def test_a_first_use_that_raises_leaves_the_key_unseen(fake_graphs):
+    """A body that raises at its key's first use (it may not have made
+    what a capture needs, such as a kernel's workspace) leaves the key
+    unseen: the next use runs eagerly again, not a capture; the use after
+    captures. The bound counts only keys whose first use returned."""
+    stats = {}
+    cache = dispatch.GraphCache(CUDA, {"decode": 1}, stats)
+    runs = []
+
+    def body():
+        runs.append(fake_graphs.capturing)
+        if len(runs) == 1:
+            raise torch.OutOfMemoryError("first use failed")
+
+    with pytest.raises(torch.OutOfMemoryError):
+        cache.run("decode", 16, body)
+    assert cache.keys == {"decode": set()}
+    assert stats["eager_dispatches"] == 0
+    cache.run("decode", 16, body)
+    assert runs == [False, False] and not fake_graphs.made
+    assert cache.keys == {"decode": {16}}
+    cache.run("decode", 16, body)
+    assert runs == [False, False, True] and stats["graphs_captured"] == 1
+
+
+def test_a_capture_that_raises_keeps_no_graph(fake_graphs, monkeypatch):
+    """A body that raises inside its capture: the capture ends, no graph is
+    kept, the launches it counted are taken back, and the next use
+    captures again and replays. No cyclic garbage collection runs while a
+    capture is open (it could destroy a dead engine's graphs mid-capture),
+    and collection is back on after it, whether it raised or not."""
+    import gc
+    monkeypatch.setattr(build, "KERNELS", [])
+    kern = build.Kernel("k", "k", [])
+    fail, collecting = [True], []
+
+    def body():
+        kern.launches += 2
+        if fake_graphs.capturing:
+            collecting.append(gc.isenabled())
+        if fake_graphs.capturing and fail:
+            fail.pop()
+            raise RuntimeError("fault inside the capture")
+
+    stats = {}
+    cache = dispatch.GraphCache(CUDA, {"decode": 1}, stats)
+    cache.run("decode", 16, body)
+    assert kern.launches == 2
+    with pytest.raises(RuntimeError, match="inside the capture"):
+        cache.run("decode", 16, body)
+    assert not fake_graphs.capturing and not cache._graphs
+    assert kern.launches == 2 and stats["graphs_captured"] == 0
+    assert gc.isenabled()
+    cache.run("decode", 16, body)
+    assert len(cache._graphs) == 1 and fake_graphs.made[-1].replays == 1
+    assert kern.launches == 4 and stats["graphs_captured"] == 1
+    assert collecting == [False, False] and gc.isenabled()
+
+
 def test_graph_cache_on_the_cpu_runs_every_dispatch_eagerly():
     stats, runs = {}, []
     cache = dispatch.GraphCache(torch.device("cpu"), {"decode": 1}, stats)

@@ -51,6 +51,10 @@ def test_port_imports_without_jax():
         "import repro_torch.launch.train, repro_torch.launch.quickstart\n"
         "import repro_torch.launch.checkpoint, repro_torch.data.synthetic\n"
         "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.telemetry, repro_torch.telemetry.clock\n"
+        "import repro_torch.telemetry.metrics, repro_torch.telemetry.spans\n"
+        "import repro_torch.telemetry.schema, repro_torch.serving.faults\n"
+        "import repro_torch.serving.admission, repro_torch.serving.service\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
