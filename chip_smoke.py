@@ -27,8 +27,12 @@ its dispatch's requests, a deadline expiring mid-prefill, a disconnect,
 429 infeasible and saturated, /metrics, a drain, all CUDA work on the
 pump thread), a speculative dispatch fault with a slot mid-prefill, and
 the launcher's ``serve --engine --http`` on the trained artifact in a
-subprocess, drained by SIGTERM; last, profile a steady decode dispatch
-and a prefill chunk (where their time goes on the card).
+subprocess, drained by SIGTERM; then profile a steady decode dispatch
+and a prefill chunk (where their time goes on the card); last, the
+paper's own experiment: HQP on ResNet-18 and MobileNetV3-Small at full
+width (train, Fisher, the Q8 / P50 / HQP table with latencies measured by
+CUDA-graph replay and modeled on the H100), the card's forward held
+against the CPU's and the masked model against the compacted one.
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -65,8 +69,7 @@ import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+CHIP = None     # repro_torch.roofline.hardware.H100_SXM, set by main()
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_CHUNK, SERVE_STEPS = 4, 256, 16, 4
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 6, 48, 32
 SERVE_PAGE = 16             # page size of the paged serve phase
@@ -161,6 +164,18 @@ SERVICE_QUEUE, SERVICE_FAULT_AT = 4, 3
 SERVICE_LONG, SERVICE_DEADLINE_S = 240, 0.05
 SERVICE_SAT_NEW, SERVICE_SUBPROCESS_S = 96, 300
 HANG_S = 1140               # the script's own limit, inside the 1200 s a run has
+# the paper's experiment (phase_cnn): the JAX package's CLI sizes (steps,
+# train / val / calib images, Δ_ax) at the published widths; a short
+# training run and a batch for the card == CPU and masked == compacted
+# checks, whose logits (and new BN statistics) must agree within CNN_REL of
+# their largest magnitude: f32 on both sides (TF32 off), cuDNN's conv
+# algorithms summing in other orders than the CPU's over ~20 layers, ~1e-6
+# apart on an H100 (a misplaced channel or pad moves them wholesale); the
+# baseline must reach CNN_ACC_MIN
+CNN_STEPS, CNN_TRAIN, CNN_VAL, CNN_CALIB, CNN_DELTA = 400, 6000, 2000, 1000, 0.015
+CNN_WIDTH = 1.0
+CNN_PARITY_STEPS, CNN_PARITY_BATCH, CNN_REL, CNN_ACC_MIN = 20, 16, 1e-4, 0.5
+CNN_PROFILE_TOP = 6
 # speculative serving (phase_spec): drafts a cycle, cycles a dispatch; the
 # sampled loads' temperature, top-k and seed; the copy-on-write load's
 # prompt length (whole pages of SERVE_PAGE); B4/B6 at the verify shape, q
@@ -255,8 +270,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def bound(n_bytes: float, n_ops: float, kind: str):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[kind] * 1e3
+    t_bytes = n_bytes / CHIP.hbm_bw * 1e3
+    t_ops = n_ops / (CHIP.peak_int8 if kind == "int8" else CHIP.peak_bf16) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2740,12 +2755,189 @@ def phase_service(cfg, dev, kernels, params, artifact, card):
     return launches
 
 
+# ------------------------------------------------------------------ CNN
+def _cnn_max_rel(got, want) -> float:
+    """max |got - want| over the largest |want| (``got`` on the card,
+    ``want`` on the CPU); for a tree of BN statistics, each layer's worst,
+    the mean's difference over the layer's largest standard deviation (a
+    batch mean near 0 is a sum that cancels: its rounding is relative to
+    the activations' scale, not to itself)."""
+    if isinstance(want, dict) and set(want) == {"mean", "var"}:
+        var = want["var"].abs().max()
+        return max(float((got["mean"].cpu() - want["mean"]).abs().max()
+                         / var.sqrt()),
+                   float((got["var"].cpu() - want["var"]).abs().max() / var))
+    if isinstance(want, dict):
+        return max(_cnn_max_rel(got[k], want[k]) for k in want)
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def _cnn_parity(arch, dev, table, card) -> None:
+    """The card's forward == the port's CPU forward of the same variables,
+    eval and train (logits, and the train mode's new stats); masked ==
+    compacted logits on
+    the card at the HQP run's n_drop."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_cnn_config
+    from repro_torch.core import pruning as pr
+    from repro_torch.core import sensitivity as sens
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.models import cnn
+    from repro_torch.repro_exp import cnn_experiment as exp
+    cfg = dataclasses.replace(get_cnn_config(arch), width_mult=CNN_WIDTH)
+    v = exp.train_cnn(cfg, SyntheticImages(CNN_PARITY_STEPS * 128, seed=0),
+                      steps=CNN_PARITY_STEPS, log=lambda s: None, device=dev)
+    v_cpu = tree.map_(lambda t: t.cpu(), v)
+    x = torch.from_numpy(SyntheticImages(CNN_PARITY_BATCH, seed=7).images)
+    errs = {}
+    with torch.no_grad():
+        for train in (False, True):
+            mode = "train" if train else "eval"
+            got = cnn.cnn_apply(cfg, v, x.to(dev), train)
+            want = cnn.cnn_apply(cfg, v_cpu, x, train)
+            errs[f"{mode} logits"] = _cnn_max_rel(got[0], want[0])
+            if train:      # in eval mode the stats pass through unchanged
+                errs[f"{mode} stats"] = _cnn_max_rel(got[1], want[1])
+    n_drop = max([h["n_drop"] for h in table["hqp_history"]
+                  if h["accepted"]], default=0)
+    sq = exp.fisher_for(cfg, v, SyntheticImages(200, seed=200))
+    ranked = pr.rank_units(sens.cnn_prune_groups(cfg, v), sq)
+    masked = pr.apply_prune_masks(v, ranked, n_drop)
+    compact = pr.compact_params(masked, ranked, n_drop)
+    with torch.no_grad():
+        errs["masked vs compacted logits"] = _cnn_max_rel(
+            cnn.cnn_apply(cfg, compact, x.to(dev))[0],
+            cnn.cnn_apply(cfg, masked, x.to(dev))[0].cpu())
+    _cnn_profile(arch, cfg, v, dev, card)
+    bad = {k: e for k, e in errs.items() if not e <= CNN_REL}
+    print(f"[cnn] {arch} width {CNN_WIDTH} ({CNN_PARITY_STEPS} training steps, "
+          f"{CNN_PARITY_BATCH} images): card vs CPU, max |diff| / max |CPU| "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" (limit {CNN_REL}; masked vs compacted at n_drop {n_drop} of "
+          f"{ranked.total}, on the card)  [{card}]")
+    if bad:
+        fail(f"cnn {arch}: beyond {CNN_REL}: {bad}")
+
+
+def _cnn_profile(arch, cfg, v, dev, card) -> None:
+    """Where an eager batch-64 eval forward's device time goes: the
+    kernels' device ms by name (the top CNN_PROFILE_TOP), their count, the
+    busy ms against the host's wall ms (the idle share)."""
+    import torch
+    from repro_torch.models import cnn
+    x = torch.randn(64, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    x = x.to(dev)
+    with torch.no_grad():
+        cnn.cnn_apply(cfg, v, x)
+        torch.cuda.synchronize(dev)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            cnn.cnn_apply(cfg, v, x)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.monotonic() - t0) * 1e3
+    by_name, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+            n += 1
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:CNN_PROFILE_TOP]
+    print(f"[cnn] {arch} profile, eager eval forward at batch 64: {n} "
+          f"kernels, device busy {busy:.4f} ms of {wall_ms:.4f} ms wall "
+          f"(idle {max(0.0, 1 - busy / wall_ms):.1%}); top: "
+          + "; ".join(f"{name[:70]} {ms:.4f} ms" for name, ms in top)
+          + f"  [{card}]")
+
+
+def phase_cnn(dev, card) -> dict:
+    """The paper's experiment, ``run_experiment`` for both archs at
+    CNN_WIDTH and the JAX package's CLI sizes, then card == CPU and masked ==
+    compacted on each; the gates: baseline accuracy >= CNN_ACC_MIN, every
+    accepted Algorithm 1 step within Δ_ax, the history ending in a REJECT
+    or at max_steps, the Q8 row's size the simulated INT8 count, every
+    number finite. Returns the tables."""
+    import dataclasses
+    import torch
+    from repro_torch.compress import quantize as cq
+    from repro_torch.configs import get_cnn_config
+    from repro_torch.models import cnn
+    from repro_torch.repro_exp import cnn_experiment as exp
+    t_phase = time.monotonic()
+    gc.collect()
+    tables = {}
+    for arch in ("mobilenetv3s", "resnet18"):
+        t0 = time.monotonic()
+        table = exp.run_experiment(
+            arch, delta_ax=CNN_DELTA, train_steps=CNN_STEPS, n_train=CNN_TRAIN,
+            n_val=CNN_VAL, n_calib=CNN_CALIB, width=CNN_WIDTH,
+            log=lambda s: None,
+            device=dev)
+        took = time.monotonic() - t0
+        tables[arch] = table
+        rows, hist = table["rows"], table["hqp_history"]
+        for r in rows:
+            sp_meas = table["speedups_measured"][r["method"]]
+            sp_mod = table["speedups_modeled"][r["method"]]
+            print(f"[cnn] {arch} {r['method']}: acc {r['accuracy']:.4f}, "
+                  f"drop {r['drop']:+.4f}, size {r['size_bytes']} B "
+                  f"(reduction {r['size_reduction']:.4f}), θ "
+                  f"{r['theta']:.4f}, measured {r['measured_ms']:.4f} ms "
+                  f"(CUDA graph replay, batch 64) / eager "
+                  f"{table['measured_eager_ms'][r['method']]:.4f} ms, modeled "
+                  f"{r['modeled_ms']:.6f} ms on H100_SXM; speedup measured "
+                  f"{sp_meas:.3f}x, modeled {sp_mod:.3f}x; compliant "
+                  f"{r['compliant']}  [{card}]")
+        last = hist[-1] if hist else None
+        print(f"[cnn] {arch} Algorithm 1: {len(hist)} steps, "
+              f"{sum(h['accepted'] for h in hist)} accepted, ended "
+              + ("REJECT" if last and not last["accepted"] else "ACCEPT")
+              + f" at θ {last['theta'] if last else 0:.4f}; θ by family "
+              + json.dumps({k: round(t, 4) for k, t in
+                            table["hqp_sparsity_by_family"].items()}))
+        print(f"[cnn] {arch} stage seconds: "
+              + ", ".join(f"{k} {t:.2f}" for k, t in table["seconds"].items())
+              + f"; run_experiment {took:.1f} s  [{card}]")
+        cfg = dataclasses.replace(get_cnn_config(arch), width_mult=CNN_WIDTH)
+        sim = cq.simulated_int8_bytes(cnn.cnn_init(
+            cfg, torch.Generator().manual_seed(0), device="meta"))
+        nums = [v for r in rows for k, v in r.items()
+                if k not in ("method", "compliant")]
+        nums += list(table["speedups_measured"].values())
+        nums += list(table["speedups_modeled"].values())
+        nums += list(table["measured_eager_ms"].values())
+        if table["baseline_accuracy"] < CNN_ACC_MIN:
+            fail(f"cnn {arch}: baseline accuracy "
+                 f"{table['baseline_accuracy']} < {CNN_ACC_MIN}")
+        over = [h for h in hist if h["accepted"] and h["drop"] > CNN_DELTA]
+        if over:
+            fail(f"cnn {arch}: accepted steps beyond Δ_ax: {over}")
+        if not hist or (last["accepted"]
+                        and len(hist) < exp.ALGORITHM1.max_steps):
+            fail(f"cnn {arch}: Algorithm 1 ended neither in a REJECT nor at "
+                 f"max_steps: {hist}")
+        if rows[1]["size_bytes"] != sim:
+            fail(f"cnn {arch}: Q8 size {rows[1]['size_bytes']} B, the "
+                 f"simulated INT8 count is {sim} B")
+        if not all(math.isfinite(x) for x in nums):
+            fail(f"cnn {arch}: a number is not finite: {rows}")
+        _cnn_parity(arch, dev, table, card)
+    print(f"[cnn] phase_cnn {time.monotonic() - t_phase:.1f} s  [{card}]")
+    return tables
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global CHIP
+    from repro_torch.roofline.hardware import H100_SXM as CHIP
     # lines reach a pipe as they are printed, and a hang dumps every
     # thread's stack and exits nonzero before the 1200 s limit
     sys.stdout.reconfigure(line_buffering=True)
@@ -2992,6 +3184,10 @@ def main() -> int:
               f"{2 * SERVE_CHUNK}-{PREFILL_PROFILE_PROMPT - 1}, INT8 KV, "
               f"{layout}, replayed CUDA graphs (eager first use beside): "
               f"{json.dumps(prof)}  [{card}]")
+
+    # the paper's experiment: the CNNs run no Pallas kernel of the
+    # reference, so no kernel of the port (cuDNN's convs and cuBLAS)
+    phase_cnn(dev, card)
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",

@@ -35,17 +35,19 @@ def arch_fingerprint(cfg) -> str:
     share with its verifier: vocab, positional scheme, layer pattern. Widths
     that pruning shrinks (``n_kv_heads``, ``d_ff``) are excluded, so a
     compacted artifact keeps its parent's fingerprint. The same JSON as the
-    JAX package's, hence the same hash for the same config."""
+    JAX package's, hence the same hash for the same config (a CNN config
+    has none of the LM's fields: they hash as null)."""
     ident = {
-        "name": cfg.name,
-        "vocab_size": cfg.vocab_size,
-        "n_layers": cfg.n_layers,
-        "d_model": cfg.d_model,
-        "head_dim": cfg.resolved_head_dim,
-        "pattern": list(cfg.pattern),
-        "qk_norm": cfg.qk_norm,
-        "rope_theta": cfg.rope_theta,
-        "tie_embeddings": cfg.tie_embeddings,
+        "name": getattr(cfg, "name", None) or getattr(cfg, "arch", "?"),
+        "vocab_size": getattr(cfg, "vocab_size", None),
+        "n_layers": getattr(cfg, "n_layers", None),
+        "d_model": getattr(cfg, "d_model", None),
+        "head_dim": (cfg.resolved_head_dim
+                     if hasattr(cfg, "resolved_head_dim") else None),
+        "pattern": list(getattr(cfg, "pattern", ())),
+        "qk_norm": getattr(cfg, "qk_norm", None),
+        "rope_theta": getattr(cfg, "rope_theta", None),
+        "tie_embeddings": getattr(cfg, "tie_embeddings", None),
     }
     blob = json.dumps(ident, sort_keys=True).encode()
     return hashlib.sha256(blob).hexdigest()[:16]
@@ -55,17 +57,17 @@ def arch_fingerprint(cfg) -> str:
 @dataclasses.dataclass
 class HQPManifest:
     arch: str
-    track: str                        # "int8": real int8 storage
+    track: str                        # "int8" (LM real) | "fake" (CNN sim)
     bits: int
     bytes_before: int
     bytes_after: int
     quantized_fraction: float
-    pruned: bool                      # always True here (the JAX field)
+    pruned: bool                      # False: a PTQ-only artifact
     theta: float                      # global structural sparsity
     n_drop: int
     total_units: int
     theta_by_family: Dict[str, float]
-    a_baseline: Optional[float]       # None in a JAX PTQ-only artifact
+    a_baseline: Optional[float]       # None in a PTQ-only artifact
     a_final: Optional[float]
     history: List[dict]               # accept/reject audit of Algorithm 1
     vocab_size: Optional[int] = None  # absent from older JAX artifacts
@@ -102,42 +104,77 @@ class HQPManifest:
 class HQPArtifact:
     params: Any                       # deployment tree (QuantizedLinear leaves)
     manifest: HQPManifest
-    # in-process only (None in a loaded artifact): the conditional prune's
-    # result (masked and compacted FP params, the ranking) and the seconds
-    # of each stage ("compact", "ptq"; the launcher adds "fisher", "evals")
+    # in-process only (None in a loaded or a PTQ-only artifact): the
+    # conditional prune's result (masked and compacted FP params, the
+    # ranking) and the seconds of each stage ("compact" when pruned, "ptq";
+    # the launcher adds "fisher", "evals")
     prune: Optional[pipe.HQPResult] = None
     seconds: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 # ------------------------------------------------------------------ compress
-def compress(params: Any, cfg, sq_grads: Any,
-             eval_fn: Callable[[Any], float], hqp: pipe.HQPConfig,
+def compress(params: Any, cfg, sq_grads: Any = None,
+             eval_fn: Optional[Callable[[Any], float]] = None,
+             hqp: Optional[pipe.HQPConfig] = None, specs=None,
+             a_baseline: Optional[float] = None,
              log: Callable[[str], None] = print) -> HQPArtifact:
     """Full HQP: conditional prune -> compact -> PTQ -> manifest.
 
-    ``sq_grads`` (the Fisher diagonal, shaped like ``params``) ranks the
-    LM's families (``sensitivity.lm_prune_groups``); ``eval_fn`` (params ->
-    accuracy) decides each conditional step."""
+    ``sq_grads`` (the Fisher diagonal, shaped like ``params``) and
+    ``eval_fn`` (params -> accuracy, deciding each conditional step) enable
+    the conditional prune; without both the prune is skipped (a PTQ-only
+    artifact). ``specs`` defaults to the LM's families
+    (``sensitivity.lm_prune_groups``); the CNN track passes its conv-channel
+    specs, and ``a_baseline`` when it has evaluated the baseline already.
+    ``hqp.track`` selects real INT8 storage ("int8") or the paper's
+    simulated INT8 ("fake")."""
+    if (sq_grads is None) != (eval_fn is None):
+        raise ValueError(
+            "compress(): sq_grads and eval_fn must be given together (both "
+            "for conditional pruning, neither for a PTQ-only artifact); got "
+            f"sq_grads={'set' if sq_grads is not None else 'None'}, "
+            f"eval_fn={'set' if eval_fn is not None else 'None'}")
+    hqp = hqp or pipe.HQPConfig(weight_granularity="channel")
     bytes_before = pr.param_bytes(params)
-    res = pipe.conditional_prune(params, sens.lm_prune_groups(cfg), sq_grads,
-                                 eval_fn, hqp, log=log)
+    arch = getattr(cfg, "name", None) or getattr(cfg, "arch", "?")
+
+    deploy, res, seconds = params, None, {}
+    a_final = a_baseline
+    if sq_grads is not None:
+        if specs is None:
+            specs = sens.lm_prune_groups(cfg)
+        res = pipe.conditional_prune(params, specs, sq_grads, eval_fn, hqp,
+                                     a_baseline=a_baseline, log=log)
+        deploy = res.params_compact
+        a_baseline, a_final = res.a_baseline, res.a_final
+        seconds["compact"] = res.compact_seconds
+
     t0 = time.time()
-    deploy = cq.quantize_lm_params(res.params_compact)
+    if hqp.track == "fake":
+        deploy = cq.fake_quant_tree(deploy, hqp.bits, hqp.weight_granularity)
+        bytes_after = cq.simulated_int8_bytes(deploy)
+        qfrac = cq.simulated_quantized_fraction(deploy)
+    else:
+        deploy = cq.quantize_lm_params(deploy, hqp.bits)
+        bytes_after = cq.model_bytes(deploy)
+        qfrac = cq.quantized_fraction(deploy)
     tree.synchronize(deploy)
-    seconds = {"compact": res.compact_seconds, "ptq": time.time() - t0}
+    seconds["ptq"] = time.time() - t0
 
     manifest = HQPManifest(
-        arch=cfg.name, track="int8", bits=8,
-        bytes_before=int(bytes_before),
-        bytes_after=int(cq.model_bytes(deploy)),
-        quantized_fraction=float(cq.quantized_fraction(deploy)),
-        pruned=True, theta=float(res.theta),
-        n_drop=int(res.n_drop), total_units=int(res.ranked.total),
-        theta_by_family={k: v["theta"]
-                         for k, v in res.sparsity_by_family.items()},
-        a_baseline=float(res.a_baseline), a_final=float(res.a_final),
-        history=[dataclasses.asdict(h) for h in res.history],
-        vocab_size=cfg.vocab_size,
+        arch=arch, track=hqp.track, bits=hqp.bits,
+        bytes_before=int(bytes_before), bytes_after=int(bytes_after),
+        quantized_fraction=float(qfrac), pruned=res is not None,
+        theta=float(res.theta) if res else 0.0,
+        n_drop=int(res.n_drop) if res else 0,
+        total_units=int(res.ranked.total) if res else 0,
+        theta_by_family=({k: v["theta"]
+                          for k, v in res.sparsity_by_family.items()}
+                         if res else {}),
+        a_baseline=None if a_baseline is None else float(a_baseline),
+        a_final=None if a_final is None else float(a_final),
+        history=[dataclasses.asdict(h) for h in res.history] if res else [],
+        vocab_size=getattr(cfg, "vocab_size", None),
         arch_hash=arch_fingerprint(cfg))
     return HQPArtifact(deploy, manifest, res, seconds)
 

@@ -1,4 +1,7 @@
-"""Symmetric INT8 post-training quantization of the LM's linears, and the
+"""Symmetric quantization, the one implementation both tracks share: real
+INT8 storage of the LM's linears (``quantize_lm_params``), and the CNN
+track's simulated INT8 (``fake_quant_tree``: weights quantized and
+dequantized in place, sizes counted at 1 B a quantized parameter); and the
 byte accounting of the HQP manifest."""
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from repro_torch.compress.qtypes import QuantizedLinear
 from repro_torch.kernels.ref import ieee_div
 
 EPS = 1e-8          # amax floor: all-zero slices get scale EPS/qmax, q == 0
+MIN_FAKE_SIZE = 64  # leaves below this stay FP in the simulated track
 
 QUANT_LINEAR_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down",
                      "in_proj", "out_proj", "frontend")
@@ -31,6 +35,32 @@ def symmetric_quantize(w: torch.Tensor, bits: int = 8,
     scale = ieee_div(torch.clamp_min(amax, EPS), qmax)
     q = torch.clamp(torch.round(wf / scale), -qmax, qmax)
     return q, scale
+
+
+def _granularity_axes(ndim: int, granularity: str) -> Tuple[int, ...]:
+    if granularity == "tensor":
+        return tuple(range(ndim))
+    return tuple(range(ndim - 1))        # per output channel (last axis)
+
+
+def fake_quant(w: torch.Tensor, bits: int = 8,
+               granularity: str = "tensor") -> torch.Tensor:
+    """Dequantized-after-quantize weights (accuracy-simulation path)."""
+    q, scale = symmetric_quantize(w, bits, _granularity_axes(w.ndim,
+                                                             granularity))
+    return (q * scale).to(w.dtype)
+
+
+def fake_quant_tree(params: Any, bits: int = 8, granularity: str = "tensor",
+                    min_size: int = MIN_FAKE_SIZE) -> Any:
+    """Fake-quantize every weight leaf with >= min_size elements (CNN
+    track). BN params and stats and small vectors stay FP32 (TensorRT folds
+    or keeps them)."""
+    def fq(leaf):
+        if leaf.ndim >= 2 and leaf.numel() >= min_size:
+            return fake_quant(leaf, bits, granularity)
+        return leaf
+    return tree.map_(fq, params)
 
 
 def quantize_linear(p: Any, bits: int = 8) -> QuantizedLinear:
@@ -76,3 +106,26 @@ def quantized_fraction(params: Any) -> float:
 
 def model_bytes(params: Any) -> int:
     return sum(t.numel() * t.element_size() for t in tree.leaves(params))
+
+
+def simulated_int8_bytes(params: Any, min_size: int = MIN_FAKE_SIZE) -> int:
+    """Deployed-size accounting for the fake-quant (CNN) track: leaves the
+    simulation quantized count 1 B/param, the FP remainder its real width."""
+    total = 0
+    for leaf in tree.leaves(params):
+        if leaf.ndim >= 2 and leaf.numel() >= min_size:
+            total += leaf.numel()
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def simulated_quantized_fraction(params: Any,
+                                 min_size: int = MIN_FAKE_SIZE) -> float:
+    q = total = 0
+    for leaf in tree.leaves(params):
+        b = leaf.numel() * leaf.element_size()
+        total += b
+        if leaf.ndim >= 2 and leaf.numel() >= min_size:
+            q += b
+    return q / max(total, 1)

@@ -1,11 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution. It holds the one
-architecture the port serves so far."""
+LM the port serves so far and the paper's two CNNs."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import cnn
+from repro_torch.configs.base import CNNConfig, ModelConfig
 
 ARCH_MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
@@ -26,4 +27,9 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config"]
+def get_cnn_config(arch: str) -> CNNConfig:
+    return cnn.config(arch)
+
+
+__all__ = ["CNNConfig", "ModelConfig", "get_config", "get_smoke_config",
+           "get_cnn_config"]

@@ -37,3 +37,14 @@ class ModelConfig:
                 raise ValueError("block_pattern length != n_layers")
             return self.block_pattern
         return ("attn",) * self.n_layers
+
+
+# ---- CNN configs (the paper's own experiment) ----
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    name: str
+    arch: str                   # resnet18 | mobilenetv3s
+    n_classes: int = 10
+    width_mult: float = 1.0
+    image_size: int = 32
+    stem_channels: int = 16

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 from repro_torch import tree
 from repro_torch.core import pruning as pr
@@ -18,14 +18,18 @@ from repro_torch.core import sensitivity as sens
 
 @dataclasses.dataclass
 class HQPConfig:
-    """The knobs of the JAX package's HQPConfig that its launchers and
-    quickstart set, with its defaults. The rest keep the reference's
-    defaults: the INT8 track quantizes at 8 bits, and every unit of a
-    family is ranked; its fake-quant CNN track and activation calibration
-    are not ported."""
+    """The JAX package's HQPConfig, with its defaults. ``compress`` reads
+    ``bits``, ``weight_granularity`` and ``track``; Algorithm 1 the
+    step, limit and ``protect_frac``; the CNN experiment's activation
+    calibration ``act_method``."""
     delta_ax: float = 0.015          # max permissible accuracy drop (1.5%)
     step_frac: float = 0.01          # δ: 1% of total structural units / step
+    bits: int = 8
+    weight_granularity: str = "tensor"   # paper-faithful; "channel" for LM
+    act_method: str = "kl"           # absmax | percentile | kl
     max_steps: int = 200
+    protect_frac: float = 0.0
+    track: str = "int8"              # "int8" real storage | "fake" simulated
 
 
 @dataclasses.dataclass
@@ -61,11 +65,14 @@ def conditional_prune(params: Any,
                       sq_grads: Any,
                       eval_fn: Callable[[Any], float],
                       hqp: HQPConfig,
+                      a_baseline: Optional[float] = None,
                       log: Callable[[str], None] = print) -> HQPResult:
-    """Algorithm 1. eval_fn: masked params -> accuracy in [0, 1]; its first
-    call, on the unpruned params, is the baseline."""
-    ranked = pr.rank_units(specs, sq_grads)
-    a_baseline = eval_fn(params)
+    """Algorithm 1. eval_fn: masked params -> accuracy in [0, 1]; the
+    baseline is ``a_baseline`` when given, else eval_fn's first call, on the
+    unpruned params."""
+    ranked = pr.rank_units(specs, sq_grads, hqp.protect_frac)
+    if a_baseline is None:
+        a_baseline = eval_fn(params)
     delta = max(1, int(hqp.step_frac * ranked.total))
     log(f"[hqp] baseline acc={a_baseline:.4f}  units={ranked.total}  "
         f"δ={delta}  Δ_ax={hqp.delta_ax}")

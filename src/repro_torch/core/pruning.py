@@ -39,13 +39,16 @@ class RankedUnits:
         return [sel_unit[sel_spec == i] for i in range(len(self.specs))]
 
 
-def rank_units(specs: Sequence[sens.GroupSpec], sq_grads: Any) -> RankedUnits:
-    """Build R over every unit of every family (the paper's pure ranking;
-    the reference's ``protect_frac`` at its default of 0)."""
+def rank_units(specs: Sequence[sens.GroupSpec], sq_grads: Any,
+               protect_frac: float = 0.0) -> RankedUnits:
+    """Build R. ``protect_frac``: never rank the top-S fraction of each
+    family (guards against emptying a whole layer; 0 = the paper's pure
+    ranking)."""
     all_s, all_spec, all_unit = [], [], []
     for i, sp in enumerate(specs):
         s = sens.group_sensitivity(sq_grads, sp).cpu().numpy()
-        order = np.argsort(s)
+        n_rankable = sp.size - int(np.ceil(protect_frac * sp.size))
+        order = np.argsort(s)[:n_rankable]
         all_s.append(s[order])
         all_spec.append(np.full(len(order), i))
         all_unit.append(order)
@@ -72,19 +75,24 @@ def apply_prune_masks(params: Any, ranked: RankedUnits, n_drop: int) -> Any:
 def compact_params(params: Any, ranked: RankedUnits, n_drop: int) -> Any:
     """Physically remove the first n_drop units of R (deployment artifact).
 
-    Every family of the port is one layer's (``("blocks", g, ...)``). The
-    layers of one kind stay SHAPE-UNIFORM, as the JAX package's stacked
-    layers must: each keeps ``size - min_g(dropped_g)`` units, and a
-    more-pruned layer pads with its own *masked* (zeroed) units, lowest rank
-    first, so the compacted model computes exactly what the masked model
-    computed and its shapes equal the JAX artifact's. Call with the MASKED
-    params."""
-    families = {}
+    A family of the CNNs (or any family outside ``blocks``) is compacted
+    exactly: it keeps its own undropped units. The LM's families are one
+    layer's each (``("blocks", g, ...)``), and the layers of one kind stay
+    SHAPE-UNIFORM, as the JAX package's stacked layers must: each keeps
+    ``size - min_g(dropped_g)`` units, and a more-pruned layer pads with
+    its own *masked* (zeroed) units, lowest rank first, so the compacted
+    model computes exactly what the masked model computed and its shapes
+    equal the JAX artifact's. Call with the MASKED params."""
+    layered = {}
     for spec, drops in zip(ranked.specs, ranked.drops_per_spec(n_drop)):
-        key = (spec.kind, tuple((mm[0][2:], mm[1], mm[2], mm[3])
-                                for mm in spec.members_all), spec.size)
-        families.setdefault(key, []).append((spec, drops))
-    for (_, _, size), entries in families.items():
+        if spec.members_all[0][0][0] == "blocks":
+            key = (spec.kind, tuple((mm[0][2:], mm[1], mm[2], mm[3])
+                                    for mm in spec.members_all), spec.size)
+            layered.setdefault(key, []).append((spec, drops))
+        elif len(drops):
+            params = sens.compact_group(
+                params, spec, np.setdiff1d(np.arange(spec.size), drops))
+    for (_, _, size), entries in layered.items():
         n_keep = size - min(len(d) for _, d in entries)
         if n_keep == size:
             continue

@@ -5,7 +5,8 @@
 One backward pass per calibration batch accumulates squared gradients (the
 diagonal FIM estimate); a structural unit's sensitivity is the sum of that
 diagonal over the unit's parameter slices. The LM's units are the KV heads
-(with their query heads) and the FFN columns of every layer.
+(with their query heads) and the FFN columns of every layer; the CNNs'
+are conv channels (``cnn_prune_groups``).
 
 Member encoding
 ---------------
@@ -19,6 +20,7 @@ the port's ``blocks`` is a list of per-layer dicts, so the same member is
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Callable, Iterable, List, Tuple
 
 import numpy as np
@@ -161,6 +163,54 @@ def compact_group(params: Any, spec: GroupSpec,
         params = _set(params, path,
                       torch.index_select(leaf, axis, index).contiguous())
     return params
+
+
+# ------------------------------------------------------------------ CNN specs
+def cnn_prune_groups(cfg, variables: dict) -> List[GroupSpec]:
+    """Prunable channel families of the paper's two architectures, the JAX
+    package's specs exactly (names, members, order, sizes).
+
+    ResNet-18: the conv1 (intra-block) channels of every basic block; the
+    residual-identity path is never pruned (§V-D alignment discussion).
+    MobileNetV3-S: the expansion channels of every inverted bottleneck (the
+    family the paper found highest-sparsity, §V-C), with the SE convs and
+    the BN statistics among the members removed with them.
+    """
+    p = variables["params"]
+    groups: List[GroupSpec] = []
+    if cfg.arch == "resnet18":
+        for name in sorted(k for k in p if re.match(r"^s\d+b\d+$", k)):
+            c = p[name]["conv1"].shape[3]
+            mg = [m(("params", name, "conv1"), 3),
+                  m(("params", name, "conv2"), 2),
+                  m(("params", name, "bn1", "scale"), 0)]
+            ma = mg + [m(("params", name, "bn1", "bias"), 0),
+                       m(("stats", name, "bn1", "mean"), 0),
+                       m(("stats", name, "bn1", "var"), 0)]
+            groups.append(GroupSpec(f"{name}/conv1", mg, ma, c))
+    else:  # mobilenetv3s
+        for name in sorted((k for k in p if re.match(r"^b\d+$", k)
+                            and isinstance(p[k], dict) and "expand" in p[k]),
+                           key=lambda s: int(s[1:])):
+            blk = p[name]
+            c = blk["expand"].shape[3]
+            mg = [m(("params", name, "expand"), 3),
+                  m(("params", name, "dw"), 3),
+                  m(("params", name, "project"), 2),
+                  m(("params", name, "bn_e", "scale"), 0),
+                  m(("params", name, "bn_d", "scale"), 0)]
+            ma = list(mg) + [m(("params", name, "bn_e", "bias"), 0),
+                             m(("params", name, "bn_d", "bias"), 0),
+                             m(("stats", name, "bn_e", "mean"), 0),
+                             m(("stats", name, "bn_e", "var"), 0),
+                             m(("stats", name, "bn_d", "mean"), 0),
+                             m(("stats", name, "bn_d", "var"), 0)]
+            if "se_down" in blk:
+                ma += [m(("params", name, "se_down", "w"), 2),
+                       m(("params", name, "se_up", "w"), 3),
+                       m(("params", name, "se_up", "b"), 0)]
+            groups.append(GroupSpec(f"{name}/expand", mg, ma, c))
+    return groups
 
 
 # ------------------------------------------------------------------ LM specs

@@ -1,4 +1,4 @@
 """Deterministic synthetic data (numpy only)."""
-from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticImages", "SyntheticTokens"]

@@ -4,7 +4,8 @@ The JAX tree stacks the layers of ``blocks`` along axis 0; the port keeps a
 list of per-layer dicts. ``unstack_blocks`` and ``stack_blocks`` convert
 between the two (``from_jax_params`` carries a JAX param tree across;
 ``launch/checkpoint.py`` writes and reads checkpoints and artifacts in the
-JAX package's layout). Nothing here imports the JAX package or
+JAX package's layout; ``from_jax_cnn_variables`` carries the CNN variables
+across, whose layout the port keeps). Nothing here imports the JAX package or
 ``ml_dtypes``: a bf16 numpy leaf (dtype name ``bfloat16``) or a bf16 array
 stored as uint16 crosses through a 16-bit view."""
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.compress.qtypes import QuantizedLinear
 
 
@@ -135,3 +136,11 @@ def from_jax_params(tree: Any, device=None) -> dict:
             return [conv(v) for v in t]
         return from_numpy(np.asarray(t))
     return to_device(unstack_blocks(conv(tree)), device)
+
+
+def from_jax_cnn_variables(variables: Any, device=None) -> dict:
+    """The JAX package's CNN variables (``{"params", "stats"}`` of numpy
+    leaves, weights HWIO) -> the port's tree on ``device`` (default the
+    card, as ``resolve_device`` says), layouts unchanged."""
+    return to_device(tree.map_(lambda t: from_numpy(np.asarray(t)), variables),
+                     resolve_device(device))

@@ -55,6 +55,10 @@ def test_port_imports_without_jax():
         "import repro_torch.telemetry.metrics, repro_torch.telemetry.spans\n"
         "import repro_torch.telemetry.schema, repro_torch.serving.faults\n"
         "import repro_torch.serving.admission, repro_torch.serving.service\n"
+        "import repro_torch.configs.cnn, repro_torch.models.cnn\n"
+        "import repro_torch.core.calibration, repro_torch.roofline\n"
+        "import repro_torch.roofline.hardware, repro_torch.repro_exp\n"
+        "import repro_torch.repro_exp.cnn_experiment\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
