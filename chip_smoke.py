@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on the card: build the CUDA
 kernels, hold each against its plain PyTorch version at the shapes of the
-serving path (the W8A8 GEMM also in its serving form, which quantizes x in
+serving path (the attention kernels also at the heads of every config the
+card serves, the W8A8 GEMM at every (K, N) of each served model; the W8A8
+GEMM also in its serving form, which quantizes x in
 its own launch, bit for bit against the row quantizer then the GEMM; the
 paged attention kernels also bit for bit against their contiguous twins on
 the gathered window, up to 40,960 positions; decode attention also across
@@ -32,7 +34,15 @@ and a prefill chunk (where their time goes on the card); last, the
 paper's own experiment: HQP on ResNet-18 and MobileNetV3-Small at full
 width (train, Fisher, the Q8 / P50 / HQP table with latencies measured by
 CUDA-graph replay and modeled on the H100), the card's forward held
-against the CPU's and the masked model against the compacted one.
+against the CPU's and the masked model against the compacted one; then
+the MoE family at full width with its depth cut: phi3.5-moe compressed by
+the launcher (Fisher on the flash kernel, Algorithm 1 with the expert
+family, per-expert INT8 PTQ), masked == compacted also with an expert cut
+from every layer, the artifact saved and loaded, served contiguous and
+paged (every expert's W8A8 launch counted a step) and speculatively, each
+against serial decode, its decode step profiled; arctic (128 experts and
+a dense residual MLP) PTQ'd and served; last, granite-3-8b, stablelm-1.6b
+and command-r-35b at full width, PTQ'd and served against serial decode.
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -54,6 +64,7 @@ same way, and ``wrapper_ms`` is the host-issued rate of the wrapper.
 """
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import gc
 import itertools
@@ -119,22 +130,27 @@ ATTN_ROW_REL = 1e-2
 SUBLAYER_REL = 2e-2
 # The launcher's calibration batch and HQP run at full width.
 CALIB_B, CALIB_S, PRUNE_STEPS = 2, 32, 3
+# the heads (Hq, Hkv, hd) of the other configs the card serves:
+# phi3.5-moe and granite (G 4), arctic (G 7), command-r (G 8), all at hd
+# 128, and stablelm (G 1, hd 64)
+ARCH_HEADS = ((32, 8, 128), (56, 8, 128), (64, 8, 128), (32, 32, 64))
 # B4/B6 at other head groupings and widths than the model's (Hq, Hkv, hd):
-# G = 1, 3 and 4, and hd 16 (the smoke config) and 128 (the published
-# Qwen3-0.6B)
+# G = 1, 3 and 4, hd 16 (the smoke config) and 128 (the published
+# Qwen3-0.6B), and ARCH_HEADS
 PREFILL_HEADS = ((8, 8, 64), (12, 4, 64), (16, 4, 64), (16, 8, 16),
-                 (16, 8, 128))
+                 (16, 8, 128)) + ARCH_HEADS
 # B4/B6 timed at the serve chunk (16 queries at 37 against a 64-position
 # window), a late chunk of a long prompt (16 at 240 against 256) and a
 # whole 256-token prompt (serial_decode's prefill): (Sq, start, W)
 PREFILL_TIMED = ((SERVE_CHUNK, 37, 64), (SERVE_CHUNK, 240, 256),
                  (256, 0, 256))
 # B7 at the train route's shapes: the quickstart's batch (64 x 33) and the
-# train launcher's default (--seq 64: S 65), checked and timed
+# train launcher's default (--seq 64: S 65), checked and timed; and at
+# phi3.5-moe's heads on the calibration batch (its Fisher pass and evals)
 TRAIN_FLASH_SHAPES = ((64, 33, 16, 8, 64), (8, 65, 16, 8, 64))
 FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
                 (1, 1000, 16, 8, 64), (2, 256, 8, 8, 64),
-                (2, 256, 16, 8, 128)
+                (2, 256, 16, 8, 128), (CALIB_B, CALIB_S, 32, 8, 128)
                 ) + TRAIN_FLASH_SHAPES     # (B, S, Hq, Hkv, hd)
 # The train phase: the quickstart's corpus, batch and lr at full width, for
 # TRAIN_STEPS; a checkpoint RESUME_BACK steps before the end is restored
@@ -143,8 +159,8 @@ FLASH_SHAPES = ((CALIB_B, CALIB_S, 16, 8, 64), (1, 2048, 16, 8, 64),
 # chain's ceiling is 0.9) before Algorithm 1 decides on it
 TRAIN_STEPS, TRAIN_LR, RESUME_BACK, TRAIN_ACC_MIN = 240, 3e-3, 10, 0.5
 # B3/B5 checked at these windows, and at other head groupings and widths
-# than the model's: those of B4/B6, and G = 16 (the kernel's most, one m16
-# tile)
+# than the model's: those of B4/B6 (B5: ARCH_HEADS), and G = 16 (the
+# kernel's most, one m16 tile)
 DECODE_WINDOWS = (16, 64, 256, 1024, 4096)
 DECODE_HEADS = ((16, 8, 64),) + PREFILL_HEADS + ((16, 1, 64),)
 # B3/B5 timed beyond the serve shape, every slot at W - 1: (W, bytes of KV
@@ -198,6 +214,19 @@ SPEC_TIE_GAP = 2 * E2E_ATOL
 DENSE, UNFUSED = ("int8_matmul_quant",), ("quantize_rowwise", "int8_matmul")
 CONTIGUOUS = ("decode_attention", "prefill_attention")
 PAGED = ("paged_decode_attention", "paged_prefill_attention")
+# The MoE phase: phi3.5-moe compressed and served at full width with its
+# depth cut to MOE_LAYERS (2.86 B params; all 32 layers, 42 B, do not fit
+# one card), then arctic at full width and ARCTIC_LAYERS (one layer is 27.2
+# GB in bf16: PTQ only, no Fisher pass); MOE_NEW tokens a request of the
+# staggered load. The dense archs' phase: each at full width with its
+# depth cut to DENSE_LAYERS and its full vocabulary, INT8 PTQ, ARCH_REQUESTS
+# staggered requests of ARCH_NEW tokens. Each load runs ARCH_RUNS times on
+# one engine: the first cold (eager first uses), the second captures what
+# the first saw once, the last replays only (warm).
+MOE_ARCH, ARCTIC_ARCH = "phi3.5-moe-42b-a6.6b", "arctic-480b"
+MOE_LAYERS, ARCTIC_LAYERS, DENSE_LAYERS = 2, 1, 2
+DENSE_ARCHS = ("granite-3-8b", "stablelm-1.6b", "command-r-35b")
+MOE_NEW, ARCH_REQUESTS, ARCH_NEW, ARCH_RUNS = 16, 4, 8, 3
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
 GEMM_M = (1, 4, 13, 16, 17, 64)
@@ -307,6 +336,52 @@ def _gemm_bound(m, k, n, x_bytes=1):
     return bound(x + k * n + n * 4 + m * n * 2, 2 * m * n * k, "int8")
 
 
+def _b2_then_b1(x, w_q, w_scale, plain=False):
+    """B2 then B1 (or their plain versions): x's codes and scales, then the
+    product."""
+    from repro_torch.kernels import int8_matmul as km, quantize as kq, ref
+    x_q, x_scale = (ref.quantize_ref if plain else kq.quantize_rowwise)(x)
+    return (ref.int8_matmul_ref if plain else km.int8_matmul)(
+        x_q, w_q, x_scale, w_scale)
+
+
+def _b1_case(dev, m, k, n):
+    """B1 at (m, k) x (k, n) on random codes, bit for bit against its plain
+    version; then its serving form on a bf16 x with an all-zero row: its
+    codes and scales equal to the plain quantizer's, its output to B2 then
+    B1 and to the plain versions. Returns (B1's max |err|, the serving
+    form's, B1's plan, the serving form's plan)."""
+    import torch
+    from repro_torch.kernels import int8_matmul as km, ref
+    gen = lambda *shape: torch.randint(-127, 128, shape, device=dev,
+                                       dtype=torch.int8)
+    xq, wq = gen(m, k), gen(k, n)
+    xs = torch.rand(m, device=dev) * 0.05 + 1e-3
+    ws = torch.rand(n, device=dev) * 0.05 + 1e-3
+    plan = km.gemm_plan(m, n, k, wq.data_ptr(), xq.data_ptr())
+    out = km.int8_matmul(xq, wq, xs, ws)
+    want = ref.int8_matmul_ref(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        fail(f"int8_matmul M={m} K={k} N={n} ({plan}) differs from plain")
+    err = (out.float() - want.float()).abs().max().item()
+    x = (torch.randn(m, k, device=dev) * 3).to(torch.bfloat16)
+    x[m // 2] = 0
+    plan_q = km.gemm_plan(m, n, k, wq.data_ptr(), x.data_ptr(), x_bytes=2)
+    out_q = torch.empty(m, k, dtype=torch.int8, device=dev)
+    out_s = torch.empty(m, dtype=torch.float32, device=dev)
+    out = km.int8_matmul_quant(x, wq, ws, out_q, out_s)
+    want_q, want_s = ref.quantize_ref(x)
+    want = _b2_then_b1(x, wq, ws, plain=True)
+    what = f"int8_matmul_quant M={m} K={k} N={n} ({plan_q})"
+    _equal(out_q, want_q, what + " codes vs plain quantize")
+    _equal(out_s, want_s, what + " scales vs plain quantize")
+    _equal(out, _b2_then_b1(x, wq, ws), what + " vs B2 then B1")
+    _equal(out, want, what + " vs plain")
+    return (err, (out.float() - want.float()).abs().max().item(), plan,
+            plan_q)
+
+
 def phase_int8_matmul(dev, report):
     """B1 bit for bit against its plain version at every M the serving path
     and the tiling meet (1 and 4 slots, 13, one 16-row tile, past it, four
@@ -321,51 +396,20 @@ def phase_int8_matmul(dev, report):
     through > 50 MB so that, as in a decode step, each launch reads its
     weight from device memory: B1, the fused form, and B2 + B1."""
     import torch
-    from repro_torch.kernels import int8_matmul as km, quantize as kq, ref
+    from repro_torch.kernels import int8_matmul as km, ref
     gen = lambda *shape: torch.randint(-127, 128, shape, device=dev,
                                        dtype=torch.int8)
-
-    def two_step(quantize, matmul, x, w_q, w_scale):
-        """B2 then B1 (or their plain versions): x's codes and scales, then
-        the product."""
-        x_q, x_scale = quantize(x)
-        return matmul(x_q, w_q, x_scale, w_scale)
-
-    b2_b1 = lambda *a: two_step(kq.quantize_rowwise, km.int8_matmul, *a)
-    plain = lambda *a: two_step(ref.quantize_ref, ref.int8_matmul_ref, *a)
+    b2_b1 = _b2_then_b1
+    plain = lambda *a: _b2_then_b1(*a, plain=True)
     err = err_q = 0.0
     seen, seen_q = set(), set()
     shapes = [(m, k, n) for m in GEMM_M for k, n in GEMM_KN]
     shapes += [(m, 1024, n) for m in (4, 16) for n in (1000, 1012)]
     for m, k, n in shapes:
-        xq, wq = gen(m, k), gen(k, n)
-        xs = torch.rand(m, device=dev) * 0.05 + 1e-3
-        ws = torch.rand(n, device=dev) * 0.05 + 1e-3
-        plan = km.gemm_plan(m, n, k, wq.data_ptr(), xq.data_ptr())
+        e, e_q, plan, plan_q = _b1_case(dev, m, k, n)
+        err, err_q = max(err, e), max(err_q, e_q)
         seen.add((plan.vec, plan.x_vec, plan.split))
-        out = km.int8_matmul(xq, wq, xs, ws)
-        want = ref.int8_matmul_ref(xq, wq, xs, ws)
-        torch.cuda.synchronize()
-        if not torch.equal(out, want):
-            fail(f"int8_matmul M={m} K={k} N={n} ({plan}) differs from "
-                 f"plain")
-        err = max(err, (out.float() - want.float()).abs().max().item())
-        # the serving form: a bf16 x with an all-zero row
-        x = (torch.randn(m, k, device=dev) * 3).to(torch.bfloat16)
-        x[m // 2] = 0
-        plan = km.gemm_plan(m, n, k, wq.data_ptr(), x.data_ptr(), x_bytes=2)
-        seen_q.add((plan.vec, plan.x_vec, plan.split))
-        out_q = torch.empty(m, k, dtype=torch.int8, device=dev)
-        out_s = torch.empty(m, dtype=torch.float32, device=dev)
-        out = km.int8_matmul_quant(x, wq, ws, out_q, out_s)
-        want_q, want_s = ref.quantize_ref(x)
-        want = plain(x, wq, ws)
-        what = f"int8_matmul_quant M={m} K={k} N={n} ({plan})"
-        _equal(out_q, want_q, what + " codes vs plain quantize")
-        _equal(out_s, want_s, what + " scales vs plain quantize")
-        _equal(out, b2_b1(x, wq, ws), what + " vs B2 then B1")
-        _equal(out, want, what + " vs plain")
-        err_q = max(err_q, (out.float() - want.float()).abs().max().item())
+        seen_q.add((plan_q.vec, plan_q.x_vec, plan_q.split))
     # exact ties: rows whose scale is 1 (absmax 127) or 1/2 (63.5), so that
     # x / scale lands on half-integers, which round to even; a few in one
     # row (the kernel's list of chunks near a tie) and in every chunk of
@@ -830,7 +874,7 @@ def _equal(a, b, what):
 def phase_paged_decode(dev, report):
     """B5 against its plain version (as B3) and bit for bit against B3 on
     the gathered window, at pages of PAGE_SIZES, windows of 64 and 1,024
-    positions and B3's starts; then INT8 at B5_LONG positions in pages of
+    positions, B3's starts, and the model's heads and ARCH_HEADS; then INT8 at B5_LONG positions in pages of
     SERVE_PAGE, a table longer than the 2,048 entries B5 once held in
     shared memory; the tickets back at zero; then the device times as B3's
     through pages of SERVE_PAGE."""
@@ -841,15 +885,18 @@ def phase_paged_decode(dev, report):
     errs = [0.0, 0.0]
     for quantized in (False, True):
         for ps in PAGE_SIZES:
-            for window in (64, 1024):
+            for (hq_, hkv_, hd_), window in itertools.product(
+                    ((hq, hkv, hd),) + ARCH_HEADS, (64, 1024)):
                 starts = _decode_starts(window, kd.SEG)
                 arena, table = _paged_case(dev, ps, quantized, starts,
+                                           hkv=hkv_, hd=hd_,
                                            max_seq=window + kd.SEG)
                 idx = window_pages(table, ps, window).contiguous()
                 start = torch.tensor(starts, dtype=torch.int32, device=dev)
-                q = torch.randn(len(starts), hq, hd, device=dev).to(
+                q = torch.randn(len(starts), hq_, hd_, device=dev).to(
                     torch.bfloat16)
-                what = f"paged decode page={ps} W={window} int8={quantized}"
+                what = (f"paged decode page={ps} Hq={hq_} Hkv={hkv_} "
+                        f"hd={hd_} W={window} int8={quantized}")
                 out = kd.paged_decode_attention(q, *arena, start, idx)
                 _attn_check(out, ref.paged_decode_attention_ref(
                     q, *arena, start, idx), what, errs)
@@ -1099,11 +1146,39 @@ GRAPH_STATS = ("graphs_captured", "graph_replays", "eager_dispatches",
                "capture_s")
 
 
-def _n_linears(params) -> int:
-    """The W8A8 linears a forward runs (one fused B1 launch each)."""
+def _int8_linears(params):
+    """The INT8 linears of every block: attention, MLP and MoE experts."""
     from repro_torch.compress.qtypes import QuantizedLinear
-    return sum(isinstance(v, QuantizedLinear) for blk in params["blocks"]
-               for sub in (blk["attn"], blk["mlp"]) for v in sub.values())
+    return [v for blk in params["blocks"]
+            for part in ("attn", "mlp", "moe") if part in blk
+            for v in blk[part].values() if isinstance(v, QuantizedLinear)]
+
+
+def _n_linears(params) -> int:
+    """The W8A8 launches a forward runs: one fused B1 launch a linear, and
+    one an expert of each of an MoE layer's INT8 projections."""
+    return sum((v.w_q.shape[0] if v.w_q.ndim == 3 else 1)
+               for v in _int8_linears(params))
+
+
+def _b1_model_shapes(dev, trees, what, tag, card) -> None:
+    """B1 and its serving form (``_b1_case``) at every (K, N) of the INT8
+    linears of ``trees`` (an expert's (K, N) once), at every M of GEMM_M:
+    the shapes a served model gives B1 (a decode step's rows, a prefill
+    chunk's, a verify's SERVE_SLOTS x (SPEC_K + 1)) and one past 16-row
+    tiles. The split-K workspace must be zero again after them."""
+    shapes = sorted({tuple(v.w_q.shape[-2:]) for t in trees
+                     for v in _int8_linears(t)})
+    splits = set()
+    for m in GEMM_M:
+        for k, n in shapes:
+            splits.update(p.split for p in _b1_case(dev, m, k, n)[2:])
+    _, ws_left = _scratch(dev)
+    if ws_left:
+        fail(f"{what}: split-K workspace not reset ({ws_left})")
+    print(f"[{tag}] int8_matmul and int8_matmul_quant bit-identical to their "
+          f"plain versions at {what}'s (K, N) {shapes} x M {list(GEMM_M)}, "
+          f"split-K factors {sorted(splits)}  [{card}]")
 
 
 def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
@@ -1229,6 +1304,38 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     return out, eng
 
 
+def serve_line(runs, eng, label, card, graph_totals, tag="[serve]"):
+    """The first and the last run of a load (``_run_name``: the last is
+    "warm" when it only replayed); adds the load's graph stats to its
+    layout's totals."""
+    for i in sorted({0, len(runs) - 1}):
+        name, r = _run_name(runs, i), runs[i]
+        sm = r["summary"]
+        print(f"{tag} {label}, {name} run ({i + 1} of "
+              f"{len(runs)}): {sm['n_requests']} requests, "
+              f"{sm['out_tokens']} tokens, {sm['tokens_per_s']:.2f} "
+              f"tok/s, TTFT p50 {sm['ttft_p50_ms']:.1f} ms, latency p50 "
+              f"{sm['latency_p50_ms']:.1f} ms, {r['device_steps']} device "
+              f"steps / {r['host_syncs']} host syncs, graphs "
+              f"{r['graphs_captured']} captured / {r['graph_replays']} "
+              f"replays / {r['eager_dispatches']} eager dispatches, "
+              f"engine == serial on all requests, launches "
+              f"{r['launches']}  [{card}]")
+    layout = "paged" if eng.paged else "contiguous"
+    tot = graph_totals.setdefault(layout, dict.fromkeys(
+        ("loads", *GRAPH_STATS, "pool_bytes_max"), 0))
+    tot["loads"] += 1
+    for k in GRAPH_STATS:
+        tot[k] += eng.stats[k]
+    tot["pool_bytes_max"] = max(tot["pool_bytes_max"],
+                                eng.stats["graph_pool_bytes"])
+    bound = {k: f"{len(v)} of {eng.graphs.bounds[k]}"
+             for k, v in eng.graphs.keys.items()}
+    print(f"{tag} {label}: graph keys {bound}, capture "
+          f"{eng.stats['capture_s']:.3f} s, graph pool "
+          f"{eng.stats['graph_pool_bytes']} B  [{card}]")
+
+
 def _per_layer_ranking(ranked, drops):
     """A ranking over ``ranked``'s families that drops, in family i, its
     ``drops(i, spec)`` lowest-S units in the Fisher order of ``ranked``;
@@ -1251,7 +1358,7 @@ def _sublayer_rel(cfg, masked, other, batch):
     masked model's input to that layer (the loop of ``lm.forward``). Layer
     by layer, no layer compounds another's roundings."""
     import torch
-    from repro_torch.models import attention as A, layers as L
+    from repro_torch.models import attention as A, layers as L, lm
     tokens = batch["tokens"]
     x = L.embed_lookup(masked["embed"], tokens)
     b, s, _ = x.shape
@@ -1263,7 +1370,7 @@ def _sublayer_rel(cfg, masked, other, batch):
                                       route=A.TRAIN) for p in (pm, po))
         x = x + am
         h = L.rmsnorm(x, pm["norm2"], cfg.norm_eps, batch_invariant=False)
-        fm, fo = (L.mlp(h, p["mlp"], batch_invariant=False)
+        fm, fo = (lm.ffn(p, cfg, h, batch_invariant=False)
                   for p in (pm, po))
         x = x + fm
         for m, o in ((am, ao), (fm, fo)):
@@ -1276,12 +1383,20 @@ def _sublayer_rel(cfg, masked, other, batch):
 
 def _misalign_ffn(params, layer):
     """A planted compaction fault: ``layer``'s FFN down rows one unit off
-    from its gate/up columns."""
+    from its gate/up columns (an MoE layer's: each expert's down weights
+    those of the expert before it)."""
     blocks = list(params["blocks"])
     b = blocks[layer]
-    down = {**b["mlp"]["down"], "w": b["mlp"]["down"]["w"].roll(1, 0)}
-    blocks[layer] = {**b, "mlp": {**b["mlp"], "down": down}}
+    part = "moe" if "moe" in b else "mlp"
+    down = {**b[part]["down"], "w": b[part]["down"]["w"].roll(1, 0)}
+    blocks[layer] = {**b, part: {**b[part], "down": down}}
     return {**params, "blocks": blocks}
+
+
+def _ffn_width(blk) -> int:
+    """A layer's FFN units: d_ff columns, or an MoE layer's experts."""
+    return (blk["moe"]["up"]["w"].shape[0] if "moe" in blk
+            else blk["mlp"]["up"]["w"].shape[1])
 
 
 def _mask_vs_compact(cfg, masked, compact, batch, what, card):
@@ -1299,15 +1414,15 @@ def _mask_vs_compact(cfg, masked, compact, batch, what, card):
                               _misalign_ffn(compact, cfg.n_layers // 2),
                               batch)
     widths = sorted({(b["attn"]["wk"]["w"].shape[1] // cfg.resolved_head_dim,
-                      b["mlp"]["up"]["w"].shape[1])
-                     for b in compact["blocks"]})
+                      _ffn_width(b)) for b in compact["blocks"]})
+    unit = "experts" if cfg.moe is not None else "d_ff"
     print(f"[hqp] {what}, mask == compact: accuracy {acc_masked:.4f} "
           f"(masked) vs {acc_compact:.4f} (compacted); worst layer "
           f"output |masked - compacted| / |masked| {rel:.4g} (limit "
           f"{SUBLAYER_REL}), "
           f"{rel_fault:.4g} with layer {cfg.n_layers // 2}'s FFN down rows "
-          f"misaligned; compacted (kv heads, d_ff) {widths} of "
-          f"({cfg.n_kv_heads}, {cfg.d_ff})  [{card}]")
+          f"misaligned; compacted (kv heads, {unit}) {widths} of "
+          f"({cfg.n_kv_heads}, {_ffn_width(masked['blocks'][0])})  [{card}]")
     if acc_masked != acc_compact:
         fail(f"{what}: masked accuracy {acc_masked}, compacted "
              f"{acc_compact}")
@@ -2929,6 +3044,385 @@ def phase_cnn(dev, card) -> dict:
     print(f"[cnn] phase_cnn {time.monotonic() - t_phase:.1f} s  [{card}]")
     return tables
 
+# ------------------------------------------------------------------ MoE
+def _cut(arch, n_layers):
+    """``arch``'s published config with its depth cut to ``n_layers``."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
+
+
+def _shape_line(cfg, full_layers) -> str:
+    from repro_torch.models import lm
+    moe = cfg.moe
+    return (f"d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+            f"heads (G {cfg.n_heads // cfg.n_kv_heads}), hd "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+            + (f"{moe.n_experts} experts top-{moe.experts_per_token}"
+               + (" + a dense residual MLP" if moe.dense_residual else "")
+               + ", " if moe else "")
+            + f"vocab {cfg.vocab_size} padded to {lm.padded_vocab(cfg)}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}; depth cut from "
+            f"{full_layers} to {cfg.n_layers} layers")
+
+
+def _n_params(params) -> int:
+    from repro_torch import tree
+    return sum(t.numel() for t in tree.leaves(params))
+
+
+def _free() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_split_ms(params, cfg, dev, n_tokens):
+    """Device ms (CUDA-graph replays) of layer 0's MoE at ``n_tokens``
+    rows: the whole layer (``moe_tokens``: router, softmax, top-k sort, the
+    dispatch buffer's scatter, the experts, the combine) and its
+    experts alone (``expert_ffn`` over an (E, n_tokens, d) buffer: the B1
+    launches and the SwiGLU's elementwise ops). Their difference is the
+    dispatch's own time."""
+    import torch
+    from repro_torch.models import moe as M
+    p = params["blocks"][0]["moe"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n_tokens, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    xb = torch.randn(M.n_experts(p), n_tokens, cfg.d_model, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    k = cfg.moe.experts_per_token
+    layer = device_ms(lambda: M.moe_tokens(x, p, k), calls=4)
+    experts = device_ms(lambda: M.expert_ffn(xb, p), calls=4)
+    return {"moe_layer_ms": layer, "experts_ms": experts,
+            "dispatch_ms": layer - experts}
+
+
+def _moe_kernel_times(dev, cfg, report, card):
+    """B1 at an expert's decode product (the no-drop buffer's SERVE_SLOTS
+    rows, d_model x d_ff and back), and B3/B4 at the MoE config's heads
+    (hd 128, G 4) against an INT8 KV window of SERVE_MAX_SEQ: device ms of
+    the kernel, its plain version and its bound, into ``report`` under
+    ``moe_shapes``."""
+    import torch
+    from repro_torch.kernels import (decode_attention as kd,
+                                     int8_matmul as km,
+                                     prefill_attention as kp, ref)
+    b, hq, hkv, hd = SERVE_SLOTS, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    w = SERVE_MAX_SEQ
+    for k_dim, n_dim in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        x = torch.randn(b, k_dim, device=dev).to(torch.bfloat16)
+        w_q = torch.randint(-127, 128, (k_dim, n_dim), dtype=torch.int8,
+                            device=dev)
+        sc = torch.rand(n_dim, device=dev) * 1e-2
+        def plain(x=x, w_q=w_q, sc=sc):
+            x_q, x_s = ref.quantize_ref(x)
+            return ref.int8_matmul_ref(x_q, w_q, x_s, sc)
+        if not torch.equal(km.int8_matmul_quant(x, w_q, sc), plain()):
+            fail(f"B1 at an expert's ({b}, {k_dim}) x ({k_dim}, {n_dim}) "
+                 f"differs from its plain version")
+        t = timed(lambda x=x, w_q=w_q, sc=sc: km.int8_matmul_quant(x, w_q,
+                                                                   sc),
+                  plain)
+        b_ms, by = bound(b * k_dim * 2 + k_dim * n_dim + n_dim * 4
+                         + b * n_dim * 2, 2 * b * k_dim * n_dim, "int8")
+        shape = f"x ({b}, {k_dim}) bf16 x w ({k_dim}, {n_dim}) int8"
+        report["int8_matmul_quant"].setdefault("moe_shapes", {})[shape] = \
+            dict(t, bound_ms=b_ms, bound_by=by)
+        print(f"[moe] B1 at an expert's decode product {shape}: "
+              + _times(dict(t, bound_ms=b_ms, bound_by=by)) + f"  [{card}]")
+    k, v, k_s, v_s = _kv(dev, b, w, hkv, hd, True)
+    for name, sq, start in (("decode_attention", 1, w - 1),
+                            ("prefill_attention", SERVE_CHUNK,
+                             w - SERVE_CHUNK)):
+        q = torch.randn(b, sq, hq, hd, device=dev).to(torch.bfloat16)
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        if sq == 1:
+            kern = lambda: kd.decode_attention(q[:, 0], k, v, k_s, v_s, st)
+            plain = lambda: ref.decode_attention_ref(q[:, 0], k, v, k_s,
+                                                     v_s, st)
+            b_ms, by = _decode_bound(b, w, True, 0, hq, hkv, hd)
+        else:
+            kern = lambda: kp.prefill_attention(q, k, v, k_s, v_s, st)
+            plain = lambda: ref.cached_attention_ref(q, k, v, k_s, v_s, st)
+            b_ms, by = _prefill_bound(sq, start, w, True, 0, hq, hkv, hd)
+        errs = [0.0, 0.0]
+        _attn_check(kern(), plain(), f"{name} at the MoE heads", errs)
+        t = dict(timed(kern, plain), bound_ms=b_ms, bound_by=by)
+        shape = (f"q ({b}, {sq}, {hq}, {hd}) at {start} vs INT8 KV "
+                 f"({b}, {w}, {hkv}, {hd})")
+        report[name].setdefault("moe_shapes", {})[shape] = t
+        print(f"[moe] {name} at {shape}: " + _times(t)
+              + f", max |err| {errs[0]:.3g}, worst row {errs[1]:.3g}  "
+              f"[{card}]")
+
+
+def phase_moe(dev, kernels, report, card):
+    """The MoE family on the card, through the launcher's entry points:
+
+    1. phi3.5-moe at full width, MOE_LAYERS deep: seeded init, the
+       launcher's ``build_artifact`` (a Fisher pass on B7, PRUNE_STEPS
+       conditional steps with the expert family, compaction, per-expert
+       INT8 PTQ); the masked model == the compacted one;
+    2. C7's case: one expert cut from every layer by hand (the lowest-S
+       of each layer in the Fisher ranking; on random weights Algorithm 1's
+       steps may never reach an expert), masked == compacted, the router
+       bias compacted with its columns;
+    3. the artifact saved, loaded twice, each load bit-equal, its stacked
+       JAX-layout shapes checked;
+    4. served on the staggered load, INT8 KV, contiguous and paged (pages
+       of SERVE_PAGE), ARCH_RUNS runs each: engine == serial decode, B1
+       launched ``n_layers x (4 + 3 E)`` times a decode step (the no-drop
+       buffer: every expert runs every step), never B2 or the int8-x B1;
+    5. greedy speculative serving, the bf16 parent verifying its INT8 PTQ
+       (k SPEC_K), == the prefill-route serial decode of the parent;
+    6. a steady decode dispatch profiled (``phase_profile``), and the MoE
+       layer's dispatch apart from its experts (``_moe_split_ms``);
+    7. arctic at full width, ARCTIC_LAYERS deep, PTQ only, 4 requests
+       contiguous: engine == serial decode.
+    B1 and its serving form are held against their plain versions at
+    every (K, N) the phi artifact, its INT8 PTQ and arctic give them.
+    Returns the launches of the phi artifact's cold runs (B5/B6 from the
+    paged one, the rest from the contiguous one), the Fisher pass's flash
+    launches added."""
+    import torch
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.core import pruning as pr
+    from repro_torch.launch.checkpoint import load_artifact, save_artifact
+    from repro_torch.launch.serve import (_calib_batch, build_artifact,
+                                          synth_requests)
+    from repro_torch.models import lm
+    from repro_torch.serving import serial_decode
+    from repro_torch.weights import stack_blocks
+    t_phase = time.monotonic()
+    totals = {}
+    cfg = _cut(MOE_ARCH, MOE_LAYERS)
+    e, k = cfg.moe.n_experts, cfg.moe.experts_per_token
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name}: {_shape_line(cfg, 32)}: "
+          f"{_n_params(params) / 1e9:.3f} B params, seeded init "
+          f"{time.monotonic() - t0:.2f} s  [{card}]")
+    _moe_kernel_times(dev, cfg, report, card)
+
+    # 1. the launcher's HQP pipeline, from launch counts at 0
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    art = build_artifact(params, cfg, PRUNE_STEPS, log=print)
+    wall = time.monotonic() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    m, sec = art.manifest, art.seconds
+    print(m.summary())
+    n_forward = 1 + len(sec["evals"])
+    theta = {f: m.theta_by_family[f] for f in sorted(m.theta_by_family)}
+    print(f"[moe] compress: θ by family {json.dumps(theta)}; {wall:.2f} s in "
+          f"all (Fisher {sec['fisher']:.3f} s, evals "
+          f"{', '.join(f'{t:.3f}' for t in sec['evals'])}, compact "
+          f"{sec['compact']:.3f}, PTQ {sec['ptq']:.3f}); flash launches "
+          f"{launches['flash_attention']} over {n_forward} forwards; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          f" GiB  [{card}]")
+    if launches["flash_attention"] != cfg.n_layers * n_forward:
+        fail(f"moe compress: {launches['flash_attention']} flash launches, "
+             f"expected {cfg.n_layers} x {n_forward}")
+    stray = [n for n, c in launches.items() if c and n != "flash_attention"]
+    if stray:
+        fail(f"moe compress: serving kernels on the train route: {stray}")
+    if any(f"L{i}/experts" not in theta for i in range(cfg.n_layers)):
+        fail(f"moe compress: no expert family in {sorted(theta)}")
+    if not m.pruned or not (len(m.history) == PRUNE_STEPS
+                            or not m.history[-1]["accepted"]):
+        fail(f"moe compress: {len(m.history)} conditional steps of "
+             f"{PRUNE_STEPS}, the last accepted")
+    batch = _calib_batch(cfg, CALIB_B, CALIB_S, device=dev)
+    res = art.prune
+    _mask_vs_compact(cfg, res.params_sparse, res.params_compact, batch,
+                     f"{cfg.name} launcher's artifact", card)
+
+    # 2. C7's case: an expert out of every layer
+    ranked, n = _per_layer_ranking(
+        res.ranked, lambda i, spec: int(spec.kind == "expert"))
+    art.prune = res = None
+    masked = pr.apply_prune_masks(params, ranked, n)
+    compact = pr.compact_params(masked, ranked, n)
+    for i, blk in enumerate(compact["blocks"]):
+        r = blk["moe"]["router"]
+        if r["w"].shape[-1] != e - 1 or r["b"].shape != (e - 1,):
+            fail(f"C7's case: layer {i}'s router {tuple(r['w'].shape)} / "
+                 f"{tuple(r['b'].shape)}, expected {e - 1} experts")
+    _mask_vs_compact(cfg, masked, compact, batch,
+                     "one expert cut from every layer (C7's case)", card)
+    del masked, compact
+    _free()
+
+    # 3. save, load, load again
+    art_dir = ROOT / "build" / "moe_artifact"
+    shutil.rmtree(art_dir, ignore_errors=True)
+    try:
+        t0 = time.monotonic()
+        save_artifact(str(art_dir), art)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        loads = [load_artifact(str(art_dir), device=dev) for _ in range(2)]
+        load_s = (time.monotonic() - t0) / 2
+    finally:
+        size = sum(f.stat().st_size for f in art_dir.rglob("*")
+                   if f.is_file()) if art_dir.exists() else 0
+        shutil.rmtree(art_dir, ignore_errors=True)
+    for i, loaded in enumerate(loads):
+        bad = _differ(loaded.params, art.params)
+        if bad or loaded.manifest.asdict() != m.asdict():
+            fail(f"moe artifact load {i + 1}: leaves {bad[:5]} differ")
+    e_art = art.params["blocks"][0]["moe"]["gate"].w_q.shape[0]
+    st = stack_blocks({"blocks": loads[1].params["blocks"]})["blocks"][0]
+    want = {"gate": (cfg.n_layers, e_art, cfg.d_model, cfg.d_ff),
+            "down": (cfg.n_layers, e_art, cfg.d_ff, cfg.d_model)}
+    got = {name: tuple(st["moe"][name].w_q.shape) for name in want}
+    if (got != want or tuple(st["moe"]["gate"].scale.shape)
+            != (cfg.n_layers, e_art, cfg.d_ff)
+            or tuple(st["moe"]["router"]["b"].shape) != (cfg.n_layers,
+                                                         e_art)):
+        fail(f"moe artifact: stacked JAX-layout shapes {got}, expected "
+             f"{want}")
+    del loads, st
+    print(f"[moe] artifact: {size / 1e9:.3f} GB on disk, saved in "
+          f"{save_s:.2f} s, loaded twice ({load_s:.2f} s each), both loads "
+          f"bit-equal to the artifact in memory; stacked JAX layout: expert "
+          f"codes {got['gate']}, scales {(cfg.n_layers, e_art, cfg.d_ff)}  "
+          f"[{card}]")
+
+    # 4. serve the artifact, contiguous and paged
+    drafter = quantize_lm_params(params)
+    _b1_model_shapes(dev, (art.params, drafter),
+                     f"{cfg.name}'s artifact and INT8 PTQ", "moe", card)
+    reqs, arrivals = synth_requests(cfg, PRUNED_REQUESTS, SERVE_PROMPT,
+                                    MOE_NEW)
+    n_lin = _n_linears(art.params)
+    if n_lin != cfg.n_layers * (4 + 3 * e_art):
+        fail(f"moe: {n_lin} W8A8 launches a forward, expected "
+             f"{cfg.n_layers} x (4 + 3 x {e_art})")
+    # each kernel's count from the cold run of the layout that launches it
+    moe_launches = {}
+    for page_size, must, must_not in (
+            (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
+        runs, eng = serve_once(art.params, cfg, dev, kernels, reqs, must,
+                               must_not, arrivals_s=arrivals, runs=ARCH_RUNS,
+                               quantized_kv=True, page_size=page_size)
+        cold = runs[0]["launches"]
+        moe_launches.update(cold if page_size is None
+                            else {name: cold[name] for name in PAGED})
+        serve_line(runs, eng, f"{cfg.name} HQP artifact, kv=int8 "
+                   + (f"page={page_size}" if page_size else "contiguous"),
+                   card, totals, tag="[moe]")
+        del eng
+    moe_launches["flash_attention"] = launches["flash_attention"]
+    print(f"[moe] B1 launches a decode step and a prefill chunk: {n_lin} = "
+          f"{cfg.n_layers} layers x (4 attention + {e_art} experts x 3); "
+          f"no B2 and no int8-x B1 launch on any serving run  [{card}]")
+
+    # 5. greedy speculative: the bf16 parent verifies its INT8 PTQ
+    t0 = time.monotonic()
+    oracle = [serial_decode(params, cfg, r.prompt, r.max_new_tokens,
+                            max_seq=SERVE_MAX_SEQ, device=dev,
+                            route="prefill") for r in reqs]
+    oracle_s = time.monotonic() - t0
+    runs, eng = serve_spec(params, drafter, cfg, dev, kernels, reqs,
+                           DENSE + CONTIGUOUS, PAGED + UNFUSED, oracle, 1,
+                           arrivals_s=arrivals)
+    _spec_line(runs, eng, f"{cfg.name} greedy k={SPEC_K}, bf16 verifier "
+               f"(bf16 KV), its INT8 PTQ drafting (INT8 KV), contiguous, "
+               f"engine == prefill-route serial decode ({len(reqs)} serial "
+               f"decodes in {oracle_s:.2f} s)", card)
+    del eng, drafter, params
+    _free()
+
+    # 6. where a steady decode dispatch's time goes
+    for layout, prof in phase_profile(art.params, cfg, dev, kernels).items():
+        print(f"[moe] profile: steady decode, {cfg.name}, INT8 KV, "
+              f"{SERVE_SLOTS} slots, {layout}, replayed CUDA graphs: "
+              f"{json.dumps(prof)}  [{card}]")
+    split = _moe_split_ms(art.params, cfg, dev, SERVE_SLOTS)
+    print(f"[moe] MoE layer at a decode step's {SERVE_SLOTS} tokens, CUDA-"
+          f"graph replays, device ms: whole layer {split['moe_layer_ms']:.5f}"
+          f", experts (B1 x {3 * e_art} + SwiGLU) {split['experts_ms']:.5f}, "
+          f"dispatch (router, softmax, top-k sort, scatter, combine) "
+          f"{split['dispatch_ms']:.5f}; a step runs {cfg.n_layers} such "
+          f"layers  [{card}]")
+    del art
+    _free()
+
+    # 7. arctic, one layer, PTQ only
+    acfg = _cut(ARCTIC_ARCH, ARCTIC_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    aparams = quantize_lm_params(lm.init_params(acfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    print(f"[moe] {acfg.name}: {_shape_line(acfg, 35)}: "
+          f"{_n_params(aparams) / 1e9:.3f} B params INT8, seeded init and "
+          f"per-expert PTQ {time.monotonic() - t0:.2f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  "
+          f"[{card}]")
+    n_lin = _n_linears(aparams)
+    if n_lin != acfg.n_layers * (4 + 3 * acfg.moe.n_experts + 3):
+        fail(f"arctic: {n_lin} W8A8 launches a forward")
+    _b1_model_shapes(dev, (aparams,), f"{acfg.name}'s INT8 PTQ", "moe", card)
+    areqs, aarr = synth_requests(acfg, ARCH_REQUESTS, SERVE_PROMPT, ARCH_NEW)
+    runs, eng = serve_once(aparams, acfg, dev, kernels, areqs,
+                           DENSE + CONTIGUOUS, PAGED + UNFUSED,
+                           arrivals_s=aarr, runs=ARCH_RUNS, quantized_kv=True)
+    serve_line(runs, eng, f"{acfg.name} INT8 PTQ, kv=int8 contiguous, B1 "
+               f"{n_lin} a step", card, totals, tag="[moe]")
+    del eng, aparams
+    _free()
+    print(f"[moe] phase seconds {time.monotonic() - t_phase:.1f}  [{card}]")
+    return moe_launches
+
+
+def phase_dense_archs(dev, kernels, card):
+    """granite-3-8b, stablelm-1.6b and command-r-35b at full width, each
+    DENSE_LAYERS deep with its full vocabulary: seeded init, INT8 PTQ,
+    ARCH_REQUESTS staggered requests of ARCH_NEW tokens, INT8 KV,
+    contiguous, ARCH_RUNS runs on one engine, engine == serial decode;
+    B3/B4 at hd 128 with G 4 (granite) and G 8 (command-r), and at hd 64
+    with G 1 (stablelm), all held against their plain versions at these
+    heads in the kernel phases (ARCH_HEADS), and B1 at each arch's (K, N)
+    here. Returns each arch's launches on its cold run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models import lm
+    t_phase = time.monotonic()
+    totals, out = {}, {}
+    for arch in DENSE_ARCHS:
+        cfg = _cut(arch, DENSE_LAYERS)
+        t0 = time.monotonic()
+        params = quantize_lm_params(lm.init_params(cfg, seed=0, device=dev))
+        torch.cuda.synchronize()
+        print(f"[arch] {arch}: "
+              f"{_shape_line(cfg, configs.get_config(arch).n_layers)}: "
+              f"{_n_params(params) / 1e9:.3f} B params INT8, seeded init "
+              f"and PTQ {time.monotonic() - t0:.2f} s  [{card}]")
+        _b1_model_shapes(dev, (params,), f"{arch}'s INT8 PTQ", "arch", card)
+        reqs, arrivals = synth_requests(cfg, ARCH_REQUESTS, SERVE_PROMPT,
+                                        ARCH_NEW)
+        runs, eng = serve_once(params, cfg, dev, kernels, reqs,
+                               DENSE + CONTIGUOUS, PAGED + UNFUSED,
+                               arrivals_s=arrivals, runs=ARCH_RUNS,
+                               quantized_kv=True)
+        serve_line(runs, eng, f"{arch} INT8 PTQ, kv=int8 contiguous", card,
+                   totals, tag="[arch]")
+        out[arch] = runs[0]["launches"]
+        del eng, params
+        _free()
+    print(f"[arch] phase seconds {time.monotonic() - t_phase:.1f}  [{card}]")
+    return out
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3033,35 +3527,7 @@ def main() -> int:
     graph_totals = {}
 
     def line(runs, eng, label):
-        """The cold (first) and warm (last) runs of a load; adds the load's
-        graph stats to its layout's totals."""
-        for name, i in ((("cold", 0), ("warm", len(runs) - 1))
-                        if len(runs) > 1 else (("one", 0),)):
-            r = runs[i]
-            sm = r["summary"]
-            print(f"[serve] {label}, {name} run ({i + 1} of "
-                  f"{len(runs)}): {sm['n_requests']} requests, "
-                  f"{sm['out_tokens']} tokens, {sm['tokens_per_s']:.2f} "
-                  f"tok/s, TTFT p50 {sm['ttft_p50_ms']:.1f} ms, latency p50 "
-                  f"{sm['latency_p50_ms']:.1f} ms, {r['device_steps']} device "
-                  f"steps / {r['host_syncs']} host syncs, graphs "
-                  f"{r['graphs_captured']} captured / {r['graph_replays']} "
-                  f"replays / {r['eager_dispatches']} eager dispatches, "
-                  f"engine == serial on all requests, launches "
-                  f"{r['launches']}  [{card}]")
-        layout = "paged" if eng.paged else "contiguous"
-        tot = graph_totals.setdefault(layout, dict.fromkeys(
-            ("loads", *GRAPH_STATS, "pool_bytes_max"), 0))
-        tot["loads"] += 1
-        for k in GRAPH_STATS:
-            tot[k] += eng.stats[k]
-        tot["pool_bytes_max"] = max(tot["pool_bytes_max"],
-                                    eng.stats["graph_pool_bytes"])
-        bound = {k: f"{len(v)} of {eng.graphs.bounds[k]}"
-                 for k, v in eng.graphs.keys.items()}
-        print(f"[serve] {label}: graph keys {bound}, capture "
-              f"{eng.stats['capture_s']:.3f} s, graph pool "
-              f"{eng.stats['graph_pool_bytes']} B  [{card}]")
+        serve_line(runs, eng, label, card, graph_totals)
 
     main_launches = {}
     kv_bytes = None
@@ -3189,6 +3655,10 @@ def main() -> int:
     # reference, so no kernel of the port (cuDNN's convs and cuBLAS)
     phase_cnn(dev, card)
 
+    # the MoE family, then the other dense configs, at full width
+    moe_launches = phase_moe(dev, kernels, report, card)
+    arch_launches = phase_dense_archs(dev, kernels, card)
+
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
                 "int8_matmul_quant": "int8_matmul.py:44",
@@ -3217,10 +3687,13 @@ def main() -> int:
                if name in unfused else {}),
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
                                  "train_shapes", "b2_b1_ms", "shapes",
-                                 "verify_shape")
+                                 "verify_shape", "moe_shapes")
                if k in r},
             **({"train_launches": train_launches}
-               if name == "flash_attention" else {})})
+               if name == "flash_attention" else {}),
+            "moe_launches": moe_launches[name],
+            "dense_arch_launches": {a: c[name]
+                                    for a, c in arch_launches.items()}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

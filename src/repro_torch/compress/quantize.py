@@ -65,11 +65,23 @@ def fake_quant_tree(params: Any, bits: int = 8, granularity: str = "tensor",
 
 def quantize_linear(p: Any, bits: int = 8) -> QuantizedLinear:
     """{"w": (..., in, out)} (or a bare tensor) -> QuantizedLinear, with one
-    scale per output channel within each leading index."""
+    scale per output channel within each leading index. A stacked leaf (an
+    MoE layer's experts) is quantized one leading index at a time, into
+    preallocated codes: the f32 temporaries then hold one (in, out) matrix,
+    not the whole leaf (53.6 GB at arctic-480b's experts). Each index's
+    codes and scales are those of the whole leaf's: the reduction runs over
+    ``in`` only."""
     w = p["w"] if isinstance(p, dict) else p
-    q, scale = symmetric_quantize(w, bits, dims=(w.ndim - 2,))
-    return QuantizedLinear(w_q=q.to(torch.int8),
-                           scale=scale.squeeze(w.ndim - 2).float(), bits=bits)
+    w3 = w.reshape(-1, *w.shape[-2:])
+    w_q = torch.empty(w3.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((w3.shape[0], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+    for i in range(w3.shape[0]):
+        q, s = symmetric_quantize(w3[i], bits, dims=(0,))
+        w_q[i], scale[i] = q, s[0]
+    return QuantizedLinear(w_q=w_q.reshape(w.shape),
+                           scale=scale.reshape(*w.shape[:-2], w.shape[-1]),
+                           bits=bits)
 
 
 def quantize_lm_params(params: Any, bits: int = 8,

@@ -1,15 +1,21 @@
-"""Architecture registry: ``--arch <id>`` resolution. It holds the one
-LM the port serves so far and the paper's two CNNs."""
+"""Architecture registry: ``--arch <id>`` resolution. It holds the LMs
+the port serves so far (the dense GQA family and the MoE family) and the
+paper's two CNNs."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
 from repro_torch.configs import cnn
-from repro_torch.configs.base import CNNConfig, ModelConfig
+from repro_torch.configs.base import CNNConfig, ModelConfig, MoEConfig
 
 ARCH_MODULES: Dict[str, str] = {
+    "arctic-480b": "arctic_480b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "command-r-35b": "command_r_35b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "granite-3-8b": "granite_3_8b",
 }
 
 
@@ -31,5 +37,5 @@ def get_cnn_config(arch: str) -> CNNConfig:
     return cnn.config(arch)
 
 
-__all__ = ["CNNConfig", "ModelConfig", "get_config", "get_smoke_config",
+__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "get_config", "get_smoke_config",
            "get_cnn_config"]

@@ -3,13 +3,25 @@ reads from the JAX package's ``ModelConfig``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    experts_per_token: int = 2
+    moe_every: int = 1          # a layer is MoE iff (layer_idx % moe_every == moe_offset)
+    moe_offset: int = 0
+    dense_residual: bool = False  # arctic: dense MLP in parallel with MoE
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,6 +35,7 @@ class ModelConfig:
     use_bias: bool = False
     norm_eps: float = 1e-5
     block_pattern: Tuple[str, ...] = ()   # () -> all "attn"
+    moe: Optional[MoEConfig] = None
     attn_chunk_kv: int = 1024   # KV chunk of the train route's CPU flash
     max_seq_len: int = 32_768
 
@@ -37,6 +50,12 @@ class ModelConfig:
                 raise ValueError("block_pattern length != n_layers")
             return self.block_pattern
         return ("attn",) * self.n_layers
+
+    def is_moe_layer(self, idx: int) -> bool:
+        m = self.moe
+        if m is None or m.n_experts == 0:
+            return False
+        return idx % m.moe_every == m.moe_offset
 
 
 # ---- CNN configs (the paper's own experiment) ----

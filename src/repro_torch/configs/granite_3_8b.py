@@ -1,0 +1,36 @@
+"""granite-3-8b [dense] — GQA.
+
+[hf:ibm-granite/granite-3.0-2b-base; hf]
+40L d_model=4096 32H (GQA kv=8) d_ff=12800 vocab=49155.
+"""
+from repro_torch.configs.base import ModelConfig
+
+ARCH_ID = "granite-3-8b"
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name=ARCH_ID,
+        family="dense",
+        n_layers=40,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_ff=12800,
+        vocab_size=49155,
+        max_seq_len=4_096,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name=ARCH_ID + "-smoke",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=128,
+        vocab_size=256,
+        max_seq_len=128,
+    )

@@ -62,14 +62,28 @@ def rank_units(specs: Sequence[sens.GroupSpec], sq_grads: Any,
 
 def apply_prune_masks(params: Any, ranked: RankedUnits, n_drop: int) -> Any:
     """Masked (shape-preserving) model with the first n_drop units of R
-    zeroed; ``params`` is not modified."""
+    zeroed, a masked expert also made unroutable; ``params`` is not
+    modified."""
     for spec, drops in zip(ranked.specs, ranked.drops_per_spec(n_drop)):
         if len(drops) == 0:
             continue
         dvec = np.zeros((spec.size,), bool)
         dvec[drops] = True
         params = sens.mask_group(params, spec, torch.from_numpy(dvec))
+        if spec.kind == "expert":
+            params = _disable_router_cols(params, spec, dvec)
     return params
+
+
+def _disable_router_cols(params: Any, spec: sens.GroupSpec,
+                         dvec: np.ndarray) -> Any:
+    """A masked expert's router bias becomes -1e9: its probability is then
+    exactly 0 and top-k never picks it over a live expert."""
+    path = next(mm[0] for mm in spec.members_all
+                if "router" in mm[0])[:-1] + ("b",)
+    b = sens._get(params, path)
+    drop = torch.from_numpy(dvec).to(b.device)
+    return sens._set(params, path, torch.where(drop, -1e9, b))
 
 
 def compact_params(params: Any, ranked: RankedUnits, n_drop: int) -> Any:

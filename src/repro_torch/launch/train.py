@@ -51,6 +51,8 @@ def main(argv=None):
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     opt_cfg = AdamWConfig(lr=args.lr, state_dtype=args.state_dtype)
+    # first: it refuses what cannot be trained before any weight is made
+    step_fn = make_train_step(cfg, opt_cfg, args.microbatches)
     params = lm.init_params(cfg, seed=0, device=device)
     opt_state = adamw_init(params, opt_cfg)
 
@@ -59,7 +61,6 @@ def main(argv=None):
     # 0's chain, sampled with seed 7
     val = SyntheticTokens(cfg.vocab_size, args.seq + 1, 512, seed=7,
                           chain_seed=0)
-    step_fn = make_train_step(cfg, opt_cfg, args.microbatches)
     eval_fn = make_eval_step(cfg)
 
     start_step = 0

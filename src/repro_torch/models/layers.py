@@ -78,12 +78,12 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor,
-            batch_invariant: bool) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           batch_invariant: bool) -> torch.Tensor:
     return matmul_rows(x, w) if batch_invariant else x @ w
 
 
-def _sum_last(x: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
+def sum_last(x: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
     return row_sum(x) if batch_invariant else x.sum(-1, keepdim=True)
 
 
@@ -93,15 +93,15 @@ def dense(x: torch.Tensor, p, batch_invariant: bool = True) -> torch.Tensor:
     quantized per row and the dequant runs in the matmul epilogue)."""
     if isinstance(p, QuantizedLinear):
         return ops.int8_matmul(x, p.w_q, p.scale)
-    return _matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE),
-                   batch_invariant)
+    return matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE),
+                  batch_invariant)
 
 
 # ---------------------------------------------------------------- norms
 def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-5,
             batch_invariant: bool = True) -> torch.Tensor:
     xf = x.float()
-    var = _sum_last(xf * xf, batch_invariant) / xf.shape[-1]
+    var = sum_last(xf * xf, batch_invariant) / xf.shape[-1]
     return (xf * torch.rsqrt(var + eps) * p["g"]).to(COMPUTE_DTYPE)
 
 
@@ -109,7 +109,7 @@ def l2norm(x: torch.Tensor, eps: float = 1e-6,
            batch_invariant: bool = True) -> torch.Tensor:
     """Per-head qk-norm (qwen3 style), no learned scale."""
     xf = x.float()
-    var = _sum_last(xf * xf, batch_invariant) / xf.shape[-1]
+    var = sum_last(xf * xf, batch_invariant) / xf.shape[-1]
     return (xf * torch.rsqrt(var + eps)).to(COMPUTE_DTYPE)
 
 
@@ -141,8 +141,8 @@ def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: dict, x: torch.Tensor,
             batch_invariant: bool = True) -> torch.Tensor:
     """Logits in f32 (from the bf16 product, as the reference)."""
-    return _matmul(x.to(COMPUTE_DTYPE), p["table"].to(COMPUTE_DTYPE).t(),
-                   batch_invariant).float()
+    return matmul(x.to(COMPUTE_DTYPE), p["table"].to(COMPUTE_DTYPE).t(),
+                  batch_invariant).float()
 
 
 # ---------------------------------------------------------------- MLP (SwiGLU)

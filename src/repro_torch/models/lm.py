@@ -1,4 +1,6 @@
-"""Decoder LM for the all-``attn`` pattern (the dense GQA family).
+"""Decoder LM for the all-``attn`` pattern: the dense GQA family, and the
+MoE family, whose layers put ``models/moe.py``'s experts in place of the
+MLP (arctic-480b keeps a dense residual MLP beside them).
 
 Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
 "final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
@@ -19,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 VOCAB_PAD = 256
 
@@ -29,18 +32,31 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
+def layer_specs(cfg) -> Tuple[Tuple[str, bool], ...]:
+    """(block kind, is MoE) of every layer, as the JAX package's."""
+    return tuple((kind, cfg.is_moe_layer(i))
+                 for i, kind in enumerate(cfg.pattern))
+
+
 def _check_pattern(cfg) -> None:
     if any(kind != "attn" for kind in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the all-attn pattern is ported so far")
+            f"{cfg.name}: only the all-attn pattern (dense or MoE FFN) is "
+            f"ported so far")
 
 
 # ------------------------------------------------------------------ init
-def _block_init(gen: torch.Generator, cfg) -> dict:
-    return {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-            "attn": A.attention_init(gen, cfg),
-            "norm2": L.rmsnorm_init(cfg.d_model, gen.device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff)}
+def _block_init(gen: torch.Generator, cfg, is_moe: bool) -> dict:
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
+         "attn": A.attention_init(gen, cfg),
+         "norm2": L.rmsnorm_init(cfg.d_model, gen.device)}
+    if is_moe:
+        p["moe"] = M.moe_init(gen, cfg)
+        if cfg.moe.dense_residual:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(cfg, seed: int = 0, device=None) -> dict:
@@ -54,7 +70,8 @@ def init_params(cfg, seed: int = 0, device=None) -> dict:
     params: Dict[str, Any] = {"embed": L.embed_init(gen, v_pad, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(gen, v_pad, cfg.d_model)
-    params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    params["blocks"] = [_block_init(gen, cfg, is_moe)
+                        for _, is_moe in layer_specs(cfg)]
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     return params
 
@@ -81,12 +98,25 @@ def logits_fn(params: dict, cfg, hidden: torch.Tensor,
     return torch.where(mask, logits, -1e30)
 
 
+# ------------------------------------------------------------------ blocks
+def ffn(p: dict, cfg, h: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
+    """A layer's FFN on its normed input: the SwiGLU MLP, or the experts
+    (plus, beside them, arctic's dense residual MLP, added in bf16)."""
+    if "moe" not in p:
+        return L.mlp(h, p["mlp"], batch_invariant)
+    out = M.moe_forward(p["moe"], cfg, h, batch_invariant)
+    if "mlp" in p:
+        out = out + L.mlp(h, p["mlp"], batch_invariant)
+    return out
+
+
 # ------------------------------------------------------------------ train
 def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
     """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
-    train route: every layer attends its own fresh K/V causally. The dense
-    family has no auxiliary losses and no frontend, so unlike the JAX
-    package's ``forward`` this returns the hidden states alone."""
+    train route: every layer attends its own fresh K/V causally. The ported
+    families have no frontend, and the MoE auxiliary losses belong to MoE
+    training, which is not ported, so unlike the JAX package's ``forward``
+    this returns the hidden states alone."""
     _check_pattern(cfg)
     tokens = batch["tokens"]
     x = L.embed_lookup(params["embed"], tokens)
@@ -97,7 +127,7 @@ def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
         x = x + A.attention_forward(p["attn"], cfg, h, positions,
                                     route=A.TRAIN)
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, batch_invariant=False)
-        x = x + L.mlp(h, p["mlp"], batch_invariant=False)
+        x = x + ffn(p, cfg, h, batch_invariant=False)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
                      batch_invariant=False)
 
@@ -212,5 +242,5 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         x = x + A.attention_forward(p["attn"], cfg, h, positions, cache, cur,
                                     window, route, pages)
-        x = x + L.mlp(L.rmsnorm(x, p["norm2"], cfg.norm_eps), p["mlp"])
+        x = x + ffn(p, cfg, L.rmsnorm(x, p["norm2"], cfg.norm_eps), True)
     return x, {"caches": state["caches"], "pos": cur + s}

@@ -19,7 +19,16 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
     ``{"loss": 0-d f32 tensor}``): the gradient of ``lm.loss_fn`` by
     autograd, then ``adamw_update``. With ``num_microbatches`` > 1 the batch
     is cut into that many equal microbatches along axis 0; their gradients
-    are summed in f32 and divided by the count, as is their loss."""
+    are summed in f32 and divided by the count, as is their loss.
+
+    An MoE config is refused: the JAX package trains MoE with the capacity
+    factor's drops and the load-balance and router-z losses, none of which
+    is ported, and training without them would be another training."""
+    if cfg.moe is not None and cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training (capacity-factor drops, load-balance "
+            f"and router-z auxiliary losses) is not ported yet; the port "
+            f"compresses and serves MoE models but trains dense ones only")
     grad_fn = value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b))
 
     def train_step(params, opt_state, batch):

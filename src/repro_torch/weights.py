@@ -75,7 +75,9 @@ def _stack(layers: list, where: str):
 
 def unstack_blocks(tree: Any) -> Any:
     """The JAX tree stacks the layers along axis 0 of every block leaf
-    (one stacked dict per period position; the all-attn pattern has one).
+    (one stacked dict per period position; the all-attn pattern, dense or
+    MoE in every layer, has one: an MoE layer's expert leaves stack to (L,
+    E, K, N), their INT8 scales to (L, E, N)).
     Split every ``blocks`` in ``tree`` (nested in dicts, lists and tuples:
     the params, or the moments of an optimizer state) into the port's list
     of per-layer dicts."""
@@ -89,7 +91,8 @@ def unstack_blocks(tree: Any) -> Any:
 
 def _unstack(stacked) -> list:
     if len(stacked) != 1:
-        raise NotImplementedError("only the all-attn (period 1) pattern is "
+        raise NotImplementedError("only period-1 patterns (all attn, every "
+                                  "layer dense or every layer MoE) are "
                                   "ported so far")
     return [_layer(stacked[0], i) for i in range(_n_layers(stacked[0]))]
 

@@ -59,6 +59,9 @@ def test_port_imports_without_jax():
         "import repro_torch.core.calibration, repro_torch.roofline\n"
         "import repro_torch.roofline.hardware, repro_torch.repro_exp\n"
         "import repro_torch.repro_exp.cnn_experiment\n"
+        "import repro_torch.models.moe, repro_torch.configs\n"
+        "from repro_torch.configs import (arctic_480b, command_r_35b,\n"
+        "    granite_3_8b, phi35_moe_42b, stablelm_1_6b)\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
