@@ -41,8 +41,16 @@ family, per-expert INT8 PTQ), masked == compacted also with an expert cut
 from every layer, the artifact saved and loaded, served contiguous and
 paged (every expert's W8A8 launch counted a step) and speculatively, each
 against serial decode, its decode step profiled; arctic (128 experts and
-a dense residual MLP) PTQ'd and served; last, granite-3-8b, stablelm-1.6b
-and command-r-35b at full width, PTQ'd and served against serial decode.
+a dense residual MLP) PTQ'd and served; granite-3-8b, stablelm-1.6b and
+command-r-35b at full width, PTQ'd and served against serial decode; last,
+the hybrid family: jamba's smoke model on the card against the CPU, then
+jamba at full width with its first 5 layers (INT8, drawn a layer at a
+time) served contiguous and paged (every W8A8 launch counted a step), the
+shared-head load with no prefix cache kept (a recurrent pattern), sampled,
+and profiled, and one layer compressed (Fisher, Algorithm 1 with the
+Mamba channel family; masked == compacted, also with a quarter of the
+Mamba channels cut by hand), that cut model's artifact saved, loaded and
+served, each against serial decode.
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -227,6 +235,18 @@ MOE_ARCH, ARCTIC_ARCH = "phi3.5-moe-42b-a6.6b", "arctic-480b"
 MOE_LAYERS, ARCTIC_LAYERS, DENSE_LAYERS = 2, 1, 2
 DENSE_ARCHS = ("granite-3-8b", "stablelm-1.6b", "command-r-35b")
 MOE_NEW, ARCH_REQUESTS, ARCH_NEW, ARCH_RUNS = 16, 4, 8, 3
+# The hybrid phase: jamba at full width, its depth cut to the published
+# stack's first HYBRID_LAYERS layers (Mamba at 0-3, attention at 4, MoE on
+# 1 and 3: 24.05 B params, ~48 GB in bf16, so INT8 PTQ only, a layer at a
+# time), HYBRID_REQUESTS staggered requests of HYBRID_NEW tokens, each load
+# HYBRID_RUNS times on one engine; and compressed (Fisher, Algorithm 1) at
+# HYBRID_HQP_LAYERS deep (a Mamba layer and a dense MLP, 2.10 B params: the
+# deepest cut whose Fisher pass fits one card, two layers reach 12.2 B).
+# HYBRID_B1 is B1's launches a decode step at 5 layers: 4 Mamba layers x 2,
+# 3 dense MLPs x 3, 2 MoE layers x 16 experts x 3, attention's 4.
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS, HYBRID_HQP_LAYERS, HYBRID_B1 = 5, 1, 117
+HYBRID_REQUESTS, HYBRID_NEW, HYBRID_RUNS = 4, 16, 3
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
 GEMM_M = (1, 4, 13, 16, 17, 64)
@@ -1147,10 +1167,11 @@ GRAPH_STATS = ("graphs_captured", "graph_replays", "eager_dispatches",
 
 
 def _int8_linears(params):
-    """The INT8 linears of every block: attention, MLP and MoE experts."""
+    """The INT8 linears of every block: attention, Mamba (in_proj and
+    out_proj), MLP and MoE experts."""
     from repro_torch.compress.qtypes import QuantizedLinear
     return [v for blk in params["blocks"]
-            for part in ("attn", "mlp", "moe") if part in blk
+            for part in ("attn", "mamba", "mlp", "moe") if part in blk
             for v in blk[part].values() if isinstance(v, QuantizedLinear)]
 
 
@@ -1193,9 +1214,10 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     serial decode token for token; every kernel in ``must`` must have
     launched and none in ``must_not``, and the launch counts must be the
     device's: one fused B1 launch a W8A8 linear of each decode step and
-    prefill chunk, one decode attend a layer a step and one prefill attend a
-    layer a chunk; the B1 split-K and B3/B5 split-KV workspaces must neither
-    move nor be left nonzero where the kernels must find zeros
+    prefill chunk, one decode attend an attention layer a step and one
+    prefill attend an attention layer a chunk; the B1 split-K and B3/B5
+    split-KV workspaces must neither move nor be left nonzero where the
+    kernels must find zeros
     (``_scratch``). With ``split_kv`` every run must also have written
     split-KV records (B3/B5 folded several segments): they are zeroed before
     it and read after it. The load must replay graphs, and its graph keys
@@ -1226,12 +1248,13 @@ def serve_once(params, cfg, dev, kernels, reqs, must, must_not,
     paged = engine_kw.get("page_size") is not None
     attend = ("paged_" if paged else "") + "%s_attention"
     n_lin = _n_linears(params)
+    n_attn = cfg.pattern.count("attn")
     if expect is None:
         def expect(d, attend):
             steps, chunks = d["device_steps"], d["prefill_ticks"]
             return {"int8_matmul_quant": n_lin * (steps + chunks),
-                    attend % "decode": cfg.n_layers * steps,
-                    attend % "prefill": cfg.n_layers * chunks}
+                    attend % "decode": n_attn * steps,
+                    attend % "prefill": n_attn * chunks}
     out = []
     for run in range(runs):
         if eng.prefix is not None:
@@ -1354,20 +1377,27 @@ def _per_layer_ranking(ranked, drops):
 
 def _sublayer_rel(cfg, masked, other, batch):
     """The worst relative difference, ||masked - other|| / ||masked||, of a
-    layer's attention or FFN output between two models, both fed the
-    masked model's input to that layer (the loop of ``lm.forward``). Layer
-    by layer, no layer compounds another's roundings."""
+    layer's mixer (attention or Mamba) or FFN output between two models,
+    both fed the masked model's input to that layer (the loop of
+    ``lm.forward``). Layer by layer, no layer compounds another's
+    roundings."""
     import torch
-    from repro_torch.models import attention as A, layers as L, lm
+    from repro_torch.models import attention as A, layers as L, lm, ssm
     tokens = batch["tokens"]
     x = L.embed_lookup(masked["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     worst = 0.0
+
+    def mixer(p, h):
+        if "attn" in p:
+            return A.attention_forward(p["attn"], cfg, h, positions,
+                                       route=A.TRAIN)
+        return ssm.mamba_forward(p["mamba"], cfg, h,
+                                 batch_invariant=False)[0]
     for pm, po in zip(masked["blocks"], other["blocks"]):
         h = L.rmsnorm(x, pm["norm1"], cfg.norm_eps, batch_invariant=False)
-        am, ao = (A.attention_forward(p["attn"], cfg, h, positions,
-                                      route=A.TRAIN) for p in (pm, po))
+        am, ao = (mixer(p, h) for p in (pm, po))
         x = x + am
         h = L.rmsnorm(x, pm["norm2"], cfg.norm_eps, batch_invariant=False)
         fm, fo = (lm.ffn(p, cfg, h, batch_invariant=False)
@@ -1399,6 +1429,13 @@ def _ffn_width(blk) -> int:
             else blk["mlp"]["up"]["w"].shape[1])
 
 
+def _mixer_width(blk, cfg) -> int:
+    """A layer's mixer units: KV heads, or a Mamba layer's channels."""
+    if "attn" in blk:
+        return blk["attn"]["wk"]["w"].shape[1] // cfg.resolved_head_dim
+    return blk["mamba"]["conv_w"].shape[-1]
+
+
 def _mask_vs_compact(cfg, masked, compact, batch, what, card):
     """The masked model and the compacted one compute the same function:
     the same accuracy on the calibration batch, and each layer's attention
@@ -1413,16 +1450,20 @@ def _mask_vs_compact(cfg, masked, compact, batch, what, card):
     rel_fault = _sublayer_rel(cfg, masked,
                               _misalign_ffn(compact, cfg.n_layers // 2),
                               batch)
-    widths = sorted({(b["attn"]["wk"]["w"].shape[1] // cfg.resolved_head_dim,
-                      _ffn_width(b)) for b in compact["blocks"]})
-    unit = "experts" if cfg.moe is not None else "d_ff"
+    widths = sorted({(_mixer_width(b, cfg), _ffn_width(b))
+                     for b in compact["blocks"]})
+    unit = ("experts" if any("moe" in b for b in compact["blocks"])
+            else "d_ff")
+    mixer = "/".join(sorted({"kv heads" if "attn" in b else "mamba channels"
+                             for b in compact["blocks"]}))
     print(f"[hqp] {what}, mask == compact: accuracy {acc_masked:.4f} "
           f"(masked) vs {acc_compact:.4f} (compacted); worst layer "
           f"output |masked - compacted| / |masked| {rel:.4g} (limit "
           f"{SUBLAYER_REL}), "
           f"{rel_fault:.4g} with layer {cfg.n_layers // 2}'s FFN down rows "
-          f"misaligned; compacted (kv heads, {unit}) {widths} of "
-          f"({cfg.n_kv_heads}, {_ffn_width(masked['blocks'][0])})  [{card}]")
+          f"misaligned; compacted ({mixer}, {unit}) {widths} of "
+          f"({_mixer_width(masked['blocks'][0], cfg)}, "
+          f"{_ffn_width(masked['blocks'][0])})  [{card}]")
     if acc_masked != acc_compact:
         fail(f"{what}: masked accuracy {acc_masked}, compacted "
              f"{acc_compact}")
@@ -3052,14 +3093,21 @@ def _cut(arch, n_layers):
 
 
 def _shape_line(cfg, full_layers) -> str:
-    from repro_torch.models import lm
-    moe = cfg.moe
+    from repro_torch.models import lm, ssm
+    moe, s = cfg.moe, getattr(cfg, "ssm", None)
     return (f"d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
             f"heads (G {cfg.n_heads // cfg.n_kv_heads}), hd "
             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
             + (f"{moe.n_experts} experts top-{moe.experts_per_token}"
                + (" + a dense residual MLP" if moe.dense_residual else "")
                + ", " if moe else "")
+            + (f"Mamba d_state {s.d_state}, d_conv {s.d_conv}, expand "
+               f"{s.expand} (d_in {s.expand * cfg.d_model}), dt_rank "
+               f"{ssm.dt_rank(cfg)}, pattern "
+               f"{''.join(k[0] for k in cfg.pattern)} (a = attention, m = "
+               f"Mamba), MoE on layers "
+               f"{[i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]}, "
+               if s else "")
             + f"vocab {cfg.vocab_size} padded to {lm.padded_vocab(cfg)}, "
             f"{'tied' if cfg.tie_embeddings else 'untied'}; depth cut from "
             f"{full_layers} to {cfg.n_layers} layers")
@@ -3424,6 +3472,450 @@ def phase_dense_archs(dev, kernels, card):
     return out
 
 
+def _cut_hybrid(n_layers):
+    """jamba's published config, its depth cut to the published stack's
+    first ``n_layers`` layers (the pattern cut with it)."""
+    from repro_torch import configs
+    from repro_torch.configs.jamba_1_5_large import _pattern
+    return dataclasses.replace(configs.get_config(HYBRID_ARCH),
+                               n_layers=n_layers,
+                               block_pattern=_pattern(n_layers))
+
+
+def _hybrid_param_counts(params, cfg):
+    """(parameters, parameters active a token) of an INT8 tree, an INT8
+    linear counted by its codes (its scales not): a token runs
+    experts_per_token of an MoE layer's experts."""
+    from repro_torch import tree
+    total = (sum(v.numel() for v in tree.leaves(params))
+             - sum(q.scale.numel() for q in _int8_linears(params)))
+    experts = sum(q.w_q.numel() for b in params["blocks"] if "moe" in b
+                  for name, q in b["moe"].items() if name != "router")
+    m = cfg.moe
+    return total, total - experts * (m.n_experts - m.experts_per_token) \
+        // m.n_experts
+
+
+def _hybrid_b1_times(dev, params, report, card):
+    """B1's serving form at every (K, N) of the hybrid model, on the
+    model's own INT8 weights and a decode step's SERVE_SLOTS rows: bit for
+    bit against its plain version, and device ms of the kernel, its plain
+    version and its bound, into ``report`` under ``hybrid_shapes``. A
+    weight under the 50 MB L2 stays there across the timed launches."""
+    import torch
+    from repro_torch.kernels import int8_matmul as km, ref
+    lins = {}
+    for q in _int8_linears(params):
+        w_q = q.w_q if q.w_q.ndim == 2 else q.w_q[0]
+        scale = q.scale if q.scale.ndim == 1 else q.scale[0]
+        lins.setdefault(tuple(w_q.shape), (w_q, scale))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for (k_dim, n_dim), (w_q, sc) in sorted(lins.items()):
+        x = torch.randn(SERVE_SLOTS, k_dim, generator=gen,
+                        device=dev).to(torch.bfloat16)
+
+        def plain(x=x, w_q=w_q, sc=sc):
+            x_q, x_s = ref.quantize_ref(x)
+            return ref.int8_matmul_ref(x_q, w_q, x_s, sc)
+        if not torch.equal(km.int8_matmul_quant(x, w_q, sc), plain()):
+            fail(f"B1 at the hybrid model's ({SERVE_SLOTS}, {k_dim}) x "
+                 f"({k_dim}, {n_dim}) differs from its plain version")
+        b = SERVE_SLOTS
+        b_ms, by = bound(b * k_dim * 2 + k_dim * n_dim + n_dim * 4
+                         + b * n_dim * 2, 2 * b * k_dim * n_dim, "int8")
+        t = dict(timed(lambda x=x, w_q=w_q, sc=sc:
+                       km.int8_matmul_quant(x, w_q, sc), plain),
+                 bound_ms=b_ms, bound_by=by)
+        shape = f"x ({b}, {k_dim}) bf16 x w ({k_dim}, {n_dim}) int8"
+        report["int8_matmul_quant"].setdefault("hybrid_shapes", {})[
+            shape] = t
+        print(f"[hybrid] B1 at {shape} ({k_dim * n_dim / 1e6:.1f} MB of "
+              f"weights): " + _times(t) + f"  [{card}]")
+
+
+def _hybrid_attribution(params, cfg, dev, kernels):
+    """Device ms of one eager decode step (SERVE_SLOTS rows at position
+    SERVE_PROMPT, INT8 KV) by group, under torch.profiler with a range
+    around each Mamba mixer and each MoE layer: a kernel is B1 or an
+    attention kernel by its name, else the Mamba mixer's (its conv, x_proj
+    and dt_proj, the scan's step, the gate) or the MoE layer's (router,
+    top-k, dispatch, combine and the experts' SwiGLU) by the range that
+    launched it, else the rest (embed, norms, the dense MLPs' SwiGLU, the
+    unembed, the token pick). A replayed step runs the same kernels; its
+    profile names them but cannot tell whose they are. Each kernel is
+    counted once, by its device event."""
+    import torch
+    from repro_torch.models import lm, moe as M, ssm
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT + 1),
+                         generator=gen).to(dev)
+    state = lm.init_decode_state(cfg, SERVE_SLOTS, SERVE_MAX_SEQ,
+                                 params=params, quantized_kv=True, device=dev)
+    _, state = lm.decode_step(params, cfg, state, toks[:, :-1],
+                              route="prefill")
+    orig = {"mamba": (ssm, ssm.mamba_forward), "moe": (M, M.moe_forward)}
+    specs = lm.layer_specs(cfg)
+    want = {"mamba": sum(kind == "mamba" for kind, _ in specs),
+            "moe": sum(moe for _, moe in specs)}
+    entered = dict.fromkeys(orig, 0)
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            entered[name] += 1
+            with torch.profiler.record_function("hybrid::" + name):
+                return fn(*args, **kw)
+        return run
+    for name, (mod, fn) in orig.items():
+        setattr(mod, fn.__name__, ranged(name, fn))
+    try:
+        lm.decode_step(params, cfg, dict(state), toks[:, -1:],
+                       route="decode")
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        entered.update(dict.fromkeys(orig, 0))
+        with torch.profiler.profile(activities=acts) as prof:
+            lm.decode_step(params, cfg, dict(state), toks[:, -1:],
+                           route="decode")
+            torch.cuda.synchronize()
+    finally:
+        for mod, fn in orig.values():
+            setattr(mod, fn.__name__, fn)
+    # the device's kernels, once each (not the ranges' own device-side
+    # spans); B1 (a ctypes launch, which the profiler ties to no op) and
+    # attention by name, the rest by the range whose op launched them
+    device = {(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("hybrid::")}
+    groups = dict.fromkeys(("int8_matmul_quant (B1)", "attention",
+                            "mamba_mixer", "moe (no B1)"), 0.0)
+    for name, t0, t1 in device:
+        g = _group(name, kernels)
+        if g == "int8_matmul_quant":
+            groups["int8_matmul_quant (B1)"] += (t1 - t0) / 1e3
+        elif g in CONTIGUOUS + PAGED:
+            groups["attention"] += (t1 - t0) / 1e3
+
+    def walk(evt, owner):
+        if evt.name.startswith("hybrid::"):
+            owner = {"mamba": "mamba_mixer",
+                     "moe": "moe (no B1)"}[evt.name[len("hybrid::"):]]
+        if owner is not None:
+            for k in evt.kernels:
+                if _group(k.name, kernels) == "torch_other" or \
+                        _group(k.name, kernels) == "cublas":
+                    groups[owner] += k.duration / 1e3
+        for child in evt.cpu_children:
+            walk(child, owner)
+    for evt in prof.events():
+        if evt.cpu_parent is None:
+            walk(evt, None)
+    total = sum(t1 - t0 for _, t0, t1 in device) / 1e3
+    groups["rest"] = total - sum(groups.values())
+    # each Mamba and MoE layer ran inside its range, and each range owns
+    # some kernels: else their time would fall to the rest unseen
+    empty = [g for g, n in (("mamba_mixer", want["mamba"]),
+                            ("moe (no B1)", want["moe"]))
+             if n and not groups[g] > 0]
+    if (not total or groups["rest"] < 0 or empty or entered != want):
+        fail(f"hybrid attribution: {groups} of the step's {total:.5f} ms "
+             f"of kernels; ranges entered {entered}, layers {want}; "
+             f"groups with no kernel {empty}")
+    top = {}
+    for name, t0, t1 in device:
+        if _group(name, kernels) in ("cublas", "torch_other"):
+            top[name[:60]] = top.get(name[:60], 0.0) + (t1 - t0) / 1e3
+    groups["rest's largest kernels"] = dict(
+        sorted(top.items(), key=lambda kv: -kv[1])[:3])
+    return groups
+
+
+def _hybrid_card_vs_cpu(dev, card):
+    """The hybrid smoke model (a Mamba layer and an attention + MoE layer)
+    on the card against the same model on the CPU (the plain versions),
+    INT8 PTQ, INT8 KV: a 21-token prefill and 8 decode steps, teacher-
+    forced, then the Mamba layer's recurrent state. Routing is discrete,
+    so a token whose top-2 lies a hair from the next expert may take
+    another one on the card: ``tests/test_system.py``'s MoE allowance (at
+    most 5 % of the logits off by more than 0.15 + 0.15 |cpu|, the median
+    difference under 0.05)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.models import lm
+    from repro_torch.weights import to_device
+    cfg = configs.get_smoke_config(HYBRID_ARCH)
+    params = quantize_lm_params(lm.init_params(cfg, seed=0, device="cpu"))
+    gpu_params = to_device(params, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    states = {d: lm.init_decode_state(cfg, 2, 64, params=p, quantized_kv=True,
+                                      device=d)
+              for d, p in (("cpu", params), (dev, gpu_params))}
+    toks, off, med, err = prompt, 0.0, 0.0, 0.0
+    real = slice(0, cfg.vocab_size)
+    for step in range(9):
+        out = {}
+        for d, p in (("cpu", params), (dev, gpu_params)):
+            out[d], states[d] = lm.decode_step(
+                p, cfg, states[d], toks.to(d),
+                route="prefill" if step == 0 else "decode")
+        a, b = out["cpu"][..., real], out[dev].cpu()[..., real]
+        if a.shape != b.shape or not torch.isfinite(b).all():
+            fail(f"hybrid smoke step {step}: bad logits {tuple(b.shape)}")
+        diff = (a - b).abs()
+        off = max(off, (diff > 0.15 + 0.15 * a.abs()).float().mean().item())
+        med = max(med, diff.median().item())
+        err = max(err, diff.max().item())
+        toks = a[:, -1].argmax(-1)[:, None]
+    h_cpu, h_dev = states["cpu"]["caches"][0]["h"], states[dev]["caches"][0]
+    h_err = (h_cpu - h_dev["h"].cpu()).abs().max().item()
+    print(f"[hybrid] smoke model, card vs CPU plain path, INT8: logits max "
+          f"|diff| {err:.4g}, worst step's share off {off:.4g} (limit 0.05), "
+          f"worst median |diff| {med:.4g} (limit 0.05); the Mamba state h "
+          f"after 29 tokens max |diff| {h_err:.4g} (limit 3e-2)  [{card}]")
+    if off > 0.05 or med >= 0.05 or not h_err <= 3e-2:
+        fail("hybrid smoke model: card and CPU disagree")
+
+
+def phase_hybrid(dev, kernels, report, card):
+    """The hybrid family on the card, through the launcher's entry points:
+
+    1. the smoke model, card against CPU (``_hybrid_card_vs_cpu``);
+    2. jamba at full width, the published stack's first HYBRID_LAYERS
+       layers, INT8 PTQ drawn a layer at a time; B1 and its serving form
+       held bit for bit against plain at every (K, N) of the model, and timed
+       there at a decode step's SERVE_SLOTS rows (``_hybrid_b1_times``);
+    3. served on the staggered load, INT8 KV, contiguous and paged (pages
+       of SERVE_PAGE), HYBRID_RUNS runs each: engine == serial decode, B1
+       launched HYBRID_B1 times a decode step, never B2 or the int8-x B1;
+    4. the shared-head load, paged with the prefix cache requested: the
+       engine keeps none for a recurrent pattern (ROADMAP C8), 0 prefix
+       hits, every prompt token prefilled, == serial decode;
+    5. one sampled run == sampled serial decode;
+    6. a steady decode dispatch profiled (``phase_profile``), and one
+       eager decode step's device time by group, the Mamba mixer and the
+       MoE layer apart from B1 (``_hybrid_attribution``);
+    7. HQP at HYBRID_HQP_LAYERS deep: the launcher's ``build_artifact``
+       (Fisher on the train route, PRUNE_STEPS conditional steps with the
+       ``ffn`` and ``mamba_cols`` families), masked == compacted; a
+       quarter of the Mamba channels cut by hand (Algorithm 1's steps on
+       random weights need not reach them), masked == compacted; that cut
+       model's INT8 artifact saved, loaded twice (bit-equal), and served
+       contiguous and paged == serial decode, its pool sized from the
+       compacted ``conv_w``.
+    Returns the launches of the cold runs (B5/B6 from the paged one)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress.artifact import compress
+    from repro_torch.core import pruning as pr
+    from repro_torch.launch.checkpoint import load_artifact, save_artifact
+    from repro_torch.launch.serve import (_calib_batch, build_artifact,
+                                          synth_requests)
+    from repro_torch.models import lm
+    from repro_torch.serving import SamplingConfig
+    from repro_torch.serving import state_pool as sp
+    t_phase = time.monotonic()
+    totals = {}
+    _hybrid_card_vs_cpu(dev, card)
+
+    # 2. full width, five layers, INT8 a layer at a time
+    cfg = _cut_hybrid(HYBRID_LAYERS)
+    full = configs.get_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm.init_params(cfg, seed=0, device=dev, quantized=True)
+    torch.cuda.synchronize()
+    total, active = _hybrid_param_counts(params, cfg)
+    print(f"[hybrid] {cfg.name}: {_shape_line(cfg, full.n_layers)}: "
+          f"{total / 1e9:.3f} B params ({active / 1e9:.3f} B active a "
+          f"token) as cut, INT8; seeded init and PTQ a layer at a time "
+          f"{time.monotonic() - t0:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    kinds = [(k, cfg.is_moe_layer(i)) for i, k in enumerate(cfg.pattern)]
+    want_lin = sum((2 if k == "mamba" else 4)
+                   + (3 * cfg.moe.n_experts if moe else 3)
+                   for k, moe in kinds)
+    n_lin = _n_linears(params)
+    if n_lin != want_lin or n_lin != HYBRID_B1:
+        fail(f"hybrid: {n_lin} W8A8 launches a forward, expected "
+             f"{want_lin} (HYBRID_B1 {HYBRID_B1})")
+    _b1_model_shapes(dev, (params,), f"{cfg.name}'s INT8 PTQ", "hybrid",
+                     card)
+    _hybrid_b1_times(dev, params, report, card)
+
+    # 3. the staggered load, contiguous and paged
+    reqs, arrivals = synth_requests(cfg, HYBRID_REQUESTS, SERVE_PROMPT,
+                                    HYBRID_NEW)
+    launches = {}
+    for page_size, must, must_not in (
+            (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
+        runs, eng = serve_once(params, cfg, dev, kernels, reqs, must,
+                               must_not, arrivals_s=arrivals,
+                               runs=HYBRID_RUNS, quantized_kv=True,
+                               page_size=page_size)
+        cold = runs[0]["launches"]
+        launches.update(cold if page_size is None
+                        else {name: cold[name] for name in PAGED})
+        serve_line(runs, eng, f"{cfg.name} INT8 PTQ, kv=int8 "
+                   + (f"page={page_size}" if page_size else "contiguous")
+                   + f", recurrent state {_rec_bytes(eng.pool)} B beside "
+                   f"{eng.stats['kv_bytes']} B of KV", card, totals,
+                   tag="[hybrid]")
+        del eng
+    print(f"[hybrid] B1 launches a decode step and a prefill chunk: {n_lin}"
+          f" = 4 Mamba layers x 2 + 3 dense MLPs x 3 + 2 MoE layers x "
+          f"{cfg.moe.n_experts} experts x 3 + attention's 4; no B2 and no "
+          f"int8-x B1 launch on any serving run  [{card}]")
+
+    # 4. C8: the shared-head load keeps no prefix cache
+    shared, ticks = shared_prompt_load(cfg)
+    runs, eng = serve_once(params, cfg, dev, kernels, shared, DENSE + PAGED,
+                           CONTIGUOUS + UNFUSED, arrival_ticks=ticks, runs=1,
+                           quantized_kv=True, page_size=SERVE_PAGE,
+                           prefix_cache=True)
+    n_prompt = sum(len(r.prompt) for r in shared)
+    if eng.prefix is not None or runs[0]["prefix_hits"] \
+            or runs[0]["prefill_tokens"] != n_prompt:
+        fail(f"hybrid shared-head load: prefix cache {eng.prefix}, "
+             f"{runs[0]['prefix_hits']} hits, {runs[0]['prefill_tokens']} of "
+             f"{n_prompt} prompt tokens prefilled")
+    eng.alloc.check()
+    if eng.alloc.pages_in_use:
+        fail(f"hybrid shared-head load: {eng.alloc.pages_in_use} pages "
+             f"left in use")
+    serve_line(runs, eng, f"{cfg.name} paged, shared {SHARED_HEAD}-token "
+               f"head, prefix cache requested: none kept (C8), 0 prefix "
+               f"hits, {n_prompt} of {n_prompt} prompt tokens prefilled",
+               card, totals, tag="[hybrid]")
+    del eng
+
+    # 5. sampled
+    scfg = SamplingConfig(**SPEC_SAMPLING)
+    runs, eng = serve_once(params, cfg, dev, kernels, reqs,
+                           DENSE + CONTIGUOUS, PAGED + UNFUSED,
+                           arrivals_s=arrivals, runs=1, quantized_kv=True,
+                           sampling=scfg)
+    serve_line(runs, eng, f"{cfg.name} sampled {SPEC_SAMPLING}, kv=int8 "
+               f"contiguous, engine == sampled serial decode", card, totals,
+               tag="[hybrid]")
+    del eng
+
+    # 6. where a steady decode dispatch's time goes
+    for layout, prof in phase_profile(params, cfg, dev, kernels).items():
+        print(f"[hybrid] profile: steady decode, {cfg.name}, INT8 KV, "
+              f"{SERVE_SLOTS} slots, {layout}, replayed CUDA graphs: "
+              f"{json.dumps(prof)}  [{card}]")
+    by = _hybrid_attribution(params, cfg, dev, kernels)
+    print(f"[hybrid] one eager decode step, {SERVE_SLOTS} rows, contiguous "
+          f"INT8 KV, device ms by group (torch.profiler, kernels by name "
+          f"and by the range that launched them): {json.dumps(by)}  "
+          f"[{card}]")
+    del params
+    _free()
+
+    # 7. HQP at one layer
+    cfg1 = _cut_hybrid(HYBRID_HQP_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params1 = lm.init_params(cfg1, seed=0, device=dev)
+    print(f"[hybrid] {cfg1.name}: {_shape_line(cfg1, full.n_layers)}: "
+          f"{_n_params(params1) / 1e9:.3f} B params bf16  [{card}]")
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    art = build_artifact(params1, cfg1, PRUNE_STEPS, log=print)
+    wall = time.monotonic() - t0
+    stray = {n: k.launches for n, k in kernels.items() if k.launches}
+    if stray:
+        fail(f"hybrid compress: port kernels launched on the train route "
+             f"of a model with no attention layer: {stray}")
+    m, sec = art.manifest, art.seconds
+    theta = {f: m.theta_by_family[f] for f in sorted(m.theta_by_family)}
+    print(m.summary())
+    print(f"[hybrid] compress: θ by family {json.dumps(theta)}; {wall:.2f} s "
+          f"in all (Fisher {sec['fisher']:.3f} s, evals "
+          f"{', '.join(f'{t:.3f}' for t in sec['evals'])}, compact "
+          f"{sec['compact']:.3f}, PTQ {sec['ptq']:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    if set(theta) != {"L0/ffn", "L0/mamba_cols"}:
+        fail(f"hybrid compress: families {sorted(theta)}")
+    if not m.pruned or not (len(m.history) == PRUNE_STEPS
+                            or not m.history[-1]["accepted"]):
+        fail(f"hybrid compress: {len(m.history)} conditional steps of "
+             f"{PRUNE_STEPS}, the last accepted")
+    batch = _calib_batch(cfg1, CALIB_B, CALIB_S, device=dev)
+    res = art.prune
+    _mask_vs_compact(cfg1, res.params_sparse, res.params_compact, batch,
+                     f"{cfg1.name} launcher's artifact", card)
+    ranked, n = _per_layer_ranking(
+        res.ranked, lambda i, spec: (spec.size // 4
+                                     if spec.kind == "mamba_col" else 0))
+    del art, res
+    masked = pr.apply_prune_masks(params1, ranked, n)
+    compact = pr.compact_params(masked, ranked, n)
+    d_in = cfg1.ssm.expand * cfg1.d_model
+    if compact["blocks"][0]["mamba"]["conv_w"].shape[-1] != d_in - d_in // 4:
+        fail("hybrid: the hand cut did not remove a quarter of the Mamba "
+             "channels")
+    _mask_vs_compact(cfg1, masked, compact, batch,
+                     f"a quarter of the Mamba channels cut ({d_in // 4} of "
+                     f"{d_in})", card)
+    del masked, params1
+    cut = compress(compact, cfg1, log=print)
+    del compact
+    _free()
+    art_dir = ROOT / "build" / "hybrid_artifact"
+    shutil.rmtree(art_dir, ignore_errors=True)
+    try:
+        t0 = time.monotonic()
+        save_artifact(str(art_dir), cut)
+        save_s = time.monotonic() - t0
+        loads = [load_artifact(str(art_dir), device=dev) for _ in range(2)]
+    finally:
+        size = sum(f.stat().st_size for f in art_dir.rglob("*")
+                   if f.is_file()) if art_dir.exists() else 0
+        shutil.rmtree(art_dir, ignore_errors=True)
+    for i, loaded in enumerate(loads):
+        bad = _differ(loaded.params, cut.params)
+        if bad or loaded.manifest.asdict() != cut.manifest.asdict():
+            fail(f"hybrid artifact load {i + 1}: leaves {bad[:5]} differ")
+    served = loads[1].params
+    del loads
+    print(f"[hybrid] the cut model's INT8 artifact: {size / 1e9:.3f} GB on "
+          f"disk, saved in {save_s:.2f} s, loaded twice, both bit-equal  "
+          f"[{card}]")
+    creqs, carr = synth_requests(cfg1, HYBRID_REQUESTS, SERVE_PROMPT,
+                                 HYBRID_NEW)
+    for page_size, must, must_not in (
+            (None, DENSE, CONTIGUOUS + PAGED + UNFUSED),
+            (SERVE_PAGE, DENSE, CONTIGUOUS + PAGED + UNFUSED)):
+        runs, eng = serve_once(served, cfg1, dev, kernels, creqs, must,
+                               must_not, arrivals_s=carr, runs=1,
+                               quantized_kv=True, page_size=page_size)
+        widths = {tuple(e["h"].shape) for e in eng.pool["caches"]
+                  if not sp.is_kv_entry(e)}
+        if widths != {(SERVE_SLOTS, d_in - d_in // 4, cfg1.ssm.d_state)}:
+            fail(f"hybrid cut artifact: pool state {widths}")
+        serve_line(runs, eng, f"{cfg1.name} cut artifact, kv=int8 "
+                   + (f"page={page_size}" if page_size else "contiguous")
+                   + f", pool state h {sorted(widths)[0]}", card, totals,
+                   tag="[hybrid]")
+        del eng
+    del served, cut
+    _free()
+    print(f"[hybrid] phase seconds {time.monotonic() - t_phase:.1f}  "
+          f"[{card}]")
+    return launches
+
+
+def _rec_bytes(pool) -> int:
+    from repro_torch.serving import state_pool as sp
+    return sum(t.numel() * t.element_size() for e in pool["caches"]
+               if not sp.is_kv_entry(e) for t in e.values())
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3658,6 +4150,8 @@ def main() -> int:
     # the MoE family, then the other dense configs, at full width
     moe_launches = phase_moe(dev, kernels, report, card)
     arch_launches = phase_dense_archs(dev, kernels, card)
+    # the hybrid family: jamba's Mamba layers and recurrent slot state
+    hybrid_launches = phase_hybrid(dev, kernels, report, card)
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
@@ -3687,11 +4181,13 @@ def main() -> int:
                if name in unfused else {}),
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
                                  "train_shapes", "b2_b1_ms", "shapes",
-                                 "verify_shape", "moe_shapes")
+                                 "verify_shape", "moe_shapes",
+                                 "hybrid_shapes")
                if k in r},
             **({"train_launches": train_launches}
                if name == "flash_attention" else {}),
             "moe_launches": moe_launches[name],
+            "hybrid_launches": hybrid_launches[name],
             "dense_arch_launches": {a: c[name]
                                     for a, c in arch_launches.items()}})
     print(json.dumps({"kernels": entries}))

@@ -1,16 +1,18 @@
 """Architecture registry: ``--arch <id>`` resolution. It holds the LMs
-the port serves so far (the dense GQA family and the MoE family) and the
-paper's two CNNs."""
+the port serves so far (the dense GQA family, the MoE family and the
+hybrid family) and the paper's two CNNs."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
 from repro_torch.configs import cnn
-from repro_torch.configs.base import CNNConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (CNNConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 
 ARCH_MODULES: Dict[str, str] = {
     "arctic-480b": "arctic_480b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "stablelm-1.6b": "stablelm_1_6b",
     "command-r-35b": "command_r_35b",
@@ -37,5 +39,5 @@ def get_cnn_config(arch: str) -> CNNConfig:
     return cnn.config(arch)
 
 
-__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "get_config", "get_smoke_config",
-           "get_cnn_config"]
+__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "get_smoke_config", "get_cnn_config"]

@@ -19,9 +19,19 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0            # 0 -> ceil(d_model/16)
+    chunk: int = 256            # the reference's scan chunk; the port's
+                                # recurrence steps every length, no chunk
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe
+    family: str                 # dense | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,9 +44,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     use_bias: bool = False
     norm_eps: float = 1e-5
+    # layer pattern: which block type at each layer. "attn" (attention +
+    # MLP/MoE), "mamba" (Mamba mixer + MLP/MoE)
     block_pattern: Tuple[str, ...] = ()   # () -> all "attn"
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     attn_chunk_kv: int = 1024   # KV chunk of the train route's CPU flash
+    subquadratic: bool = False  # True for ssm/hybrid: long_500k is runnable
     max_seq_len: int = 32_768
 
     @property

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import sensitivity as sens
+from repro_torch.weights import block_period
 
 
 @dataclasses.dataclass
@@ -91,22 +92,25 @@ def compact_params(params: Any, ranked: RankedUnits, n_drop: int) -> Any:
 
     A family of the CNNs (or any family outside ``blocks``) is compacted
     exactly: it keeps its own undropped units. The LM's families are one
-    layer's each (``("blocks", g, ...)``), and the layers of one kind stay
+    layer's each (``("blocks", g, ...)``), and the layers of one kind at
+    one position of the pattern's period (``weights.block_period``) stay
     SHAPE-UNIFORM, as the JAX package's stacked layers must: each keeps
     ``size - min_g(dropped_g)`` units, and a more-pruned layer pads with
     its own *masked* (zeroed) units, lowest rank first, so the compacted
     model computes exactly what the masked model computed and its shapes
     equal the JAX artifact's. Call with the MASKED params."""
     layered = {}
+    period = block_period(params["blocks"]) if "blocks" in params else 1
     for spec, drops in zip(ranked.specs, ranked.drops_per_spec(n_drop)):
         if spec.members_all[0][0][0] == "blocks":
-            key = (spec.kind, tuple((mm[0][2:], mm[1], mm[2], mm[3])
-                                    for mm in spec.members_all), spec.size)
+            key = (spec.kind, spec.members_all[0][0][1] % period,
+                   tuple((mm[0][2:], mm[1], mm[2], mm[3])
+                         for mm in spec.members_all), spec.size)
             layered.setdefault(key, []).append((spec, drops))
         elif len(drops):
             params = sens.compact_group(
                 params, spec, np.setdiff1d(np.arange(spec.size), drops))
-    for (_, _, size), entries in layered.items():
+    for (_, _, _, size), entries in layered.items():
         n_keep = size - min(len(d) for _, d in entries)
         if n_keep == size:
             continue

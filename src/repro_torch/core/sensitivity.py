@@ -5,8 +5,8 @@
 One backward pass per calibration batch accumulates squared gradients (the
 diagonal FIM estimate); a structural unit's sensitivity is the sum of that
 diagonal over the unit's parameter slices. The LM's units are the KV heads
-(with their query heads) and the FFN columns or the experts of every
-layer; the CNNs' are conv channels (``cnn_prune_groups``).
+(with their query heads), the Mamba channels, and the FFN columns or the
+experts of every layer; the CNNs' are conv channels (``cnn_prune_groups``).
 
 Member encoding
 ---------------
@@ -216,47 +216,66 @@ def cnn_prune_groups(cfg, variables: dict) -> List[GroupSpec]:
 # ------------------------------------------------------------------ LM specs
 def lm_prune_groups(cfg) -> List[GroupSpec]:
     """Structural families of the LM, one per (layer, kind), in the JAX
-    package's order, names and sizes: ``L{i}/kv_heads`` (a KV head with its
-    G query heads: blocks of G·hd columns of wq and rows of wo, hd columns
-    of wk and wv); on a dense layer ``L{i}/ffn`` (one column of gate and
-    up, one row of down); on an MoE layer ``L{i}/experts`` (one expert's
-    gate, up and down along axis 0, with its router column and its router
-    bias; arctic's residual MLP is not pruned). The JAX package leaves the
-    router bias out of the expert family, so its ``compact_params`` keeps
-    the bias at full width while the router's columns shrink (ROADMAP C7);
-    here the bias is compacted with them, and the compacted model computes
-    what the masked model computes. Masks are per layer, so the conditional
-    loop can give the paper's non-uniform layer-wise sparsity. The layers'
-    order is the JAX package's for the period-1 patterns the port serves
-    (the weight bridge refuses others)."""
-    if any(kind != "attn" for kind in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: only the all-attn pattern is ported so far")
+    package's order, names and sizes: the period position outer, the group
+    inner (layer ``g·P + j``, as the JAX package stacks it), and within a
+    layer ``L{i}/kv_heads`` on an attention layer (a KV head with its G
+    query heads: blocks of G·hd columns of wq and rows of wo, hd columns of
+    wk and wv); on a dense layer ``L{i}/ffn`` (one column of gate and up,
+    one row of down); on an MoE layer ``L{i}/experts`` (one expert's gate,
+    up and down along axis 0, with its router column and its router bias;
+    arctic's residual MLP is not pruned); on a Mamba layer
+    ``L{i}/mamba_cols`` (one inner channel: a row of x_proj and out_proj
+    and a column of dt_proj carry its sensitivity; its dt bias, conv
+    column, a_log row, skip, and its columns in both halves of in_proj go
+    with it). The JAX package leaves the router bias out of the expert
+    family, so its ``compact_params`` keeps the bias at full width while
+    the router's columns shrink (ROADMAP C7); here the bias is compacted
+    with them, and the compacted model computes what the masked model
+    computes. Masks are per layer, so the conditional loop can give the
+    paper's non-uniform layer-wise sparsity."""
+    from repro_torch.models.lm import layer_specs, pattern_period
+    period = pattern_period(cfg)
+    spec = layer_specs(cfg)[:period]
     hd = cfg.resolved_head_dim
     g_ratio = cfg.n_heads // cfg.n_kv_heads
     out: List[GroupSpec] = []
-    for g in range(cfg.n_layers):
-        is_moe = cfg.is_moe_layer(g)
-        st = ("blocks", g)
-        mm = [m(st + ("attn", "wq", "w"), 1, g_ratio * hd),
-              m(st + ("attn", "wk", "w"), 1, hd),
-              m(st + ("attn", "wv", "w"), 1, hd),
-              m(st + ("attn", "wo", "w"), 0, g_ratio * hd)]
-        out.append(GroupSpec(f"L{g}/kv_heads", mm, list(mm),
-                             cfg.n_kv_heads, kind="kv_head"))
-        if cfg.d_ff > 0 and not is_moe:
-            mm = [m(st + ("mlp", "gate", "w"), 1),
-                  m(st + ("mlp", "up", "w"), 1),
-                  m(st + ("mlp", "down", "w"), 0)]
-            out.append(GroupSpec(f"L{g}/ffn", mm, list(mm), cfg.d_ff,
-                                 kind="ffn_col"))
-        if is_moe:
-            mm = [m(st + ("moe", "gate", "w"), 0),
-                  m(st + ("moe", "up", "w"), 0),
-                  m(st + ("moe", "down", "w"), 0)]
-            out.append(GroupSpec(
-                f"L{g}/experts", mm,
-                mm + [m(st + ("moe", "router", "w"), 1),
-                      m(st + ("moe", "router", "b"), 0)],
-                cfg.moe.n_experts, kind="expert"))
+    for j, (kind, is_moe) in enumerate(spec):
+        for i in range(j, cfg.n_layers, period):
+            st = ("blocks", i)
+            if kind == "attn":
+                mm = [m(st + ("attn", "wq", "w"), 1, g_ratio * hd),
+                      m(st + ("attn", "wk", "w"), 1, hd),
+                      m(st + ("attn", "wv", "w"), 1, hd),
+                      m(st + ("attn", "wo", "w"), 0, g_ratio * hd)]
+                out.append(GroupSpec(f"L{i}/kv_heads", mm, list(mm),
+                                     cfg.n_kv_heads, kind="kv_head"))
+            if cfg.d_ff > 0 and not is_moe:
+                mm = [m(st + ("mlp", "gate", "w"), 1),
+                      m(st + ("mlp", "up", "w"), 1),
+                      m(st + ("mlp", "down", "w"), 0)]
+                out.append(GroupSpec(f"L{i}/ffn", mm, list(mm), cfg.d_ff,
+                                     kind="ffn_col"))
+            if is_moe:
+                mm = [m(st + ("moe", "gate", "w"), 0),
+                      m(st + ("moe", "up", "w"), 0),
+                      m(st + ("moe", "down", "w"), 0)]
+                out.append(GroupSpec(
+                    f"L{i}/experts", mm,
+                    mm + [m(st + ("moe", "router", "w"), 1),
+                          m(st + ("moe", "router", "b"), 0)],
+                    cfg.moe.n_experts, kind="expert"))
+            if kind == "mamba":
+                d_in = cfg.ssm.expand * cfg.d_model
+                mb = st + ("mamba",)
+                mm = [m(mb + ("x_proj", "w"), 0),
+                      m(mb + ("out_proj", "w"), 0),
+                      m(mb + ("dt_proj", "w"), 1)]
+                ma = mm + [m(mb + ("dt_proj", "b"), 0),
+                           m(mb + ("conv_w",), 1),
+                           m(mb + ("a_log",), 0),
+                           m(mb + ("d_skip",), 0),
+                           m(mb + ("in_proj", "w"), 1, 1, 0),
+                           m(mb + ("in_proj", "w"), 1, 1, d_in)]
+                out.append(GroupSpec(f"L{i}/mamba_cols", mm, ma, d_in,
+                                     kind="mamba_col"))
     return out

@@ -326,6 +326,9 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print,
            f"{eng.stats['drafted_tokens']} drafts)" if draft else "")
         + (f", {eng.stats['prefix_hits']} prefix hits / "
            f"{eng.stats['pages_peak']} pages peak" if args.page_size else "")
+        + (", no prefix cache: the pattern has recurrent layers"
+           if eng.paged and eng.recurrent and not args.no_prefix_cache
+           else "")
         + ")")
     verify = args.verify if args.verify is not None else args.smoke
     if verify and draft is not None and not eng.sampling.is_greedy:

@@ -1,5 +1,5 @@
 """Shared building blocks: norms, rotary embeddings, (possibly quantized)
-dense, embed/unembed, SwiGLU.
+dense, embed/unembed, silu, SwiGLU.
 
 A linear's params are either ``{"w": (in, out) bf16}`` or a
 ``QuantizedLinear``; ``dense`` dispatches on the type, so the same model code
@@ -152,11 +152,17 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
             "down": linear_init(gen, d_ff, d_model)}
 
 
+def silu(a: torch.Tensor) -> torch.Tensor:
+    """silu(a) = a * (1 / (1 + exp(-a))), rounded to a's dtype after every
+    op (bf16: as the reference's compiled program computes it). Built
+    from ``exp``, whose CPU kernel rounds every element alike whatever the
+    shape (``torch.nn.functional.silu``'s does not)."""
+    return a * (1.0 / (1.0 + torch.exp(-a)))
+
+
 def mlp(x: torch.Tensor, p: dict, batch_invariant: bool = True
         ) -> torch.Tensor:
-    """SwiGLU in bf16: silu(a) = a * (1 / (1 + exp(-a))), rounded to bf16
-    after every op, as the reference's compiled program computes it."""
+    """SwiGLU in bf16 (``silu``)."""
     a = dense(x, p["gate"], batch_invariant)
-    silu = a * (1.0 / (1.0 + torch.exp(-a)))
-    return dense(silu * dense(x, p["up"], batch_invariant), p["down"],
+    return dense(silu(a) * dense(x, p["up"], batch_invariant), p["down"],
                  batch_invariant)

@@ -1,11 +1,18 @@
-"""Decoder LM for the all-``attn`` pattern: the dense GQA family, and the
-MoE family, whose layers put ``models/moe.py``'s experts in place of the
-MLP (arctic-480b keeps a dense residual MLP beside them).
+"""Decoder LM over the ``attn`` and ``mamba`` block kinds: the dense GQA
+family; the MoE family, whose layers put ``models/moe.py``'s experts in
+place of the MLP (arctic-480b keeps a dense residual MLP beside them); and
+the hybrid family (jamba), whose ``mamba`` layers put ``models/ssm.py``'s
+mixer in place of attention, each followed by an MLP or the experts.
 
 Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
 "final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
-JAX package stacks the layers and scans them; here ``blocks`` is a list and
-the forward pass is a Python loop over it.
+JAX package stacks the layers of each position of the pattern's period and
+scans them; here ``blocks`` is a list in layer order and the forward pass
+is a Python loop over it (``weights`` converts).
+
+A decode state holds one cache a layer: an attention layer's KV cache,
+written in place, or a Mamba layer's recurrent state, which each step
+replaces (``ssm.mamba_forward`` returns a new one).
 
 Two kinds of pass: ``forward`` / ``loss_fn`` run the whole sequence on the
 train route (no cache, differentiable: the HQP Fisher pass and the prune
@@ -14,14 +21,16 @@ the KV cache (serving), and ``verify_step`` scores a speculative candidate
 chunk at every position."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.compress.quantize import quantize_lm_params
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 VOCAB_PAD = 256
 
@@ -32,23 +41,47 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
+KINDS = ("attn", "mamba")
+
+
 def layer_specs(cfg) -> Tuple[Tuple[str, bool], ...]:
-    """(block kind, is MoE) of every layer, as the JAX package's."""
+    """(block kind, is MoE) of every layer, as the JAX package's. Raises
+    ``NotImplementedError`` for a block kind the port does not run."""
+    other = set(cfg.pattern) - set(KINDS)
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {sorted(other)} are not ported; the "
+            f"port runs {list(KINDS)} layers (dense or MoE FFN)")
     return tuple((kind, cfg.is_moe_layer(i))
                  for i, kind in enumerate(cfg.pattern))
 
 
-def _check_pattern(cfg) -> None:
-    if any(kind != "attn" for kind in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: only the all-attn pattern (dense or MoE FFN) is "
-            f"ported so far")
+def least_period(seq: Sequence) -> int:
+    """The least p dividing len(seq) with seq[i] == seq[i % p] for all i."""
+    n = len(seq)
+    return next(p for p in range(1, n + 1)
+                if n % p == 0 and all(seq[i] == seq[i % p]
+                                      for i in range(n)))
+
+
+def pattern_period(cfg) -> int:
+    """The least period of ``layer_specs``: the JAX package stacks layer
+    ``g·period + j`` at ``blocks[j][g]``."""
+    return least_period(layer_specs(cfg))
+
+
+def is_recurrent(cfg) -> bool:
+    """Whether a layer keeps recurrent state (a ``mamba`` block): state
+    that a prefix cache cannot share and that training does not yet run."""
+    return any(kind != "attn" for kind in cfg.pattern)
 
 
 # ------------------------------------------------------------------ init
-def _block_init(gen: torch.Generator, cfg, is_moe: bool) -> dict:
+def _block_init(gen: torch.Generator, cfg, kind: str, is_moe: bool) -> dict:
+    mixer = (A.attention_init(gen, cfg) if kind == "attn"
+             else S.mamba_init(gen, cfg))
     p = {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-         "attn": A.attention_init(gen, cfg),
+         kind: mixer,
          "norm2": L.rmsnorm_init(cfg.d_model, gen.device)}
     if is_moe:
         p["moe"] = M.moe_init(gen, cfg)
@@ -59,19 +92,26 @@ def _block_init(gen: torch.Generator, cfg, is_moe: bool) -> dict:
     return p
 
 
-def init_params(cfg, seed: int = 0, device=None) -> dict:
+def init_params(cfg, seed: int = 0, device=None,
+                quantized: bool = False) -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on the
     target device (they differ from the JAX package's for the same seed;
-    tests carry weights across with ``repro_torch.weights``)."""
-    _check_pattern(cfg)
+    tests carry weights across with ``repro_torch.weights``). With
+    ``quantized`` each layer goes through ``quantize_lm_params`` as soon as
+    it is drawn, before the next one is: the INT8 model of a config whose
+    bf16 layers do not fit the card together, the same bits as
+    ``quantize_lm_params(init_params(cfg, seed))``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     v_pad = padded_vocab(cfg)
     params: Dict[str, Any] = {"embed": L.embed_init(gen, v_pad, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(gen, v_pad, cfg.d_model)
-    params["blocks"] = [_block_init(gen, cfg, is_moe)
-                        for _, is_moe in layer_specs(cfg)]
+    params["blocks"] = []
+    for kind, is_moe in layer_specs(cfg):
+        blk = _block_init(gen, cfg, kind, is_moe)
+        params["blocks"].append(quantize_lm_params(blk) if quantized
+                                else blk)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     return params
 
@@ -113,19 +153,23 @@ def ffn(p: dict, cfg, h: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
 # ------------------------------------------------------------------ train
 def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
     """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
-    train route: every layer attends its own fresh K/V causally. The ported
+    train route: every attention layer attends its own fresh K/V causally,
+    every Mamba layer runs its recurrence from zero state. The ported
     families have no frontend, and the MoE auxiliary losses belong to MoE
     training, which is not ported, so unlike the JAX package's ``forward``
     this returns the hidden states alone."""
-    _check_pattern(cfg)
     tokens = batch["tokens"]
     x = L.embed_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for p in params["blocks"]:
+    for (kind, _), p in zip(layer_specs(cfg), params["blocks"]):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, batch_invariant=False)
-        x = x + A.attention_forward(p["attn"], cfg, h, positions,
-                                    route=A.TRAIN)
+        if kind == "attn":
+            x = x + A.attention_forward(p["attn"], cfg, h, positions,
+                                        route=A.TRAIN)
+        else:
+            x = x + S.mamba_forward(p["mamba"], cfg, h,
+                                    batch_invariant=False)[0]
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, batch_invariant=False)
         x = x + ffn(p, cfg, h, batch_invariant=False)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
@@ -159,23 +203,31 @@ def init_decode_state(cfg, batch: int, max_seq: int,
                       per_slot_pos: bool = False, quantized_kv: bool = False,
                       device=None,
                       kv_pages: Optional[Tuple[int, int]] = None) -> dict:
-    """Per-layer KV caches plus the current length.
+    """Per-layer caches plus the current length: a KV cache for each
+    attention layer, a zero recurrent state (``ssm.init_mamba_state``) for
+    each Mamba layer.
 
     ``pos`` is an int (the whole batch at one position: the serial path) or,
     with ``per_slot_pos``, a (batch,) int32 tensor (the engine's slots).
-    With ``params`` the KV widths derive from the param shapes, so
+    With ``params`` the KV and Mamba widths derive from the param shapes, so
     HQP-compacted artifacts size their own caches. ``kv_pages=(total_pages,
     page_size)`` makes every KV cache a paged arena (total_pages, page_size,
     Hkv, hd) with no slot axis, shared through page tables the caller owns
-    (``serving.state_pool``)."""
-    _check_pattern(cfg)
+    (``serving.state_pool``); a recurrent state keeps its batch axis (it is
+    O(1) a slot and not indexed by position)."""
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
     kv_b, kv_s = kv_pages if kv_pages is not None else (batch, max_seq)
     caches = []
-    for i in range(cfg.n_layers):
-        n_kv = (L.out_features(params["blocks"][i]["attn"]["wk"]) // hd
-                if params is not None else cfg.n_kv_heads)
+    for i, (kind, _) in enumerate(layer_specs(cfg)):
+        blk = params["blocks"][i] if params is not None else None
+        if kind == "mamba":
+            d_in = (blk["mamba"]["conv_w"].shape[-1] if blk is not None
+                    else None)
+            caches.append(S.init_mamba_state(batch, cfg, d_in, dev))
+            continue
+        n_kv = (L.out_features(blk["attn"]["wk"]) // hd
+                if blk is not None else cfg.n_kv_heads)
         caches.append(A.init_kv_cache(kv_b, kv_s, n_kv, hd, quantized_kv,
                                       dev))
     pos = (torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -189,7 +241,8 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
     """tokens (B, S_new) at positions ``state["pos"]`` onward (an int, or a
     (B,) tensor of per-row positions). Writes the new K/V into the caches in
     place and returns (logits (B, 1, V_pad) f32 of the LAST position, the
-    state with ``pos`` advanced by S_new).
+    state with ``pos`` advanced by S_new, each Mamba layer's new recurrent
+    state in place of its old one, which is not written).
 
     Only the last position's logits are computed: every caller (engine
     prefill and decode, serial decode) reads only those, and the unembed is
@@ -230,7 +283,8 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
                    window: Optional[int], route: Optional[str]
                    ) -> Tuple[torch.Tensor, dict]:
     """The layers of ``decode_step`` / ``verify_step``: hidden states (B,
-    S_new, d) before the final norm, and the advanced state."""
+    S_new, d) before the final norm, and the advanced state (the KV caches
+    written in place, new recurrent states)."""
     x = L.embed_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     cur: Union[int, torch.Tensor] = state["pos"]
@@ -238,9 +292,16 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
     steps = torch.arange(s, device=x.device)
     positions = (cur[:, None] + steps[None, :] if isinstance(cur, torch.Tensor)
                  else (cur + steps)[None, :].expand(b, s))
-    for p, cache in zip(params["blocks"], state["caches"]):
+    caches = []
+    for kind, p, cache in zip(cfg.pattern, params["blocks"],
+                              state["caches"]):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-        x = x + A.attention_forward(p["attn"], cfg, h, positions, cache, cur,
-                                    window, route, pages)
+        if kind == "attn":
+            x = x + A.attention_forward(p["attn"], cfg, h, positions, cache,
+                                        cur, window, route, pages)
+        else:
+            out, cache = S.mamba_forward(p["mamba"], cfg, h, cache)
+            x = x + out
+        caches.append(cache)
         x = x + ffn(p, cfg, L.rmsnorm(x, p["norm2"], cfg.norm_eps), True)
-    return x, {"caches": state["caches"], "pos": cur + s}
+    return x, {"caches": caches, "pos": cur + s}

@@ -41,10 +41,14 @@ the norms and bf16 products batch-invariant; the INT8 and attention kernels
 are row-independent by design); (b) chunked prefill and decode attend the
 cache through the same ops as the serial path, whose causal limits are
 absolute positions, so chunk boundaries and window buckets leave every row's
-bits unchanged; (c) rows that are not live in a dispatch never advance
+bits unchanged, and the Mamba recurrence steps position by position on every
+route (``models.ssm``); (c) rows that are not live in a dispatch never advance
 ``pos``, and whatever they write sits at or past their own position, where
 it stays masked until a real write replaces it; in paged mode they are
 pointed at the trash page, so their writes never reach a live page. A
+recurrent state has no mask: each decode step keeps a row's new state only
+where the row is live (``state_pool.keep_live``), so a slot that is free,
+mid-prefill or stopped mid-dispatch keeps its state bit for bit. A
 speculative dispatch writes behind a row's position (its healing chunk
 at pos-1), so it parks the rows that are not live past ``max_seq`` for
 the dispatch (``speculative.park_position``), and a shared page that a
@@ -56,7 +60,9 @@ failing phase was working on, and the engine serves on. The pool is
 written in place, never donated, so a dispatch that raised part way may
 have written some of it: every slot it touched fails, and every slot that
 survives gets its device position back from the host's mirror, in both
-pools (a speculative dispatch parks the rows that are not live). A CUDA
+pools (a speculative dispatch parks the rows that are not live). A
+dispatch writes recurrent state into the pool only at its end, so a
+survivor's recurrent state is where its host position says. A CUDA
 error (``torch.AcceleratorError``), a kernel that did not build or launch
 (``build.KernelError``) and an ``AssertionError`` propagate: a failing
 kernel and a broken invariant stay visible.
@@ -161,7 +167,7 @@ class _Slot:
 
 def _kv_bytes(pool) -> int:
     return sum(leaf.numel() * leaf.element_size()
-               for entry in pool["caches"] for leaf in entry.values())
+               for entry in sp.kv_entries(pool) for leaf in entry.values())
 
 
 class Engine:
@@ -204,6 +210,11 @@ class Engine:
     prompt is page-aligned: that page is copied in both arenas first
     (``stats["cow_copies"]``).
 
+    A pattern with recurrent (``mamba``) layers keeps no prefix cache
+    (``prefix`` stays None whatever ``prefix_cache`` says): a hit would
+    admit the slot past the shared head, whose recurrent state is not
+    cached, so its Mamba layers would never see the head (ROADMAP C8).
+
     ``clock`` is the monotonic clock behind every timestamp the engine
     takes: request times, ``last_step`` and the tracer's spans. A
     ``serving.Service`` points it at its own clock, so one fake clock
@@ -239,6 +250,8 @@ class Engine:
                                     sampling=self.sampling,
                                     draft_manifest=draft_manifest)
         self.paged = page_size is not None
+        # recurrent layers: state the prefix cache cannot share (C8)
+        self.recurrent = lm.is_recurrent(cfg)
         self.alloc: Optional[sp.PageAllocator] = None
         self.prefix: Optional[sp.PrefixCache] = None
         if self.paged:
@@ -250,7 +263,7 @@ class Engine:
                 total_pages = 1 + n_slots * self.max_pages
             self.total_pages = total_pages
             self.alloc = sp.PageAllocator(total_pages)
-            if prefix_cache:
+            if prefix_cache and not self.recurrent:
                 self.prefix = sp.PrefixCache(self.alloc, page_size)
             # host mirror of every slot's page table; the dispatches read
             # fixed device copies of it (_dispatch_table)
@@ -786,15 +799,19 @@ class Engine:
         (-1 = none), tokens each slot may still emit; ``table`` the
         dispatch's page table (paged mode). Slots that hit EOS or their
         budget freeze for the remaining steps. Writes (toks (K, B), emitted
-        (K, B)) into ``_decode_out``."""
+        (K, B)) into ``_decode_out``, and the rows' recurrent state into
+        the pool at the end."""
         pool = self.pool
         tok, live, eos, left = (inputs[0][:, None], inputs[1] != 0,
                                 inputs[2], inputs[3])
-        state = pool if table is None else dict(pool, pages=table)
+        extra = {} if table is None else {"pages": table}
+        caches = pool["caches"]
         toks, emitted = [], []
         for _ in range(k_steps):
+            state = {"caches": caches, "pos": pool["pos"], **extra}
             logits, new = lm.decode_step(self.params, self.cfg, state, tok,
                                          window=window, route="decode")
+            caches = sp.keep_live(caches, new["caches"], live)
             if self.sampling.is_greedy:
                 nxt = smp.greedy(logits[:, -1]).long()
             else:
@@ -808,6 +825,7 @@ class Engine:
             emitted.append(live)
             tok = torch.where(live, nxt, tok[:, 0])[:, None]
             live = live & ~stop
+        sp.store_recurrent(pool, caches)
         self._decode_out[0].copy_(torch.stack(toks))
         self._decode_out[1].copy_(torch.stack(emitted))
 
@@ -914,7 +932,9 @@ class Engine:
         moved positions (a speculative dispatch parks the rows that are not
         live, and restores them only at its end); the K/V it wrote lies at
         or past each survivor's position, masked until a real write
-        replaces it, or on the trash page or past ``max_seq``."""
+        replaces it, or on the trash page or past ``max_seq``. Only the
+        position is reset: a survivor's recurrent state is written at a
+        dispatch's end, so one that raised has not touched it."""
         phase, self._fault_phase = self._fault_phase, None
         now = self.clock()
         if phase[0] == "admit":
@@ -941,7 +961,8 @@ class Engine:
             if slot.stage != FREE:
                 for pool in (self.pool, self.draft_pool):
                     if pool is not None:
-                        sp.reset_slot(pool, slot.idx, self._host_pos(slot))
+                        sp.set_slot_pos(pool, slot.idx,
+                                        self._host_pos(slot))
         self.ticks += 1
 
     # ------------------------------------------------------------------- run

@@ -14,7 +14,14 @@ the engine's page table (``PageAllocator`` hands out pages, ``PrefixCache``
 shares them between prompts with a common head). A slot's state is then the
 whole arena plus its table row as ``pages``. Physical page ``TRASH_PAGE`` is
 never handed out: rows that are not live in a dispatch are pointed at it, so
-their writes never touch a live page."""
+their writes never touch a live page.
+
+A Mamba layer's entry is recurrent state (``is_kv_entry`` is False): the
+slot's h and conv buffers, with the slot axis first in both layouts. It is
+not indexed by position, so it is never paged, shared or rolled back; it is
+zeroed at admission (``reset_slot``), and a dispatch replaces it only at
+its end (``scatter_slot``, ``keep_live``), so a dispatch that raised part
+way leaves it as it was."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -26,6 +33,16 @@ import torch
 from repro_torch.models import lm
 
 TRASH_PAGE = 0
+
+
+def is_kv_entry(entry: Dict[str, torch.Tensor]) -> bool:
+    """True for a position-indexed KV cache entry (pageable); False for a
+    Mamba layer's recurrent state (slot-resident, O(1) a slot)."""
+    return "k" in entry or "k_q" in entry
+
+
+def kv_entries(pool: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    return [e for e in pool["caches"] if is_kv_entry(e)]
 
 
 def init_pool(cfg, n_slots: int, max_seq: int, params: Optional[dict] = None,
@@ -58,38 +75,92 @@ def gather_slot(pool: Dict[str, Any], slot: Union[int, torch.Tensor],
     index tensor (a paged engine's slot, read by a CUDA graph that serves
     every slot), gathered through it. Contiguous: views of the pool's
     caches (``slot`` an int). Paged (``pages``, the slot's (1, n_blk) page
-    table row): the arena whole."""
+    table row): the KV arena whole, and the slot's recurrent state gathered
+    through the index."""
+    def one(leaf):
+        return (leaf.index_select(0, slot) if isinstance(slot, torch.Tensor)
+                else leaf[slot:slot + 1])
     if pos is None:
-        pos = (pool["pos"].index_select(0, slot)
-               if isinstance(slot, torch.Tensor)
-               else pool["pos"][slot:slot + 1])
-    if pages is not None:
-        return {"caches": pool["caches"], "pos": pos, "pages": pages}
-    caches = [{k: leaf[slot:slot + 1] for k, leaf in entry.items()}
+        pos = one(pool["pos"])
+    caches = [entry if pages is not None and is_kv_entry(entry)
+              else {k: one(leaf) for k, leaf in entry.items()}
               for entry in pool["caches"]]
-    return {"caches": caches, "pos": pos}
+    state = {"caches": caches, "pos": pos}
+    if pages is not None:
+        state["pages"] = pages
+    return state
 
 
 def scatter_slot(pool: Dict[str, Any], slot: Union[int, torch.Tensor],
                  state: Dict[str, Any]) -> None:
     """Record a batch=1 state's position (an int, or a (1,) device tensor)
-    in the pool, in place on the device and with no host sync (its KV
-    already landed in the pool through the views or the page table).
-    ``slot`` as in ``gather_slot``."""
+    and its recurrent state in the pool, in place on the device and with no
+    host sync (its KV already landed in the pool through the views or the
+    page table). ``slot`` as in ``gather_slot``."""
+    for entry, new in zip(pool["caches"], state["caches"]):
+        if not is_kv_entry(entry):
+            for k, leaf in entry.items():
+                _put(leaf, slot, new[k])
+    _put(pool["pos"], slot, state["pos"])
+
+
+def _put(leaf: torch.Tensor, slot: Union[int, torch.Tensor],
+         value) -> None:
     if isinstance(slot, torch.Tensor):
-        pool["pos"].index_copy_(0, slot, state["pos"])
+        leaf.index_copy_(0, slot, value)
     else:
-        pool["pos"][slot:slot + 1] = state["pos"]
+        leaf[slot:slot + 1] = value
 
 
 def reset_slot(pool: Dict[str, Any], slot: int, pos0: int = 0) -> None:
-    """Admission: the slot's position drops to ``pos0`` (0, or the length of
+    """Admission: the slot's recurrent state is zeroed (it advances
+    irreversibly) and its position drops to ``pos0`` (0, or the length of
     a prefix-cache hit, whose pages the slot's table already maps). KV is
     left as it is in both layouts: the previous occupant's entries lie at or
     past ``pos0``, where every later attend masks them until prefill
     overwrites them, and a paged arena holds pages other slots still
     read."""
-    pool["pos"][slot] = pos0
+    for entry in pool["caches"]:
+        if not is_kv_entry(entry):
+            for leaf in entry.values():
+                leaf[slot].zero_()
+    set_slot_pos(pool, slot, pos0)
+
+
+def set_slot_pos(pool: Dict[str, Any], slot: int, pos: int) -> None:
+    """The slot's position alone, in place: the fault path gives a
+    surviving slot its position back from the host's mirror, and leaves
+    its recurrent state, which no dispatch that raised has written."""
+    pool["pos"][slot] = pos
+
+
+def keep_live(caches: List[Dict[str, torch.Tensor]],
+              new: List[Dict[str, torch.Tensor]],
+              live: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    """After one batched step: each recurrent entry of ``new`` where the
+    row is ``live`` (B,) bool, else the entry of ``caches`` (the rows that
+    are free, mid-prefill or stopped keep their state bit for bit; a KV
+    entry, written in place, is ``new``'s). The reference's
+    ``select_slots``."""
+    out = []
+    for old, upd in zip(caches, new):
+        if is_kv_entry(upd):
+            out.append(upd)
+            continue
+        out.append({k: torch.where(
+            live.reshape((-1,) + (1,) * (v.ndim - 1)), v, old[k])
+            for k, v in upd.items()})
+    return out
+
+
+def store_recurrent(pool: Dict[str, Any],
+                    caches: List[Dict[str, torch.Tensor]]) -> None:
+    """Copy every recurrent entry of ``caches`` into the pool's buffers, in
+    place: the end of a dispatch."""
+    for entry, new in zip(pool["caches"], caches):
+        if not is_kv_entry(entry):
+            for k, leaf in entry.items():
+                leaf.copy_(new[k])
 
 
 def rollback_slots(pool: Dict[str, Any], pos: torch.Tensor) -> None:
@@ -125,7 +196,7 @@ def select_slots(pool: Dict[str, Any], saved: torch.Tensor,
 def copy_page(pool: Dict[str, Any], src: int, dst: int) -> None:
     """Copy-on-write: arena page ``src`` into page ``dst`` in every KV leaf
     of a paged pool, in place."""
-    for entry in pool["caches"]:
+    for entry in kv_entries(pool):
         for leaf in entry.values():
             leaf[dst].copy_(leaf[src])
 

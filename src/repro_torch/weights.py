@@ -1,7 +1,9 @@
 """The JAX package's tree layout and numpy leaves, in and out of the port.
 
-The JAX tree stacks the layers of ``blocks`` along axis 0; the port keeps a
-list of per-layer dicts. ``unstack_blocks`` and ``stack_blocks`` convert
+The JAX tree's ``blocks`` is a tuple of one stacked dict per position of
+the layer pattern's period: layer ``g·P + j`` is ``blocks[j][g]`` (P = 1
+for the all-attn families, 2 for the hybrid smoke config, 8 for jamba);
+the port keeps a list of per-layer dicts in layer order. ``unstack_blocks`` and ``stack_blocks`` convert
 between the two (``from_jax_params`` carries a JAX param tree across;
 ``launch/checkpoint.py`` writes and reads checkpoints and artifacts in the
 JAX package's layout; ``from_jax_cnn_variables`` carries the CNN variables
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device, tree
 from repro_torch.compress.qtypes import QuantizedLinear
+from repro_torch.models.lm import least_period
 
 
 def from_numpy(arr: np.ndarray, bf16: bool = False) -> torch.Tensor:
@@ -74,13 +77,12 @@ def _stack(layers: list, where: str):
 
 
 def unstack_blocks(tree: Any) -> Any:
-    """The JAX tree stacks the layers along axis 0 of every block leaf
-    (one stacked dict per period position; the all-attn pattern, dense or
-    MoE in every layer, has one: an MoE layer's expert leaves stack to (L,
-    E, K, N), their INT8 scales to (L, E, N)).
+    """The JAX tree stacks the layers along axis 0 of every block leaf,
+    one stacked dict per period position (an MoE layer's expert leaves
+    stack to (G, E, K, N), their INT8 scales to (G, E, N)).
     Split every ``blocks`` in ``tree`` (nested in dicts, lists and tuples:
     the params, or the moments of an optimizer state) into the port's list
-    of per-layer dicts."""
+    of per-layer dicts, in layer order."""
     if isinstance(tree, dict):
         return {k: (_unstack(v) if k == "blocks" else unstack_blocks(v))
                 for k, v in tree.items()}
@@ -90,20 +92,40 @@ def unstack_blocks(tree: Any) -> Any:
 
 
 def _unstack(stacked) -> list:
-    if len(stacked) != 1:
-        raise NotImplementedError("only period-1 patterns (all attn, every "
-                                  "layer dense or every layer MoE) are "
-                                  "ported so far")
-    return [_layer(stacked[0], i) for i in range(_n_layers(stacked[0]))]
+    groups = {_n_layers(pos) for pos in stacked}
+    if len(groups) != 1:
+        raise ValueError(f"period positions stack {sorted(groups)} layers; "
+                         f"they must stack the same number")
+    return [_layer(pos, g) for g in range(groups.pop()) for pos in stacked]
+
+
+def _signature(layer: dict) -> tuple:
+    """What the JAX package's period is made of, read off one layer's
+    keys: its mixer (attn or mamba) and whether its FFN is the experts."""
+    return (tuple(sorted(k for k in layer if k in ("attn", "mamba"))),
+            "moe" in layer)
+
+
+def block_period(layers: list) -> int:
+    """The least period of the layers' signatures: ``lm.pattern_period``
+    of the config they were made for."""
+    return least_period([_signature(layer) for layer in layers])
+
+
+def _stack_layers(layers: list) -> tuple:
+    period = block_period(layers)
+    return tuple(_stack(layers[j::period], f"blocks/{j}")
+                 for j in range(period))
 
 
 def stack_blocks(tree: Any) -> Any:
     """The inverse of ``unstack_blocks``: every ``blocks`` list of per-layer
-    dicts becomes the JAX tree's one-tuple of a dict whose leaves stack the
-    layers along axis 0. Raises ``ValueError`` when a leaf's shape differs
-    between layers (a per-layer HQP cut)."""
+    dicts becomes the JAX tree's tuple of one dict per period position
+    (``block_period``), whose leaves stack that position's layers along
+    axis 0. Raises ``ValueError`` when a leaf's shape differs between the
+    layers of one position (a per-layer HQP cut)."""
     if isinstance(tree, dict):
-        return {k: ((_stack(list(v), "blocks"),) if k == "blocks"
+        return {k: (_stack_layers(list(v)) if k == "blocks"
                     else stack_blocks(v)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(stack_blocks(v) for v in tree)
