@@ -50,7 +50,14 @@ shared-head load with no prefix cache kept (a recurrent pattern), sampled,
 and profiled, and one layer compressed (Fisher, Algorithm 1 with the
 Mamba channel family; masked == compacted, also with a quarter of the
 Mamba channels cut by hand), that cut model's artifact saved, loaded and
-served, each against serial decode.
+served, each against serial decode; last, the xLSTM family: its smoke
+model on the card against the CPU, then xlstm-1.3b at its published
+width and depth (INT8, drawn a layer at a time) served contiguous and
+paged (an empty KV arena: no layer attends), sampled and profiled, and
+compressed at full depth (Fisher, Algorithm 1 with the mLSTM head family;
+masked == compacted, also with one head cut from every mLSTM layer), that
+cut model's artifact saved, loaded and served, each against serial
+decode.
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each serve load runs
@@ -247,6 +254,23 @@ MOE_NEW, ARCH_REQUESTS, ARCH_NEW, ARCH_RUNS = 16, 4, 8, 3
 HYBRID_ARCH = "jamba-1.5-large-398b"
 HYBRID_LAYERS, HYBRID_HQP_LAYERS, HYBRID_B1 = 5, 1, 117
 HYBRID_REQUESTS, HYBRID_NEW, HYBRID_RUNS = 4, 16, 3
+# The xLSTM phase: xlstm-1.3b at its published width and depth (48 layers,
+# 42 mLSTM and 6 sLSTM, 2.02 B params: INT8 PTQ a layer at a time), served
+# on XLSTM_REQUESTS staggered requests of XLSTM_NEW tokens, each load
+# XLSTM_RUNS times on one engine, and compressed at full depth (Fisher,
+# Algorithm 1 with the mlstm_heads family; the sLSTM layers are not
+# pruned). Its prompts are about XLSTM_PROMPT tokens long (11-21: one or
+# two prefill chunks), the profile's too: the mLSTM steps a prompt
+# position by position, ~40 kernels a position and layer. The one-run
+# loads (sampled, the cut artifact) take the first XLSTM_ONE_RUN requests.
+# XLSTM_B1 is
+# B1's launches a decode step: 42 mLSTM x 2 (in_proj, out_proj) + 6 sLSTM
+# x 2 (up, down). XLSTM_STATE_REL bounds the smoke model's mLSTM state C,
+# card against CPU, over its largest magnitude.
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_B1, XLSTM_REQUESTS, XLSTM_NEW, XLSTM_RUNS = 96, 4, 16, 3
+XLSTM_PROMPT, XLSTM_ONE_RUN = SERVE_CHUNK, 2
+XLSTM_STATE_REL = 3e-2
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
 GEMM_M = (1, 4, 13, 16, 17, 64)
@@ -1167,11 +1191,12 @@ GRAPH_STATS = ("graphs_captured", "graph_replays", "eager_dispatches",
 
 
 def _int8_linears(params):
-    """The INT8 linears of every block: attention, Mamba (in_proj and
-    out_proj), MLP and MoE experts."""
+    """The INT8 linears of every block: attention, Mamba and mLSTM
+    (in_proj and out_proj), sLSTM (up and down), MLP and MoE experts."""
     from repro_torch.compress.qtypes import QuantizedLinear
     return [v for blk in params["blocks"]
-            for part in ("attn", "mamba", "mlp", "moe") if part in blk
+            for part in ("attn", "mamba", "mlstm", "slstm", "mlp", "moe")
+            if part in blk
             for v in blk[part].values() if isinstance(v, QuantizedLinear)]
 
 
@@ -1377,12 +1402,13 @@ def _per_layer_ranking(ranked, drops):
 
 def _sublayer_rel(cfg, masked, other, batch):
     """The worst relative difference, ||masked - other|| / ||masked||, of a
-    layer's mixer (attention or Mamba) or FFN output between two models,
-    both fed the masked model's input to that layer (the loop of
-    ``lm.forward``). Layer by layer, no layer compounds another's
+    layer's mixer (attention, Mamba, mLSTM or sLSTM) or FFN output between
+    two models, both fed the masked model's input to that layer (the loop
+    of ``lm.forward``). Layer by layer, no layer compounds another's
     roundings."""
     import torch
     from repro_torch.models import attention as A, layers as L, lm, ssm
+    from repro_torch.models import xlstm
     tokens = batch["tokens"]
     x = L.embed_lookup(masked["embed"], tokens)
     b, s, _ = x.shape
@@ -1393,17 +1419,25 @@ def _sublayer_rel(cfg, masked, other, batch):
         if "attn" in p:
             return A.attention_forward(p["attn"], cfg, h, positions,
                                        route=A.TRAIN)
-        return ssm.mamba_forward(p["mamba"], cfg, h,
-                                 batch_invariant=False)[0]
+        if "mamba" in p:
+            return ssm.mamba_forward(p["mamba"], cfg, h,
+                                     batch_invariant=False)[0]
+        kind = "mlstm" if "mlstm" in p else "slstm"
+        return getattr(xlstm, f"{kind}_forward")(
+            p[kind], cfg, h, batch_invariant=False)[0]
     for pm, po in zip(masked["blocks"], other["blocks"]):
         h = L.rmsnorm(x, pm["norm1"], cfg.norm_eps, batch_invariant=False)
         am, ao = (mixer(p, h) for p in (pm, po))
         x = x + am
-        h = L.rmsnorm(x, pm["norm2"], cfg.norm_eps, batch_invariant=False)
-        fm, fo = (lm.ffn(p, cfg, h, batch_invariant=False)
-                  for p in (pm, po))
-        x = x + fm
-        for m, o in ((am, ao), (fm, fo)):
+        outs = [(am, ao)]
+        if "norm2" in pm:                   # an xLSTM block has no FFN
+            h = L.rmsnorm(x, pm["norm2"], cfg.norm_eps,
+                          batch_invariant=False)
+            fm, fo = (lm.ffn(p, cfg, h, batch_invariant=False)
+                      for p in (pm, po))
+            x = x + fm
+            outs.append((fm, fo))
+        for m, o in outs:
             m, o = m.float(), o.float()
             if not o.isfinite().all():
                 return float("inf")
@@ -1423,44 +1457,67 @@ def _misalign_ffn(params, layer):
     return {**params, "blocks": blocks}
 
 
+def _misalign_mlstm(params, layer):
+    """A planted compaction fault for the xLSTM family: ``layer``'s mLSTM
+    out_proj rows half a head off from the head rows that feed them."""
+    blocks = list(params["blocks"])
+    b = blocks[layer]
+    hd = b["mlstm"]["wq"].shape[-1]
+    out = {"w": b["mlstm"]["out_proj"]["w"].roll(hd // 2, 0)}
+    blocks[layer] = {**b, "mlstm": {**b["mlstm"], "out_proj": out}}
+    return {**params, "blocks": blocks}
+
+
 def _ffn_width(blk) -> int:
-    """A layer's FFN units: d_ff columns, or an MoE layer's experts."""
-    return (blk["moe"]["up"]["w"].shape[0] if "moe" in blk
-            else blk["mlp"]["up"]["w"].shape[1])
+    """A layer's FFN units: d_ff columns, or an MoE layer's experts (an
+    xLSTM block has none)."""
+    if "moe" in blk:
+        return blk["moe"]["up"]["w"].shape[0]
+    return blk["mlp"]["up"]["w"].shape[1] if "mlp" in blk else 0
 
 
 def _mixer_width(blk, cfg) -> int:
-    """A layer's mixer units: KV heads, or a Mamba layer's channels."""
+    """A layer's mixer units: KV heads, a Mamba layer's channels, or an
+    mLSTM layer's heads (an sLSTM layer's d_model: it is not pruned)."""
     if "attn" in blk:
         return blk["attn"]["wk"]["w"].shape[1] // cfg.resolved_head_dim
+    if "mlstm" in blk:
+        return blk["mlstm"]["wq"].shape[0]
+    if "slstm" in blk:
+        return cfg.d_model
     return blk["mamba"]["conv_w"].shape[-1]
 
 
-def _mask_vs_compact(cfg, masked, compact, batch, what, card):
+def _mask_vs_compact(cfg, masked, compact, batch, what, card,
+                     misalign=_misalign_ffn):
     """The masked model and the compacted one compute the same function:
-    the same accuracy on the calibration batch, and each layer's attention
+    the same accuracy on the calibration batch, and each layer's mixer
     and FFN outputs within SUBLAYER_REL of each other. The same check must
-    refuse the compacted model with a planted fault (one layer's FFN down
-    rows misaligned). Returns the accuracy."""
+    refuse the compacted model with a planted fault (``misalign``: one
+    layer's FFN down rows, or its mLSTM out_proj rows, misaligned). Returns
+    the accuracy."""
     from repro_torch.train.train_step import make_eval_step
     ev = make_eval_step(cfg)
     acc_masked, acc_compact = float(ev(masked, batch)), float(ev(compact,
                                                                  batch))
     rel = _sublayer_rel(cfg, masked, compact, batch)
     rel_fault = _sublayer_rel(cfg, masked,
-                              _misalign_ffn(compact, cfg.n_layers // 2),
-                              batch)
+                              misalign(compact, cfg.n_layers // 2), batch)
     widths = sorted({(_mixer_width(b, cfg), _ffn_width(b))
                      for b in compact["blocks"]})
     unit = ("experts" if any("moe" in b for b in compact["blocks"])
             else "d_ff")
-    mixer = "/".join(sorted({"kv heads" if "attn" in b else "mamba channels"
-                             for b in compact["blocks"]}))
+    names = {"attn": "kv heads", "mamba": "mamba channels",
+             "mlstm": "mlstm heads", "slstm": "slstm d_model"}
+    mixer = "/".join(sorted({names[k] for b in compact["blocks"]
+                             for k in names if k in b}))
+    planted = ("FFN down" if misalign is _misalign_ffn
+               else "mLSTM out_proj")
     print(f"[hqp] {what}, mask == compact: accuracy {acc_masked:.4f} "
           f"(masked) vs {acc_compact:.4f} (compacted); worst layer "
           f"output |masked - compacted| / |masked| {rel:.4g} (limit "
           f"{SUBLAYER_REL}), "
-          f"{rel_fault:.4g} with layer {cfg.n_layers // 2}'s FFN down rows "
+          f"{rel_fault:.4g} with layer {cfg.n_layers // 2}'s {planted} rows "
           f"misaligned; compacted ({mixer}, {unit}) {widths} of "
           f"({_mixer_width(masked['blocks'][0], cfg)}, "
           f"{_ffn_width(masked['blocks'][0])})  [{card}]")
@@ -1844,10 +1901,15 @@ def _graph_delta(eng, before) -> dict:
     return {k: eng.stats[k] - before[k] for k in GRAPH_STATS}
 
 
-def phase_profile(params, cfg, dev, kernels):
+LAYOUTS = (("contiguous", None), ("paged", SERVE_PAGE))
+
+
+def phase_profile(params, cfg, dev, kernels, prompt_len=SERVE_PROMPT,
+                  layouts=LAYOUTS, prof_ticks=2):
     """Where a steady decode dispatch's time goes, contiguous against paged
-    (pages of SERVE_PAGE): SERVE_SLOTS requests, all decoding, INT8 KV, one
-    engine per layout on the same prompts, in two passes over the same
+    (pages of SERVE_PAGE; ``layouts``): SERVE_SLOTS requests of
+    ``prompt_len`` tokens, all decoding, INT8 KV, one engine per layout on
+    the same prompts, in two passes over the same
     positions. In each pass, after one warming tick, PROFILE_TICKS
     dispatches of each are timed on the host clock (each ends in the
     engine's one host sync), the two layouts taking turns in the order C P P
@@ -1855,19 +1917,20 @@ def phase_profile(params, cfg, dev, kernels):
     cold: a window's first dispatch runs eagerly and its second captures,
     and the eager ones are reported as the first use. The second pass (the
     same requests once the first finished, prefix cache cleared) must
-    replay every timed dispatch, which the engine's stats show; then two
-    more replayed dispatches of each run under torch.profiler, whose device
+    replay every timed dispatch, which the engine's stats show; then
+    ``prof_ticks`` more replayed dispatches of each run under
+    torch.profiler, whose device
     kernel time is summed by group. Device busy over the unprofiled host
     wall gives the idle share (``_per``)."""
     import torch
     from repro_torch.serving import Engine, Request, SchedulerConfig
     rng = torch.Generator().manual_seed(0)
-    prompts = [_tokens(cfg, SERVE_PROMPT, rng) for _ in range(SERVE_SLOTS)]
+    prompts = [_tokens(cfg, prompt_len, rng) for _ in range(SERVE_SLOTS)]
     # the first token comes from prefill; then the warming, timed and
     # profiled dispatches, after which every request is done
-    n_new = 1 + (1 + PROFILE_TICKS + 2) * SERVE_STEPS
+    n_new = 1 + (1 + PROFILE_TICKS + prof_ticks) * SERVE_STEPS
     engines = {}
-    for layout, page_size in (("contiguous", None), ("paged", SERVE_PAGE)):
+    for layout, page_size in layouts:
         engines[layout] = Engine(
             params, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
             sched=SchedulerConfig(prefill_chunk=SERVE_CHUNK,
@@ -1921,10 +1984,11 @@ def phase_profile(params, cfg, dev, kernels):
         eager = [t for t, d in cold if d["eager_dispatches"]]
         captured = [t for t, d in cold if d["graphs_captured"]]
         before = dict(eng.stats)
-        prof_steps = 2 * SERVE_STEPS
-        prof = _profiled(lambda: [tick(eng) for _ in range(2)], kernels)
-        if _graph_delta(eng, before)["graph_replays"] != 2:
-            fail(f"profile {layout}: the profiled dispatches were not both "
+        prof_steps = prof_ticks * SERVE_STEPS
+        prof = _profiled(lambda: [tick(eng) for _ in range(prof_ticks)],
+                         kernels)
+        if _graph_delta(eng, before)["graph_replays"] != prof_ticks:
+            fail(f"profile {layout}: the profiled dispatches were not all "
                  f"replays")
         step_ms = sum(t for t, _ in warm) / steps * 1e3
         out[layout] = {
@@ -3496,12 +3560,13 @@ def _hybrid_param_counts(params, cfg):
         // m.n_experts
 
 
-def _hybrid_b1_times(dev, params, report, card):
-    """B1's serving form at every (K, N) of the hybrid model, on the
-    model's own INT8 weights and a decode step's SERVE_SLOTS rows: bit for
-    bit against its plain version, and device ms of the kernel, its plain
-    version and its bound, into ``report`` under ``hybrid_shapes``. A
-    weight under the 50 MB L2 stays there across the timed launches."""
+def _b1_times(dev, params, report, card, tag):
+    """B1's serving form at every (K, N) of a served model (the ``tag``
+    phase's), on the model's own INT8 weights and a decode step's
+    SERVE_SLOTS rows: bit for bit against its plain version, and device ms
+    of the kernel, its plain version and its bound, into ``report`` under
+    ``{tag}_shapes``. A weight under the 50 MB L2 stays there across the
+    timed launches."""
     import torch
     from repro_torch.kernels import int8_matmul as km, ref
     lins = {}
@@ -3518,7 +3583,7 @@ def _hybrid_b1_times(dev, params, report, card):
             x_q, x_s = ref.quantize_ref(x)
             return ref.int8_matmul_ref(x_q, w_q, x_s, sc)
         if not torch.equal(km.int8_matmul_quant(x, w_q, sc), plain()):
-            fail(f"B1 at the hybrid model's ({SERVE_SLOTS}, {k_dim}) x "
+            fail(f"B1 at the {tag} model's ({SERVE_SLOTS}, {k_dim}) x "
                  f"({k_dim}, {n_dim}) differs from its plain version")
         b = SERVE_SLOTS
         b_ms, by = bound(b * k_dim * 2 + k_dim * n_dim + n_dim * 4
@@ -3527,69 +3592,71 @@ def _hybrid_b1_times(dev, params, report, card):
                        km.int8_matmul_quant(x, w_q, sc), plain),
                  bound_ms=b_ms, bound_by=by)
         shape = f"x ({b}, {k_dim}) bf16 x w ({k_dim}, {n_dim}) int8"
-        report["int8_matmul_quant"].setdefault("hybrid_shapes", {})[
+        report["int8_matmul_quant"].setdefault(f"{tag}_shapes", {})[
             shape] = t
-        print(f"[hybrid] B1 at {shape} ({k_dim * n_dim / 1e6:.1f} MB of "
+        print(f"[{tag}] B1 at {shape} ({k_dim * n_dim / 1e6:.1f} MB of "
               f"weights): " + _times(t) + f"  [{card}]")
 
 
-def _hybrid_attribution(params, cfg, dev, kernels):
+def _range_attribution(params, cfg, dev, kernels, ranges, tag,
+                       prompt_len=SERVE_PROMPT):
     """Device ms of one eager decode step (SERVE_SLOTS rows at position
-    SERVE_PROMPT, INT8 KV) by group, under torch.profiler with a range
-    around each Mamba mixer and each MoE layer: a kernel is B1 or an
-    attention kernel by its name, else the Mamba mixer's (its conv, x_proj
-    and dt_proj, the scan's step, the gate) or the MoE layer's (router,
-    top-k, dispatch, combine and the experts' SwiGLU) by the range that
-    launched it, else the rest (embed, norms, the dense MLPs' SwiGLU, the
-    unembed, the token pick). A replayed step runs the same kernels; its
-    profile names them but cannot tell whose they are. Each kernel is
-    counted once, by its device event."""
+    ``prompt_len``, INT8 KV) by group, under torch.profiler with a range
+    around each call of the functions of ``ranges`` ({group: (module,
+    function name, calls a step)}): a kernel is B1 or an attention kernel
+    by its name, else the group of the range that launched it, else the
+    rest (embed, norms, what no range covers, the token pick). A replayed
+    step runs the same kernels; its profile names them but cannot tell
+    whose they are. Each kernel is counted once, by its device event. The
+    phase fails if a range was entered another number of times than a
+    step calls it, or owns no kernel."""
     import torch
-    from repro_torch.models import lm, moe as M, ssm
+    from repro_torch.models import lm
     gen = torch.Generator().manual_seed(4)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT + 1),
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, prompt_len + 1),
                          generator=gen).to(dev)
     state = lm.init_decode_state(cfg, SERVE_SLOTS, SERVE_MAX_SEQ,
                                  params=params, quantized_kv=True, device=dev)
     _, state = lm.decode_step(params, cfg, state, toks[:, :-1],
                               route="prefill")
-    orig = {"mamba": (ssm, ssm.mamba_forward), "moe": (M, M.moe_forward)}
-    specs = lm.layer_specs(cfg)
-    want = {"mamba": sum(kind == "mamba" for kind, _ in specs),
-            "moe": sum(moe for _, moe in specs)}
-    entered = dict.fromkeys(orig, 0)
+    orig = {g: (mod, name, getattr(mod, name))
+            for g, (mod, name, _) in ranges.items()}
+    want = {g: n for g, (_, _, n) in ranges.items()}
+    entered = dict.fromkeys(ranges, 0)
+    prefix = tag + "::"
 
-    def ranged(name, fn):
+    def ranged(group, fn):
         def run(*args, **kw):
-            entered[name] += 1
-            with torch.profiler.record_function("hybrid::" + name):
+            entered[group] += 1
+            with torch.profiler.record_function(prefix + group):
                 return fn(*args, **kw)
         return run
-    for name, (mod, fn) in orig.items():
-        setattr(mod, fn.__name__, ranged(name, fn))
+    for g, (mod, name, fn) in orig.items():
+        setattr(mod, name, ranged(g, fn))
     try:
         lm.decode_step(params, cfg, dict(state), toks[:, -1:],
                        route="decode")
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        entered.update(dict.fromkeys(orig, 0))
+        entered.update(dict.fromkeys(ranges, 0))
         with torch.profiler.profile(activities=acts) as prof:
             lm.decode_step(params, cfg, dict(state), toks[:, -1:],
                            route="decode")
             torch.cuda.synchronize()
     finally:
-        for mod, fn in orig.values():
-            setattr(mod, fn.__name__, fn)
+        for mod, name, fn in orig.values():
+            setattr(mod, name, fn)
     # the device's kernels, once each (not the ranges' own device-side
     # spans); B1 (a ctypes launch, which the profiler ties to no op) and
     # attention by name, the rest by the range whose op launched them
+    events = prof.events()
     device = {(e.name, e.time_range.start, e.time_range.end)
-              for e in prof.events()
+              for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith("hybrid::")}
+              and not e.name.startswith(prefix)}
     groups = dict.fromkeys(("int8_matmul_quant (B1)", "attention",
-                            "mamba_mixer", "moe (no B1)"), 0.0)
+                            *ranges), 0.0)
     for name, t0, t1 in device:
         g = _group(name, kernels)
         if g == "int8_matmul_quant":
@@ -3598,29 +3665,25 @@ def _hybrid_attribution(params, cfg, dev, kernels):
             groups["attention"] += (t1 - t0) / 1e3
 
     def walk(evt, owner):
-        if evt.name.startswith("hybrid::"):
-            owner = {"mamba": "mamba_mixer",
-                     "moe": "moe (no B1)"}[evt.name[len("hybrid::"):]]
+        if evt.name.startswith(prefix):
+            owner = evt.name[len(prefix):]
         if owner is not None:
             for k in evt.kernels:
-                if _group(k.name, kernels) == "torch_other" or \
-                        _group(k.name, kernels) == "cublas":
+                if _group(k.name, kernels) in ("torch_other", "cublas"):
                     groups[owner] += k.duration / 1e3
         for child in evt.cpu_children:
             walk(child, owner)
-    for evt in prof.events():
+    for evt in events:
         if evt.cpu_parent is None:
             walk(evt, None)
     total = sum(t1 - t0 for _, t0, t1 in device) / 1e3
     groups["rest"] = total - sum(groups.values())
-    # each Mamba and MoE layer ran inside its range, and each range owns
-    # some kernels: else their time would fall to the rest unseen
-    empty = [g for g, n in (("mamba_mixer", want["mamba"]),
-                            ("moe (no B1)", want["moe"]))
-             if n and not groups[g] > 0]
+    # each range ran as often as the step calls it, and owns some kernels:
+    # else their time would fall to the rest unseen
+    empty = [g for g, n in want.items() if n and not groups[g] > 0]
     if (not total or groups["rest"] < 0 or empty or entered != want):
-        fail(f"hybrid attribution: {groups} of the step's {total:.5f} ms "
-             f"of kernels; ranges entered {entered}, layers {want}; "
+        fail(f"{tag} attribution: {groups} of the step's {total:.5f} ms "
+             f"of kernels; ranges entered {entered}, calls a step {want}; "
              f"groups with no kernel {empty}")
     top = {}
     for name, t0, t1 in device:
@@ -3686,7 +3749,7 @@ def phase_hybrid(dev, kernels, report, card):
     2. jamba at full width, the published stack's first HYBRID_LAYERS
        layers, INT8 PTQ drawn a layer at a time; B1 and its serving form
        held bit for bit against plain at every (K, N) of the model, and timed
-       there at a decode step's SERVE_SLOTS rows (``_hybrid_b1_times``);
+       there at a decode step's SERVE_SLOTS rows (``_b1_times``);
     3. served on the staggered load, INT8 KV, contiguous and paged (pages
        of SERVE_PAGE), HYBRID_RUNS runs each: engine == serial decode, B1
        launched HYBRID_B1 times a decode step, never B2 or the int8-x B1;
@@ -3696,7 +3759,7 @@ def phase_hybrid(dev, kernels, report, card):
     5. one sampled run == sampled serial decode;
     6. a steady decode dispatch profiled (``phase_profile``), and one
        eager decode step's device time by group, the Mamba mixer and the
-       MoE layer apart from B1 (``_hybrid_attribution``);
+       MoE layer apart from B1 (``_range_attribution``);
     7. HQP at HYBRID_HQP_LAYERS deep: the launcher's ``build_artifact``
        (Fisher on the train route, PRUNE_STEPS conditional steps with the
        ``ffn`` and ``mamba_cols`` families), masked == compacted; a
@@ -3743,7 +3806,7 @@ def phase_hybrid(dev, kernels, report, card):
              f"{want_lin} (HYBRID_B1 {HYBRID_B1})")
     _b1_model_shapes(dev, (params,), f"{cfg.name}'s INT8 PTQ", "hybrid",
                      card)
-    _hybrid_b1_times(dev, params, report, card)
+    _b1_times(dev, params, report, card, "hybrid")
 
     # 3. the staggered load, contiguous and paged
     reqs, arrivals = synth_requests(cfg, HYBRID_REQUESTS, SERVE_PROMPT,
@@ -3808,7 +3871,13 @@ def phase_hybrid(dev, kernels, report, card):
         print(f"[hybrid] profile: steady decode, {cfg.name}, INT8 KV, "
               f"{SERVE_SLOTS} slots, {layout}, replayed CUDA graphs: "
               f"{json.dumps(prof)}  [{card}]")
-    by = _hybrid_attribution(params, cfg, dev, kernels)
+    from repro_torch.models import moe as M, ssm
+    specs = lm.layer_specs(cfg)
+    by = _range_attribution(params, cfg, dev, kernels, {
+        "mamba_mixer": (ssm, "mamba_forward",
+                        sum(kind == "mamba" for kind, _ in specs)),
+        "moe (no B1)": (M, "moe_forward", sum(moe for _, moe in specs))},
+        "hybrid")
     print(f"[hybrid] one eager decode step, {SERVE_SLOTS} rows, contiguous "
           f"INT8 KV, device ms by group (torch.profiler, kernels by name "
           f"and by the range that launched them): {json.dumps(by)}  "
@@ -3907,6 +3976,253 @@ def phase_hybrid(dev, kernels, report, card):
     _free()
     print(f"[hybrid] phase seconds {time.monotonic() - t_phase:.1f}  "
           f"[{card}]")
+    return launches
+
+
+def _xlstm_card_vs_cpu(dev, card):
+    """The xLSTM smoke model (an mLSTM and an sLSTM layer) on the card
+    against the same model on the CPU (the plain versions), INT8 PTQ: a
+    21-token prefill and 8 decode steps, teacher-forced, the logits within
+    the hybrid phase's allowance (at most 5 % off by more than 0.15 + 0.15
+    |cpu|, the median difference under 0.05), then the mLSTM state C after
+    29 tokens within XLSTM_STATE_REL of its largest magnitude."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.models import lm
+    from repro_torch.weights import to_device
+    cfg = configs.get_smoke_config(XLSTM_ARCH)
+    params = quantize_lm_params(lm.init_params(cfg, seed=0, device="cpu"))
+    gpu_params = to_device(params, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    states = {d: lm.init_decode_state(cfg, 2, 64, params=p, device=d)
+              for d, p in (("cpu", params), (dev, gpu_params))}
+    toks, off, med, err = prompt, 0.0, 0.0, 0.0
+    real = slice(0, cfg.vocab_size)
+    for step in range(9):
+        out = {}
+        for d, p in (("cpu", params), (dev, gpu_params)):
+            out[d], states[d] = lm.decode_step(
+                p, cfg, states[d], toks.to(d),
+                route="prefill" if step == 0 else "decode")
+        a, b = out["cpu"][..., real], out[dev].cpu()[..., real]
+        if a.shape != b.shape or not torch.isfinite(b).all():
+            fail(f"xlstm smoke step {step}: bad logits {tuple(b.shape)}")
+        diff = (a - b).abs()
+        off = max(off, (diff > 0.15 + 0.15 * a.abs()).float().mean().item())
+        med = max(med, diff.median().item())
+        err = max(err, diff.max().item())
+        toks = a[:, -1].argmax(-1)[:, None]
+    c_cpu = states["cpu"]["caches"][0]["C"]
+    c_dev = states[dev]["caches"][0]["C"].cpu()
+    c_rel = ((c_cpu - c_dev).abs().max() / c_cpu.abs().max()).item()
+    print(f"[xlstm] smoke model, card vs CPU plain path, INT8: logits max "
+          f"|diff| {err:.4g}, worst step's share off {off:.4g} (limit 0.05), "
+          f"worst median |diff| {med:.4g} (limit 0.05); the mLSTM state C "
+          f"after 29 tokens max |diff| / max |C| {c_rel:.4g} (limit "
+          f"{XLSTM_STATE_REL})  [{card}]")
+    if off > 0.05 or med >= 0.05 or not c_rel <= XLSTM_STATE_REL:
+        fail("xlstm smoke model: card and CPU disagree")
+
+
+def phase_xlstm(dev, kernels, report, card):
+    """The xLSTM family on the card, through the launcher's entry points:
+
+    1. the smoke model, card against CPU (``_xlstm_card_vs_cpu``);
+    2. xlstm-1.3b at its published width and depth, INT8 PTQ drawn a layer
+       at a time; B1 and its serving form held bit for bit against plain
+       at every (K, N) of the model, and timed there at a decode step's
+       SERVE_SLOTS rows (``_b1_times``);
+    3. served on the staggered load, contiguous and paged (pages of
+       SERVE_PAGE: an empty KV arena, as the JAX package's engine runs this
+       pattern), XLSTM_RUNS runs each: engine == serial decode, 0 prefix
+       hits, no KV entry in the pool, B1 launched XLSTM_B1 times a decode
+       step and a chunk, never an attention kernel, B2 or the int8-x B1;
+    4. one sampled run of the load's first XLSTM_ONE_RUN requests ==
+       sampled serial decode;
+    5. a steady decode dispatch profiled (``phase_profile``, paged only,
+       one profiled dispatch: the arena is empty, so the two layouts run
+       the same kernels, and a paged prefill chunk's graph serves every
+       slot), and one eager decode step's device time by group: the mLSTM
+       and sLSTM blocks apart from B1, B1, the unembed
+       (``_range_attribution``);
+    6. HQP at full depth: the launcher's ``build_artifact`` (Fisher on the
+       train route, PRUNE_STEPS conditional steps with the ``mlstm_heads``
+       family); then one head cut from every mLSTM layer by hand, in the
+       order of its Fisher ranking (Algorithm 1's steps on random weights
+       need not cut a head from every layer of a period position, which
+       compaction needs to shrink it), masked == compacted; that cut
+       model's INT8 artifact served once (the load's first XLSTM_ONE_RUN
+       requests) == serial decode, its pool sized from the compacted
+       ``in_proj`` (its disk round trip is the CPU tests', in the JAX
+       package's layout both ways).
+    Returns the launches of the cold contiguous run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress.artifact import compress
+    from repro_torch.core import pruning as pr
+    from repro_torch.launch.serve import (_calib_batch, build_artifact,
+                                          synth_requests)
+    from repro_torch.models import lm, xlstm
+    from repro_torch.serving import SamplingConfig
+    from repro_torch.serving import state_pool as sp
+    t_phase = time.monotonic()
+    totals, stages = {}, {}
+
+    def stage(name):
+        stages[name] = time.monotonic() - t_phase - sum(stages.values())
+    _xlstm_card_vs_cpu(dev, card)
+    stage("card_vs_cpu")
+
+    # 2. the published config, INT8 a layer at a time
+    cfg = configs.get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm.init_params(cfg, seed=0, device=dev, quantized=True)
+    torch.cuda.synchronize()
+    hd = xlstm.head_width(cfg)
+    print(f"[xlstm] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers ({cfg.pattern.count('mlstm')} mLSTM, "
+          f"{cfg.pattern.count('slstm')} sLSTM, pattern "
+          f"{''.join(k[0] for k in cfg.pattern[:8])}...), {cfg.n_heads} heads "
+          f"of {hd} (mLSTM d_in {cfg.n_heads * hd}), sLSTM d_up "
+          f"{int(cfg.xlstm.proj_factor_slstm * cfg.d_model)}, vocab "
+          f"{cfg.vocab_size} padded to {lm.padded_vocab(cfg)}, untied; "
+          f"published depth and width; {_n_params(params) / 1e9:.3f} B "
+          f"params INT8 ({cfg.param_count() / 1e9:.3f} B by the config's "
+          f"count); seeded init and PTQ a layer at a time "
+          f"{time.monotonic() - t0:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    n_lin = _n_linears(params)
+    if n_lin != XLSTM_B1 or n_lin != 2 * cfg.n_layers:
+        fail(f"xlstm: {n_lin} W8A8 launches a forward, expected "
+             f"{XLSTM_B1}")
+    _b1_model_shapes(dev, (params,), f"{cfg.name}'s INT8 PTQ", "xlstm",
+                     card)
+    _b1_times(dev, params, report, card, "xlstm")
+    stage("init_and_b1")
+
+    # 3. the staggered load, contiguous and paged
+    reqs, arrivals = synth_requests(cfg, XLSTM_REQUESTS, XLSTM_PROMPT,
+                                    XLSTM_NEW)
+    launches, want = {}, None
+    for page_size in (None, SERVE_PAGE):
+        runs, eng = serve_once(params, cfg, dev, kernels, reqs, DENSE,
+                               CONTIGUOUS + PAGED + UNFUSED,
+                               arrivals_s=arrivals, runs=XLSTM_RUNS,
+                               want=want, page_size=page_size)
+        # serial decode of the same requests on the same weights: the
+        # tokens the contiguous runs were held to, and now gave
+        want = runs[0]["tokens"]
+        if sp.kv_entries(eng.pool) or eng.stats["kv_bytes"] \
+                or eng.prefix is not None \
+                or any(r["prefix_hits"] for r in runs):
+            fail(f"xlstm page_size={page_size}: KV entries "
+                 f"{len(sp.kv_entries(eng.pool))}, kv_bytes "
+                 f"{eng.stats['kv_bytes']}, prefix cache {eng.prefix}, hits "
+                 f"{[r['prefix_hits'] for r in runs]}")
+        if page_size is None:
+            launches = runs[0]["launches"]
+        per_slot = _rec_bytes(eng.pool) // SERVE_SLOTS
+        serve_line(runs, eng, f"{cfg.name} INT8 PTQ, "
+                   + (f"paged (page={page_size}, an empty KV arena)"
+                      if page_size else "contiguous")
+                   + f", recurrent state {per_slot} B a slot, 0 B of KV, 0 "
+                   f"prefix hits", card, totals, tag="[xlstm]")
+        del eng
+    stage("serve")
+    print(f"[xlstm] B1 launches a decode step and a prefill chunk: {n_lin} "
+          f"= {cfg.pattern.count('mlstm')} mLSTM x 2 + "
+          f"{cfg.pattern.count('slstm')} sLSTM x 2; no attention, B2 or "
+          f"int8-x B1 launch on any serving run  [{card}]")
+
+    # 4. sampled
+    one, one_arr = reqs[:XLSTM_ONE_RUN], arrivals[:XLSTM_ONE_RUN]
+    runs, eng = serve_once(params, cfg, dev, kernels, one, DENSE,
+                           CONTIGUOUS + PAGED + UNFUSED, arrivals_s=one_arr,
+                           runs=1,
+                           sampling=SamplingConfig(**SPEC_SAMPLING))
+    serve_line(runs, eng, f"{cfg.name} sampled {SPEC_SAMPLING}, "
+               f"contiguous, engine == sampled serial decode", card, totals,
+               tag="[xlstm]")
+    del eng
+    stage("sampled")
+
+    # 5. where a steady decode dispatch's time goes
+    for layout, prof in phase_profile(params, cfg, dev, kernels,
+                                      XLSTM_PROMPT, LAYOUTS[1:], 1).items():
+        print(f"[xlstm] profile: steady decode, {cfg.name}, "
+              f"{SERVE_SLOTS} slots, {layout}, replayed CUDA graphs: "
+              f"{json.dumps(prof)}  [{card}]")
+    by = _range_attribution(params, cfg, dev, kernels, {
+        "mlstm (no B1)": (xlstm, "mlstm_forward", cfg.pattern.count("mlstm")),
+        "slstm (no B1)": (xlstm, "slstm_forward", cfg.pattern.count("slstm")),
+        "unembed": (lm, "logits_fn", 1)}, "xlstm", XLSTM_PROMPT)
+    print(f"[xlstm] one eager decode step, {SERVE_SLOTS} rows, device ms by "
+          f"group (torch.profiler, kernels by name and by the range that "
+          f"launched them): {json.dumps(by)}  [{card}]")
+    del params
+    _free()
+    stage("profile")
+
+    # 6. HQP at full depth
+    torch.cuda.reset_peak_memory_stats(dev)
+    params1 = lm.init_params(cfg, seed=0, device=dev)
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    art = build_artifact(params1, cfg, PRUNE_STEPS, log=print)
+    wall = time.monotonic() - t0
+    stray = {n: k.launches for n, k in kernels.items() if k.launches}
+    if stray:
+        fail(f"xlstm compress: port kernels launched on the bf16 train "
+             f"route: {stray}")
+    m, sec = art.manifest, art.seconds
+    theta = {f: m.theta_by_family[f] for f in sorted(m.theta_by_family)}
+    print(m.summary())
+    print(f"[xlstm] compress at full depth: θ by family {json.dumps(theta)}; "
+          f"{wall:.2f} s in all (Fisher {sec['fisher']:.3f} s, evals "
+          f"{', '.join(f'{t:.3f}' for t in sec['evals'])}, compact "
+          f"{sec['compact']:.3f}, PTQ {sec['ptq']:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    if not all(f.endswith("/mlstm_heads") for f in theta):
+        fail(f"xlstm compress: families {sorted(theta)}")
+    if not m.pruned or not (len(m.history) == PRUNE_STEPS
+                            or not m.history[-1]["accepted"]):
+        fail(f"xlstm compress: {len(m.history)} conditional steps of "
+             f"{PRUNE_STEPS}, the last accepted")
+    batch = _calib_batch(cfg, CALIB_B, CALIB_S, device=dev)
+    ranked, n = _per_layer_ranking(art.prune.ranked, lambda i, spec: 1)
+    del art
+    _free()
+    masked = pr.apply_prune_masks(params1, ranked, n)
+    compact = pr.compact_params(masked, ranked, n)
+    heads = {b["mlstm"]["wq"].shape[0] for b in compact["blocks"]
+             if "mlstm" in b}
+    if heads != {cfg.n_heads - 1}:
+        fail(f"xlstm: the hand cut left mLSTM head counts {heads}")
+    _mask_vs_compact(cfg, masked, compact, batch,
+                     f"one mLSTM head of {cfg.n_heads} cut from every mLSTM "
+                     f"layer", card, misalign=_misalign_mlstm)
+    del masked, params1
+    cut = compress(compact, cfg, log=print)
+    del compact
+    _free()
+    runs, eng = serve_once(cut.params, cfg, dev, kernels, one, DENSE,
+                           CONTIGUOUS + PAGED + UNFUSED, arrivals_s=one_arr,
+                           runs=1)
+    widths = {tuple(e["C"].shape) for e in eng.pool["caches"] if "C" in e}
+    if widths != {(SERVE_SLOTS, cfg.n_heads - 1, hd, hd)}:
+        fail(f"xlstm cut artifact: pool state C {widths}")
+    serve_line(runs, eng, f"{cfg.name} cut artifact, contiguous, pool "
+               f"state C {sorted(widths)[0]}", card, totals, tag="[xlstm]")
+    del eng, cut
+    _free()
+    stage("hqp_and_cut_artifact")
+    print(f"[xlstm] phase seconds {time.monotonic() - t_phase:.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f")  [{card}]")
     return launches
 
 
@@ -4152,6 +4468,8 @@ def main() -> int:
     arch_launches = phase_dense_archs(dev, kernels, card)
     # the hybrid family: jamba's Mamba layers and recurrent slot state
     hybrid_launches = phase_hybrid(dev, kernels, report, card)
+    # the xLSTM family at its published depth: no attention layer at all
+    xlstm_launches = phase_xlstm(dev, kernels, report, card)
 
     replaces = {"quantize_rowwise": "quantize.py:27",
                 "int8_matmul": "int8_matmul.py:44",
@@ -4182,12 +4500,13 @@ def main() -> int:
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
                                  "train_shapes", "b2_b1_ms", "shapes",
                                  "verify_shape", "moe_shapes",
-                                 "hybrid_shapes")
+                                 "hybrid_shapes", "xlstm_shapes")
                if k in r},
             **({"train_launches": train_launches}
                if name == "flash_attention" else {}),
             "moe_launches": moe_launches[name],
             "hybrid_launches": hybrid_launches[name],
+            "xlstm_launches": xlstm_launches[name],
             "dense_arch_launches": {a: c[name]
                                     for a, c in arch_launches.items()}})
     print(json.dumps({"kernels": entries}))

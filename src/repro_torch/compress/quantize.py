@@ -5,6 +5,7 @@ dequantized in place, sizes counted at 1 B a quantized parameter); and the
 byte accounting of the HQP manifest."""
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -31,7 +32,11 @@ def symmetric_quantize(w: torch.Tensor, bits: int = 8,
     qmax = float(2 ** (bits - 1) - 1)
     wf = w.float()
     dims = tuple(range(wf.ndim)) if dims is None else dims
-    amax = wf.abs().amax(dim=dims, keepdim=True)
+    if wf.numel():
+        amax = wf.abs().amax(dim=dims, keepdim=True)
+    else:   # an empty leaf (a family HQP cut to nothing): an all-zero one's
+        amax = wf.new_zeros([1 if i in dims else n
+                             for i, n in enumerate(wf.shape)])
     scale = ieee_div(torch.clamp_min(amax, EPS), qmax)
     q = torch.clamp(torch.round(wf / scale), -qmax, qmax)
     return q, scale
@@ -72,7 +77,7 @@ def quantize_linear(p: Any, bits: int = 8) -> QuantizedLinear:
     codes and scales are those of the whole leaf's: the reduction runs over
     ``in`` only."""
     w = p["w"] if isinstance(p, dict) else p
-    w3 = w.reshape(-1, *w.shape[-2:])
+    w3 = w.reshape(math.prod(w.shape[:-2]), *w.shape[-2:])
     w_q = torch.empty(w3.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty((w3.shape[0], w.shape[-1]), dtype=torch.float32,
                         device=w.device)

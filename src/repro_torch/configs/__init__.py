@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution. It holds the LMs
-the port serves so far (the dense GQA family, the MoE family and the
-hybrid family) and the paper's two CNNs."""
+the port serves so far (the dense GQA family, the MoE family, the hybrid
+family and the xLSTM family) and the paper's two CNNs."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +8,7 @@ from typing import Dict
 
 from repro_torch.configs import cnn
 from repro_torch.configs.base import (CNNConfig, ModelConfig, MoEConfig,
-                                      SSMConfig)
+                                      SSMConfig, XLSTMConfig)
 
 ARCH_MODULES: Dict[str, str] = {
     "arctic-480b": "arctic_480b",
@@ -18,6 +18,7 @@ ARCH_MODULES: Dict[str, str] = {
     "command-r-35b": "command_r_35b",
     "qwen3-0.6b": "qwen3_0_6b",
     "granite-3-8b": "granite_3_8b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 
@@ -39,5 +40,5 @@ def get_cnn_config(arch: str) -> CNNConfig:
     return cnn.config(arch)
 
 
-__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
-           "get_smoke_config", "get_cnn_config"]
+__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+           "XLSTMConfig", "get_config", "get_smoke_config", "get_cnn_config"]

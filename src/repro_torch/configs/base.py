@@ -29,9 +29,18 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8        # one sLSTM block per this many blocks (xLSTM[7:1])
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.333
+    chunk: int = 256            # the train route's mLSTM chunk (a shorter
+                                # last chunk); serving steps every length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid
+    family: str                 # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,10 +54,12 @@ class ModelConfig:
     use_bias: bool = False
     norm_eps: float = 1e-5
     # layer pattern: which block type at each layer. "attn" (attention +
-    # MLP/MoE), "mamba" (Mamba mixer + MLP/MoE)
+    # MLP/MoE), "mamba" (Mamba mixer + MLP/MoE), "mlstm", "slstm" (an
+    # xLSTM block, no FFN)
     block_pattern: Tuple[str, ...] = ()   # () -> all "attn"
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     attn_chunk_kv: int = 1024   # KV chunk of the train route's CPU flash
     subquadratic: bool = False  # True for ssm/hybrid: long_500k is runnable
     max_seq_len: int = 32_768
@@ -70,6 +81,52 @@ class ModelConfig:
         if m is None or m.n_experts == 0:
             return False
         return idx % m.moe_every == m.moe_offset
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The JAX package's parameter count (its roofline's N), formula
+        for formula: an estimate from the config, not a count of a tree's
+        leaves (the xLSTM terms are approximate there too)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for i, kind in enumerate(self.pattern):
+            if kind == "attn":
+                total += d * (self.n_heads * hd)                 # q
+                total += 2 * d * (self.n_kv_heads * hd)          # k, v
+                total += (self.n_heads * hd) * d                 # o
+                total += 2 * d                                   # norms
+            elif kind == "mamba":
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                dt_rank = s.dt_rank or -(-d // 16)
+                total += d * 2 * d_in + d_in * s.d_conv
+                total += d_in * (dt_rank + 2 * s.d_state) + dt_rank * d_in
+                total += d_in * s.d_state + d_in                 # A_log, D
+                total += d_in * d + d                            # out proj + norm
+            elif kind in ("mlstm", "slstm"):
+                x = self.xlstm or XLSTMConfig()
+                pf = (x.proj_factor_mlstm if kind == "mlstm"
+                      else x.proj_factor_slstm)
+                d_in = int(pf * d)
+                if kind == "mlstm":
+                    total += (d * 2 * d_in
+                              + 3 * d_in * d_in // max(self.n_heads, 1))
+                    total += d_in * d + 2 * d
+                else:
+                    total += (4 * d * d_in
+                              + 4 * d_in * d_in // max(self.n_heads, 1))
+                    total += d_in * d + 2 * d
+            # FFN / MoE (attn and mamba blocks carry one)
+            if kind in ("attn", "mamba") and self.d_ff > 0:
+                ffn = 3 * d * self.d_ff                          # gate, up, down
+                if self.is_moe_layer(i):
+                    m = self.moe
+                    n_live = m.experts_per_token if active_only else m.n_experts
+                    total += ffn * n_live + d * m.n_experts      # router
+                    if m.dense_residual:
+                        total += ffn
+                else:
+                    total += ffn
+        return int(total)
 
 
 # ---- CNN configs (the paper's own experiment) ----

@@ -5,8 +5,9 @@
 One backward pass per calibration batch accumulates squared gradients (the
 diagonal FIM estimate); a structural unit's sensitivity is the sum of that
 diagonal over the unit's parameter slices. The LM's units are the KV heads
-(with their query heads), the Mamba channels, and the FFN columns or the
-experts of every layer; the CNNs' are conv channels (``cnn_prune_groups``).
+(with their query heads), the Mamba channels, the mLSTM heads, and the FFN
+columns or the experts of every layer; the CNNs' are conv channels
+(``cnn_prune_groups``).
 
 Member encoding
 ---------------
@@ -227,7 +228,13 @@ def lm_prune_groups(cfg) -> List[GroupSpec]:
     ``L{i}/mamba_cols`` (one inner channel: a row of x_proj and out_proj
     and a column of dt_proj carry its sensitivity; its dt bias, conv
     column, a_log row, skip, and its columns in both halves of in_proj go
-    with it). The JAX package leaves the router bias out of the expert
+    with it); on an mLSTM layer ``L{i}/mlstm_heads`` (one head: its
+    (hd, hd) block of wq, wk and wv carries its sensitivity; its gates'
+    columns and biases, its hd rows of the gates, its hd columns in both
+    halves of in_proj, its hd norm scales and out_proj rows go with it;
+    the head width stays, the head count shrinks). sLSTM layers are not
+    pruned (their gates' recurrence is nonlinear), as the JAX package's
+    are not. The JAX package leaves the router bias out of the expert
     family, so its ``compact_params`` keeps the bias at full width while
     the router's columns shrink (ROADMAP C7); here the bias is compacted
     with them, and the compacted model computes what the masked model
@@ -249,7 +256,7 @@ def lm_prune_groups(cfg) -> List[GroupSpec]:
                       m(st + ("attn", "wo", "w"), 0, g_ratio * hd)]
                 out.append(GroupSpec(f"L{i}/kv_heads", mm, list(mm),
                                      cfg.n_kv_heads, kind="kv_head"))
-            if cfg.d_ff > 0 and not is_moe:
+            if kind in ("attn", "mamba") and cfg.d_ff > 0 and not is_moe:
                 mm = [m(st + ("mlp", "gate", "w"), 1),
                       m(st + ("mlp", "up", "w"), 1),
                       m(st + ("mlp", "down", "w"), 0)]
@@ -278,4 +285,22 @@ def lm_prune_groups(cfg) -> List[GroupSpec]:
                            m(mb + ("in_proj", "w"), 1, 1, d_in)]
                 out.append(GroupSpec(f"L{i}/mamba_cols", mm, ma, d_in,
                                      kind="mamba_col"))
+            if kind == "mlstm":
+                d_in = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+                head_d = d_in // cfg.n_heads
+                ml = st + ("mlstm",)
+                mm = [m(ml + ("wq",), 0), m(ml + ("wk",), 0),
+                      m(ml + ("wv",), 0)]
+                ma = mm + [m(ml + ("w_i", "w"), 1),
+                           m(ml + ("w_i", "b"), 0),
+                           m(ml + ("w_f", "w"), 1),
+                           m(ml + ("w_f", "b"), 0),
+                           m(ml + ("w_i", "w"), 0, head_d),
+                           m(ml + ("w_f", "w"), 0, head_d),
+                           m(ml + ("in_proj", "w"), 1, head_d, 0),
+                           m(ml + ("in_proj", "w"), 1, head_d, d_in),
+                           m(ml + ("norm", "g"), 0, head_d),
+                           m(ml + ("out_proj", "w"), 0, head_d)]
+                out.append(GroupSpec(f"L{i}/mlstm_heads", mm, ma,
+                                     cfg.n_heads, kind="mlstm_head"))
     return out

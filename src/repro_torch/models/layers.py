@@ -1,5 +1,5 @@
 """Shared building blocks: norms, rotary embeddings, (possibly quantized)
-dense, embed/unembed, silu, SwiGLU.
+dense, embed/unembed, silu and the other gates' functions, SwiGLU.
 
 A linear's params are either ``{"w": (in, out) bf16}`` or a
 ``QuantizedLinear``; ``dense`` dispatches on the type, so the same model code
@@ -20,6 +20,8 @@ autograd through ``matmul_rows`` would cost a launch per row per projection
 in both directions, so it passes ``batch_invariant=False``: one
 ``torch.matmul`` per product and a plain sum in the norms."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,7 +75,7 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
 def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) in the dtype of the inputs, one row at a time, so
     each row's bits are those of a one-row product whatever the batch."""
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
     out = torch.cat([x2[i:i + 1] @ w for i in range(x2.shape[0])])
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
@@ -90,8 +92,13 @@ def sum_last(x: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
 # ---------------------------------------------------------------- dense
 def dense(x: torch.Tensor, p, batch_invariant: bool = True) -> torch.Tensor:
     """FP weight dict, or a ``QuantizedLinear`` (W8A8: the activations are
-    quantized per row and the dequant runs in the matmul epilogue)."""
+    quantized per row and the dequant runs in the matmul epilogue). An
+    empty linear (HQP cut its family to nothing, ROADMAP C11) gives zeros
+    and launches nothing."""
     if isinstance(p, QuantizedLinear):
+        if p.w_q.numel() == 0:
+            return x.new_zeros((*x.shape[:-1], p.w_q.shape[-1]),
+                               dtype=COMPUTE_DTYPE)
         return ops.int8_matmul(x, p.w_q, p.scale)
     return matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE),
                   batch_invariant)
@@ -158,6 +165,25 @@ def silu(a: torch.Tensor) -> torch.Tensor:
     from ``exp``, whose CPU kernel rounds every element alike whatever the
     shape (``torch.nn.functional.silu``'s does not)."""
     return a * (1.0 / (1.0 + torch.exp(-a)))
+
+
+def sigmoid(a: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-a)), from ``exp`` as ``silu``."""
+    return 1.0 / (1.0 + torch.exp(-a))
+
+
+def tanh(a: torch.Tensor) -> torch.Tensor:
+    """2 / (1 + exp(-2a)) - 1, from ``exp`` as ``silu`` (within an f32 ulp
+    of 1 of the true tanh, and ±1 exactly where exp overflows)."""
+    return 2.0 / (1.0 + torch.exp(-2.0 * a)) - 1.0
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's ``jax.nn.softplus`` (logaddexp(x,
+    0)) forms it: max(x, 0) + log(1 + e^-|x|), from ``exp`` and ``log``
+    (PyTorch's own softplus and log1p round a vector loop's tail apart
+    from its body on the CPU)."""
+    return torch.clamp_min(x, 0) + torch.log(1 + torch.exp(-x.abs()))
 
 
 def mlp(x: torch.Tensor, p: dict, batch_invariant: bool = True

@@ -1,8 +1,11 @@
-"""Decoder LM over the ``attn`` and ``mamba`` block kinds: the dense GQA
-family; the MoE family, whose layers put ``models/moe.py``'s experts in
-place of the MLP (arctic-480b keeps a dense residual MLP beside them); and
-the hybrid family (jamba), whose ``mamba`` layers put ``models/ssm.py``'s
-mixer in place of attention, each followed by an MLP or the experts.
+"""Decoder LM over the ``attn``, ``mamba``, ``mlstm`` and ``slstm`` block
+kinds: the dense GQA family; the MoE family, whose layers put
+``models/moe.py``'s experts in place of the MLP (arctic-480b keeps a dense
+residual MLP beside them); the hybrid family (jamba), whose ``mamba``
+layers put ``models/ssm.py``'s mixer in place of attention, each followed
+by an MLP or the experts; and the xLSTM family, whose ``mlstm`` and
+``slstm`` blocks (``models/xlstm.py``) are a norm and the block alone, with
+no FFN.
 
 Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
 "final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
@@ -11,8 +14,8 @@ scans them; here ``blocks`` is a list in layer order and the forward pass
 is a Python loop over it (``weights`` converts).
 
 A decode state holds one cache a layer: an attention layer's KV cache,
-written in place, or a Mamba layer's recurrent state, which each step
-replaces (``ssm.mamba_forward`` returns a new one).
+written in place, or a Mamba, mLSTM or sLSTM layer's recurrent state,
+which each step replaces (the block's forward returns a new one).
 
 Two kinds of pass: ``forward`` / ``loss_fn`` run the whole sequence on the
 train route (no cache, differentiable: the HQP Fisher pass and the prune
@@ -31,6 +34,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 
 VOCAB_PAD = 256
 
@@ -41,7 +45,8 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-KINDS = ("attn", "mamba")
+KINDS = ("attn", "mamba", "mlstm", "slstm")
+XLSTM_KINDS = ("mlstm", "slstm")      # a norm and the block: no FFN
 
 
 def layer_specs(cfg) -> Tuple[Tuple[str, bool], ...]:
@@ -51,7 +56,7 @@ def layer_specs(cfg) -> Tuple[Tuple[str, bool], ...]:
     if other:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(other)} are not ported; the "
-            f"port runs {list(KINDS)} layers (dense or MoE FFN)")
+            f"port runs {list(KINDS)} layers")
     return tuple((kind, cfg.is_moe_layer(i))
                  for i, kind in enumerate(cfg.pattern))
 
@@ -71,18 +76,24 @@ def pattern_period(cfg) -> int:
 
 
 def is_recurrent(cfg) -> bool:
-    """Whether a layer keeps recurrent state (a ``mamba`` block): state
-    that a prefix cache cannot share and that training does not yet run."""
+    """Whether a layer keeps recurrent state (a ``mamba``, ``mlstm`` or
+    ``slstm`` block): state that a prefix cache cannot share, that a
+    speculative rollback by position cannot rewind, and that training does
+    not yet run."""
     return any(kind != "attn" for kind in cfg.pattern)
 
 
 # ------------------------------------------------------------------ init
+_INIT = {"attn": A.attention_init, "mamba": S.mamba_init,
+         "mlstm": X.mlstm_init, "slstm": X.slstm_init}
+
+
 def _block_init(gen: torch.Generator, cfg, kind: str, is_moe: bool) -> dict:
-    mixer = (A.attention_init(gen, cfg) if kind == "attn"
-             else S.mamba_init(gen, cfg))
     p = {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-         kind: mixer,
-         "norm2": L.rmsnorm_init(cfg.d_model, gen.device)}
+         kind: _INIT[kind](gen, cfg)}
+    if kind in XLSTM_KINDS:
+        return p
+    p["norm2"] = L.rmsnorm_init(cfg.d_model, gen.device)
     if is_moe:
         p["moe"] = M.moe_init(gen, cfg)
         if cfg.moe.dense_residual:
@@ -150,11 +161,20 @@ def ffn(p: dict, cfg, h: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
     return out
 
 
+def _recurrent(kind: str):
+    """A recurrent block's forward, looked up on its module at the call
+    (so that a wrapper set there, a fault injector or a profiler range,
+    takes effect)."""
+    return {"mamba": S.mamba_forward, "mlstm": X.mlstm_forward,
+            "slstm": X.slstm_forward}[kind]
+
+
 # ------------------------------------------------------------------ train
 def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
     """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
     train route: every attention layer attends its own fresh K/V causally,
-    every Mamba layer runs its recurrence from zero state. The ported
+    every Mamba, mLSTM or sLSTM layer runs its recurrence from zero state
+    (the mLSTM in its chunkwise form: ``xlstm.mlstm_forward``). The ported
     families have no frontend, and the MoE auxiliary losses belong to MoE
     training, which is not ported, so unlike the JAX package's ``forward``
     this returns the hidden states alone."""
@@ -168,8 +188,10 @@ def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
             x = x + A.attention_forward(p["attn"], cfg, h, positions,
                                         route=A.TRAIN)
         else:
-            x = x + S.mamba_forward(p["mamba"], cfg, h,
-                                    batch_invariant=False)[0]
+            x = x + _recurrent(kind)(p[kind], cfg, h,
+                                     batch_invariant=False)[0]
+        if kind in XLSTM_KINDS:
+            continue
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, batch_invariant=False)
         x = x + ffn(p, cfg, h, batch_invariant=False)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
@@ -204,12 +226,14 @@ def init_decode_state(cfg, batch: int, max_seq: int,
                       device=None,
                       kv_pages: Optional[Tuple[int, int]] = None) -> dict:
     """Per-layer caches plus the current length: a KV cache for each
-    attention layer, a zero recurrent state (``ssm.init_mamba_state``) for
-    each Mamba layer.
+    attention layer, a zero recurrent state for each Mamba, mLSTM or sLSTM
+    layer (``ssm.init_mamba_state``, ``xlstm.init_mlstm_state``,
+    ``xlstm.init_slstm_state``).
 
     ``pos`` is an int (the whole batch at one position: the serial path) or,
     with ``per_slot_pos``, a (batch,) int32 tensor (the engine's slots).
-    With ``params`` the KV and Mamba widths derive from the param shapes, so
+    With ``params`` the KV, Mamba and mLSTM widths derive from the param
+    shapes (an mLSTM's from its ``in_proj``, as the reference's), so
     HQP-compacted artifacts size their own caches. ``kv_pages=(total_pages,
     page_size)`` makes every KV cache a paged arena (total_pages, page_size,
     Hkv, hd) with no slot axis, shared through page tables the caller owns
@@ -226,6 +250,14 @@ def init_decode_state(cfg, batch: int, max_seq: int,
                     else None)
             caches.append(S.init_mamba_state(batch, cfg, d_in, dev))
             continue
+        if kind == "mlstm":
+            d_in = (L.out_features(blk["mlstm"]["in_proj"]) // 2
+                    if blk is not None else None)
+            caches.append(X.init_mlstm_state(batch, cfg, d_in, dev))
+            continue
+        if kind == "slstm":
+            caches.append(X.init_slstm_state(batch, cfg, dev))
+            continue
         n_kv = (L.out_features(blk["attn"]["wk"]) // hd
                 if blk is not None else cfg.n_kv_heads)
         caches.append(A.init_kv_cache(kv_b, kv_s, n_kv, hd, quantized_kv,
@@ -241,8 +273,8 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
     """tokens (B, S_new) at positions ``state["pos"]`` onward (an int, or a
     (B,) tensor of per-row positions). Writes the new K/V into the caches in
     place and returns (logits (B, 1, V_pad) f32 of the LAST position, the
-    state with ``pos`` advanced by S_new, each Mamba layer's new recurrent
-    state in place of its old one, which is not written).
+    state with ``pos`` advanced by S_new, each recurrent layer's new state
+    in place of its old one, which is not written).
 
     Only the last position's logits are computed: every caller (engine
     prefill and decode, serial decode) reads only those, and the unembed is
@@ -300,8 +332,9 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
             x = x + A.attention_forward(p["attn"], cfg, h, positions, cache,
                                         cur, window, route, pages)
         else:
-            out, cache = S.mamba_forward(p["mamba"], cfg, h, cache)
+            out, cache = _recurrent(kind)(p[kind], cfg, h, cache)
             x = x + out
         caches.append(cache)
-        x = x + ffn(p, cfg, L.rmsnorm(x, p["norm2"], cfg.norm_eps), True)
+        if kind not in XLSTM_KINDS:
+            x = x + ffn(p, cfg, L.rmsnorm(x, p["norm2"], cfg.norm_eps), True)
     return x, {"caches": caches, "pos": cur + s}

@@ -18,7 +18,7 @@ Batch invariance (``layers``): in_proj and out_proj go through ``dense``
 through ``dense`` (the reference keeps it FP), dt_proj through
 ``matmul_rows`` in f32, and ``y = Σ_n h·C`` through ``row_sum``; the rest
 is elementwise, and its transcendental functions are built from ``exp``
-and ``log`` (``softplus``, ``layers.silu``): on the CPU, PyTorch's own
+and ``log`` (``layers.softplus``, ``layers.silu``): on the CPU, PyTorch's own
 softplus, silu and log1p round an element in a vectorized loop's tail apart
 from the same element in its body, so a row's bits would depend on the
 batch. The train route (``batch_invariant=False``) takes one product per
@@ -91,12 +91,6 @@ def causal_conv(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as the reference's ``jax.nn.softplus`` (logaddexp(x,
-    0)) forms it: max(x, 0) + log(1 + e^-|x|)."""
-    return torch.clamp_min(x, 0) + torch.log(1 + torch.exp(-x.abs()))
-
-
 def ssm_params(p: dict, xc: torch.Tensor, cfg, batch_invariant: bool
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xc (B, S, d_in) bf16, the conv's output -> the selective parameters
@@ -104,7 +98,7 @@ def ssm_params(p: dict, xc: torch.Tensor, cfg, batch_invariant: bool
     n, r = cfg.ssm.d_state, dt_rank(cfg)
     proj = L.dense(xc, p["x_proj"], batch_invariant).float()
     dt_in, b, c = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
-    dt = softplus(L.matmul(dt_in, p["dt_proj"]["w"], batch_invariant)
+    dt = L.softplus(L.matmul(dt_in, p["dt_proj"]["w"], batch_invariant)
                   + p["dt_proj"]["b"])
     return dt, b, c
 

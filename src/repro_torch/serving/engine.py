@@ -210,10 +210,13 @@ class Engine:
     prompt is page-aligned: that page is copied in both arenas first
     (``stats["cow_copies"]``).
 
-    A pattern with recurrent (``mamba``) layers keeps no prefix cache
-    (``prefix`` stays None whatever ``prefix_cache`` says): a hit would
-    admit the slot past the shared head, whose recurrent state is not
-    cached, so its Mamba layers would never see the head (ROADMAP C8).
+    A pattern with recurrent (``mamba``, ``mlstm``, ``slstm``) layers
+    keeps no prefix cache (``prefix`` stays None whatever ``prefix_cache``
+    says): a hit would admit the slot past the shared head, whose
+    recurrent state is not cached, so its recurrent layers would never see
+    the head (ROADMAP C8). A pattern with no attention layer (xLSTM) pages
+    an empty arena, as the JAX package's engine does: its slots take
+    pages and tables, and every layer's state is recurrent.
 
     ``clock`` is the monotonic clock behind every timestamp the engine
     takes: request times, ``last_step`` and the tracer's spans. A
@@ -252,6 +255,7 @@ class Engine:
         self.paged = page_size is not None
         # recurrent layers: state the prefix cache cannot share (C8)
         self.recurrent = lm.is_recurrent(cfg)
+        self.attends = "attn" in cfg.pattern
         self.alloc: Optional[sp.PageAllocator] = None
         self.prefix: Optional[sp.PrefixCache] = None
         if self.paged:
@@ -459,6 +463,12 @@ class Engine:
         return min(self.max_pages, page_count(window, self.page_size))
 
     def _window(self, needed: int) -> int:
+        """A dispatch's visible KV window, its graph key: ``needed``
+        bucketed by the scheduler; ``max_seq`` for a pattern with no
+        attention layer, which reads no window (one key a kind and chunk
+        width, not one a bucket)."""
+        if not self.attends:
+            return self.max_seq
         return self.scheduler.visible_window(
             needed, self.max_seq,
             page_multiple=self.page_size if self.paged else 0)

@@ -16,12 +16,14 @@ whole arena plus its table row as ``pages``. Physical page ``TRASH_PAGE`` is
 never handed out: rows that are not live in a dispatch are pointed at it, so
 their writes never touch a live page.
 
-A Mamba layer's entry is recurrent state (``is_kv_entry`` is False): the
-slot's h and conv buffers, with the slot axis first in both layouts. It is
-not indexed by position, so it is never paged, shared or rolled back; it is
-zeroed at admission (``reset_slot``), and a dispatch replaces it only at
-its end (``scatter_slot``, ``keep_live``), so a dispatch that raised part
-way leaves it as it was."""
+A Mamba, mLSTM or sLSTM layer's entry is recurrent state (``is_kv_entry``
+is False): the slot's buffers (Mamba's h and conv, the mLSTM's C, n and
+m, the sLSTM's h, c, n and m), with the slot axis first in both layouts.
+It is not indexed by position, so it is never paged, shared or rolled
+back; it is zeroed at admission (``reset_slot``), and a dispatch replaces
+it only at its end (``scatter_slot``, ``keep_live``), so a dispatch that
+raised part way leaves it as it was. A pattern with no attention layer
+(xLSTM) has no KV entry at all: its paged arena is empty."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -37,7 +39,7 @@ TRASH_PAGE = 0
 
 def is_kv_entry(entry: Dict[str, torch.Tensor]) -> bool:
     """True for a position-indexed KV cache entry (pageable); False for a
-    Mamba layer's recurrent state (slot-resident, O(1) a slot)."""
+    recurrent layer's state (slot-resident, O(1) a slot)."""
     return "k" in entry or "k_q" in entry
 
 

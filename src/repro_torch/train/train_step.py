@@ -21,17 +21,20 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
     is cut into that many equal microbatches along axis 0; their gradients
     are summed in f32 and divided by the count, as is their loss.
 
-    An MoE or hybrid config is refused: the JAX package trains MoE with the
-    capacity factor's drops and the load-balance and router-z losses, none
-    of which is ported, and training without them would be another
-    training; the hybrid family (jamba) has MoE layers, and its training
-    is that same slice, still to port."""
+    An MoE, hybrid or xLSTM config is refused: the JAX package trains MoE
+    with the capacity factor's drops and the load-balance and router-z
+    losses, none of which is ported, and training without them would be
+    another training; the hybrid family (jamba) has MoE layers, and its
+    training is that same slice; training the xLSTM family is a slice of
+    its own (its loss's gradient runs today only in the HQP Fisher
+    pass)."""
     if (cfg.moe is not None and cfg.moe.n_experts) or lm.is_recurrent(cfg):
         raise NotImplementedError(
             f"{cfg.name}: MoE training (capacity-factor drops, load-balance "
-            f"and router-z auxiliary losses) and hybrid training (jamba's "
-            f"MoE and Mamba layers) are not ported yet; the port compresses "
-            f"and serves MoE and hybrid models but trains dense ones only")
+            f"and router-z auxiliary losses), hybrid training (jamba's "
+            f"MoE and Mamba layers) and xLSTM training (mLSTM and sLSTM "
+            f"blocks) are not ported yet; the port compresses and serves "
+            f"MoE, hybrid and xLSTM models but trains dense ones only")
     grad_fn = value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b))
 
     def train_step(params, opt_state, batch):

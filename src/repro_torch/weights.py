@@ -2,7 +2,8 @@
 
 The JAX tree's ``blocks`` is a tuple of one stacked dict per position of
 the layer pattern's period: layer ``g·P + j`` is ``blocks[j][g]`` (P = 1
-for the all-attn families, 2 for the hybrid smoke config, 8 for jamba);
+for the all-attn families, 2 for the hybrid and xLSTM smoke configs, 8
+for jamba and xlstm-1.3b);
 the port keeps a list of per-layer dicts in layer order. ``unstack_blocks`` and ``stack_blocks`` convert
 between the two (``from_jax_params`` carries a JAX param tree across;
 ``launch/checkpoint.py`` writes and reads checkpoints and artifacts in the
@@ -101,8 +102,10 @@ def _unstack(stacked) -> list:
 
 def _signature(layer: dict) -> tuple:
     """What the JAX package's period is made of, read off one layer's
-    keys: its mixer (attn or mamba) and whether its FFN is the experts."""
-    return (tuple(sorted(k for k in layer if k in ("attn", "mamba"))),
+    keys: its block (attn, mamba, mlstm or slstm) and whether its FFN is
+    the experts."""
+    return (tuple(sorted(k for k in layer
+                         if k in ("attn", "mamba", "mlstm", "slstm"))),
             "moe" in layer)
 
 

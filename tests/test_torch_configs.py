@@ -24,7 +24,7 @@ from repro_torch.weights import from_jax_params  # noqa: E402
 
 DENSE = ("granite-3-8b", "stablelm-1.6b", "command-r-35b")
 NEW = DENSE + ("phi3.5-moe-42b-a6.6b", "arctic-480b",
-               "jamba-1.5-large-398b")
+               "jamba-1.5-large-398b", "xlstm-1.3b")
 HIDDEN = dict(rtol=2 ** -7, atol=6.25e-2)
 LOGIT_ATOL = 2e-2
 N_STEPS = 8
@@ -43,16 +43,16 @@ def _one_thread():
 @pytest.mark.parametrize("smoke", [False, True], ids=["config", "smoke"])
 @pytest.mark.parametrize("arch", NEW + ("qwen3-0.6b",))
 def test_config_equals_reference_field_for_field(arch, smoke):
-    """Every field of the port's config (its ``moe`` and ``ssm`` blocks
-    included) holds the reference's value, and the properties the model
-    reads agree; the fields the port has no copy of are the families still
-    to port."""
+    """Every field of the port's config (its ``moe``, ``ssm`` and
+    ``xlstm`` blocks included) holds the reference's value, and the
+    properties the model reads and the parameter count agree; the fields
+    the port has no copy of are the families still to port."""
     get_t, get_j = ((configs.get_smoke_config, jconfigs.get_smoke_config)
                     if smoke else (configs.get_config, jconfigs.get_config))
     t, j = get_t(arch), get_j(arch)
     for f in dataclasses.fields(t):
         tv, jv = getattr(t, f.name), getattr(j, f.name)
-        if f.name in ("moe", "ssm"):
+        if f.name in ("moe", "ssm", "xlstm"):
             assert (tv is None) == (jv is None)
             if tv is not None:
                 assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
@@ -62,10 +62,12 @@ def test_config_equals_reference_field_for_field(arch, smoke):
     assert t.pattern == j.pattern
     assert [t.is_moe_layer(i) for i in range(t.n_layers)] == [
         j.is_moe_layer(i) for i in range(j.n_layers)]
+    assert t.param_count() == j.param_count()
+    assert t.param_count(active_only=True) == j.param_count(active_only=True)
     missing = ({f.name for f in dataclasses.fields(j)}
                - {f.name for f in dataclasses.fields(t)})
-    assert missing == {"xlstm", "frontend", "attn_chunk_q"}
-    assert j.xlstm is None and j.frontend.kind == "none"
+    assert missing == {"frontend", "attn_chunk_q"}
+    assert j.frontend.kind == "none"
 
 
 def test_registry_holds_the_ported_archs():
@@ -73,7 +75,7 @@ def test_registry_holds_the_ported_archs():
     assert all(configs.ARCH_MODULES[a] == jconfigs.ARCH_MODULES[a]
                for a in configs.ARCH_MODULES)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("xlstm-1.3b")
+        configs.get_config("musicgen-medium")
 
 
 def _f32(x):

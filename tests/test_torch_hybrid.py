@@ -62,8 +62,8 @@ def test_pattern_period_equals_reference(over, period):
 
 def test_unported_block_kinds_are_refused():
     cfg = dataclasses.replace(configs.get_smoke_config(ARCH),
-                              block_pattern=("mlstm", "attn"))
-    with pytest.raises(NotImplementedError, match="mlstm"):
+                              block_pattern=("retnet", "attn"))
+    with pytest.raises(NotImplementedError, match="retnet"):
         lm.init_params(cfg, device="cpu")
 
 
