@@ -48,22 +48,29 @@ def fisher_diag(grad_fn: Callable[[Any, Any], Any], params: Any,
     return tree.map_(lambda t: t / n, acc), n
 
 
-def value_and_grad(loss: Callable[[Any, Any], torch.Tensor]
-                   ) -> Callable[[Any, Any], Tuple[torch.Tensor, Any]]:
+def value_and_grad(loss: Callable[[Any, Any], Any], has_aux: bool = False
+                   ) -> Callable[[Any, Any], Tuple[Any, Any]]:
     """``fn(params, batch)`` -> (the scalar ``loss(params, batch)``
     detached, its gradient with respect to every leaf of ``params`` as a
-    tree shaped like ``params``), by ``torch.autograd.grad``. The params are
-    not modified, and the autograd graph is freed when the gradients are
-    returned."""
+    tree shaped like ``params``), by ``torch.autograd.grad``. With
+    ``has_aux`` the loss returns (scalar, dict of tensors) and the first
+    element is that pair, detached, as ``jax.value_and_grad``'s. The params
+    are not modified, and the autograd graph is freed when the gradients
+    are returned."""
     def fn(params, batch):
         leaves = tree.leaves(params)
         live = [t.detach().requires_grad_(True) for t in leaves]
         it = iter(live)
         with torch.enable_grad():
-            value = loss(tree.map_(lambda _: next(it), params), batch)
+            out = loss(tree.map_(lambda _: next(it), params), batch)
+            value = out[0] if has_aux else out
             grads = torch.autograd.grad(value, live)
         it = iter(grads)
-        return value.detach(), tree.map_(lambda _: next(it), params)
+        grads = tree.map_(lambda _: next(it), params)
+        if has_aux:
+            return (value.detach(),
+                    {k: v.detach() for k, v in out[1].items()}), grads
+        return value.detach(), grads
     return fn
 
 

@@ -49,11 +49,22 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     return out.reshape(*shp[:-1], w_q.shape[1])
 
 
+def _refuse_no_kv_heads(op: str, k: torch.Tensor) -> None:
+    """k (..., ..., Hkv, hd), a contiguous or a paged layout. An attention
+    layer cut to no head adds zeros and attends nothing (ROADMAP C12), so
+    an attend over 0 kv heads is a caller's mistake: refuse it by name
+    before the head grouping divides by zero or a grid launches empty."""
+    if k.shape[2] == 0:
+        raise ValueError(f"{op}: 0 kv heads; an attention layer cut to no "
+                         f"head adds zeros and attends nothing")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> torch.Tensor:
     """Causal attention of the train route, differentiable: q (B, S, Hq,
     hd) against k, v (B, S, Hkv, hd), Hq a multiple of Hkv -> (B, S, Hq,
     hd); query i sees positions <= i."""
+    _refuse_no_kv_heads("flash_attention", k)
     return _flash_attention(q, k, v)
 
 
@@ -105,6 +116,7 @@ def prefill_attention(q: torch.Tensor, cache: dict, start: Start,
     start + Sq`` for every consumed row. Sq == 1 (a prompt's tail chunk)
     stays here, so a tail chunk and a whole-prompt prefill share numerics.
     ``pages`` (B, max_pages) int32 marks the cache as a paged arena."""
+    _refuse_no_kv_heads("prefill_attention", _leaves(cache)[0])
     start = _start_vector(start, q.shape[0], q.device)
     if pages is not None:
         k, v, k_s, v_s, idx = _paged_window(cache, pages, window)
@@ -117,6 +129,7 @@ def decode_attention(q: torch.Tensor, cache: dict, start: Start,
                      pages: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attend: q (B, 1, Hq, hd) at per-slot positions ``start`` ->
     (B, 1, Hq, hd); ``pages`` as in ``prefill_attention``."""
+    _refuse_no_kv_heads("decode_attention", _leaves(cache)[0])
     start = _start_vector(start, q.shape[0], q.device)
     if pages is not None:
         k, v, k_s, v_s, idx = _paged_window(cache, pages, window)

@@ -2,11 +2,12 @@
 JAX package's ``launch/train.py``, on one device: mesh and sharding are not
 ported).
 
-Trains ``--arch`` (``--smoke``: its reduced config) on a synthetic Markov
-corpus with AdamW (``--state-dtype int8``: INT8 moments), ``--microbatches``
-of gradient accumulation, a checkpoint every ``--ckpt-every`` steps into
-``--ckpt-dir``, from which a restart resumes; SIGTERM writes a last
-checkpoint and exits with 143.
+Trains ``--arch`` (``--smoke``: its reduced config; dense, MoE, hybrid or
+xLSTM, the experts at the capacity factor's drops with the auxiliary
+losses) on a synthetic Markov corpus with AdamW (``--state-dtype int8``:
+INT8 moments), ``--microbatches`` of gradient accumulation, a checkpoint
+every ``--ckpt-every`` steps into ``--ckpt-dir``, from which a restart
+resumes; SIGTERM writes a last checkpoint and exits with 143.
 
   python -m repro_torch.launch.train --smoke --device cpu --steps 50
   python -m repro_torch.launch.train --steps 200 --ckpt-dir ckpt   # the card
@@ -51,8 +52,9 @@ def main(argv=None):
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     opt_cfg = AdamWConfig(lr=args.lr, state_dtype=args.state_dtype)
-    # first: it refuses what cannot be trained before any weight is made
-    step_fn = make_train_step(cfg, opt_cfg, args.microbatches)
+    # training: the capacity factor's drops, as the reference's launcher
+    step_fn = make_train_step(cfg, opt_cfg, args.microbatches,
+                              moe_no_drop=False)
     params = lm.init_params(cfg, seed=0, device=device)
     opt_state = adamw_init(params, opt_cfg)
 
@@ -87,8 +89,10 @@ def main(argv=None):
                                                device=device)}
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if step % 10 == 0 or step == args.steps - 1:
+                aux = "".join(f" {k}={float(v):.4g}"
+                              for k, v in metrics.items() if k != "loss")
                 print(f"[train] step {step} "
-                      f"loss={float(metrics['loss']):.4f} "
+                      f"loss={float(metrics['loss']):.4f}{aux} "
                       f"({(time.time() - t0):.1f}s)", flush=True)
             if args.eval_every and (step + 1) % args.eval_every == 0:
                 vb = next(val.batches(args.batch))

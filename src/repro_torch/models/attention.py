@@ -165,7 +165,8 @@ def attention_forward(p: dict, cfg, x: torch.Tensor,
     chunked-prefill callers pass ``"prefill"`` so a 1-token tail chunk keeps
     the prefill numerics. ``window``: static bound on the attended prefix
     (``window >= cur_len + S`` for every consumed row). Head counts come from
-    the param shapes, so HQP-compacted artifacts serve as they are.
+    the param shapes, so HQP-compacted artifacts serve as they are; a layer
+    cut to no head returns zeros on every route.
     ``pages`` (B, max_pages) int32: the cache is a paged arena, written and
     attended through the page table."""
     if route is not None and route not in ROUTES:
@@ -176,9 +177,14 @@ def attention_forward(p: dict, cfg, x: torch.Tensor,
         raise ValueError("the train route takes no KV cache")
     batch_invariant = cache is not None
     hd = cfg.resolved_head_dim
-    b, s, _ = x.shape
+    b, s, d = x.shape
     n_heads = L.out_features(p["wq"]) // hd
     n_kv = L.out_features(p["wk"]) // hd
+    if n_heads == 0 or n_kv == 0:
+        # HQP cut every head (ROADMAP C12): the masked layer's zeroed wo
+        # rows give zeros, so the empty one adds zeros, writes no K/V (its
+        # cache has no head) and launches nothing
+        return x.new_zeros((b, s, d), dtype=L.COMPUTE_DTYPE)
     q = L.dense(x, p["wq"], batch_invariant).reshape(b, s, n_heads, hd)
     k = L.dense(x, p["wk"], batch_invariant).reshape(b, s, n_kv, hd)
     v = L.dense(x, p["wv"], batch_invariant).reshape(b, s, n_kv, hd)

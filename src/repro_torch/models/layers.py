@@ -159,23 +159,45 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
             "down": linear_init(gen, d_ff, d_model)}
 
 
+def _exp(x: torch.Tensor):
+    """(exp(x), the entries where it overflowed to inf, or None outside
+    autograd). Under autograd those entries' exp takes 0 instead of x: an
+    inf in the graph makes its backward 0·inf = NaN where the derivative of
+    the saturated function built on it is 0 (ROADMAP C14), and the caller
+    sets their value. Elsewhere the same ops, so the same bits, forward
+    and backward."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.exp(x), None
+    with torch.no_grad():
+        over = torch.isinf(torch.exp(x))
+    return torch.exp(torch.where(over, 0.0, x)), over
+
+
+def _saturate(r: torch.Tensor, over, value: float) -> torch.Tensor:
+    return r if over is None else torch.where(over, value, r)
+
+
 def silu(a: torch.Tensor) -> torch.Tensor:
     """silu(a) = a * (1 / (1 + exp(-a))), rounded to a's dtype after every
     op (bf16: as the reference's compiled program computes it). Built
     from ``exp``, whose CPU kernel rounds every element alike whatever the
-    shape (``torch.nn.functional.silu``'s does not)."""
-    return a * (1.0 / (1.0 + torch.exp(-a)))
+    shape (``torch.nn.functional.silu``'s does not); its gradient is 0
+    where exp(-a) overflows, as ``jax.nn.silu``'s (``_exp``)."""
+    e, over = _exp(-a)
+    return a * _saturate(1.0 / (1.0 + e), over, 0.0)
 
 
 def sigmoid(a: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-a)), from ``exp`` as ``silu``."""
-    return 1.0 / (1.0 + torch.exp(-a))
+    e, over = _exp(-a)
+    return _saturate(1.0 / (1.0 + e), over, 0.0)
 
 
 def tanh(a: torch.Tensor) -> torch.Tensor:
     """2 / (1 + exp(-2a)) - 1, from ``exp`` as ``silu`` (within an f32 ulp
     of 1 of the true tanh, and ±1 exactly where exp overflows)."""
-    return 2.0 / (1.0 + torch.exp(-2.0 * a)) - 1.0
+    e, over = _exp(-2.0 * a)
+    return _saturate(2.0 / (1.0 + e), over, 0.0) - 1.0
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

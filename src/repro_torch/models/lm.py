@@ -18,10 +18,10 @@ written in place, or a Mamba, mLSTM or sLSTM layer's recurrent state,
 which each step replaces (the block's forward returns a new one).
 
 Two kinds of pass: ``forward`` / ``loss_fn`` run the whole sequence on the
-train route (no cache, differentiable: the HQP Fisher pass and the prune
-evaluations), ``decode_step`` runs prefill chunks and decode steps against
-the KV cache (serving), and ``verify_step`` scores a speculative candidate
-chunk at every position."""
+train route (no cache, differentiable: training, the HQP Fisher pass and
+the prune evaluations), ``decode_step`` runs prefill chunks and decode
+steps against the KV cache (serving), and ``verify_step`` scores a
+speculative candidate chunk at every position."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -78,8 +78,7 @@ def pattern_period(cfg) -> int:
 def is_recurrent(cfg) -> bool:
     """Whether a layer keeps recurrent state (a ``mamba``, ``mlstm`` or
     ``slstm`` block): state that a prefix cache cannot share, that a
-    speculative rollback by position cannot rewind, and that training does
-    not yet run."""
+    speculative rollback by position cannot rewind."""
     return any(kind != "attn" for kind in cfg.pattern)
 
 
@@ -161,6 +160,21 @@ def ffn(p: dict, cfg, h: torch.Tensor, batch_invariant: bool) -> torch.Tensor:
     return out
 
 
+def ffn_aux(p: dict, cfg, h: torch.Tensor, batch_invariant: bool,
+            moe_no_drop: bool = True, with_aux: bool = False):
+    """``ffn`` -> (out, aux): the experts at inference capacity with
+    ``moe_no_drop``, else at the train capacity (``moe.moe_layer``); aux
+    their auxiliary losses with ``with_aux``, else {} (and {} for an
+    MLP)."""
+    if "moe" not in p or (moe_no_drop and not with_aux):
+        return ffn(p, cfg, h, batch_invariant), {}
+    out, aux = M.moe_layer(p["moe"], cfg, h, batch_invariant, moe_no_drop,
+                           with_aux)
+    if "mlp" in p:
+        out = out + L.mlp(h, p["mlp"], batch_invariant)
+    return out, aux
+
+
 def _recurrent(kind: str):
     """A recurrent block's forward, looked up on its module at the call
     (so that a wrapper set there, a fault injector or a profiler range,
@@ -170,19 +184,30 @@ def _recurrent(kind: str):
 
 
 # ------------------------------------------------------------------ train
-def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg, batch: dict, with_aux: bool = False,
+            moe_no_drop: bool = True):
     """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
     train route: every attention layer attends its own fresh K/V causally,
     every Mamba, mLSTM or sLSTM layer runs its recurrence from zero state
     (the mLSTM in its chunkwise form: ``xlstm.mlstm_forward``). The ported
-    families have no frontend, and the MoE auxiliary losses belong to MoE
-    training, which is not ported, so unlike the JAX package's ``forward``
-    this returns the hidden states alone."""
+    families have no frontend.
+
+    ``moe_no_drop`` is the reference's ``ctx.moe_no_drop``: True (the
+    Fisher pass, the evaluations) runs the experts at inference capacity,
+    False at the capacity factor's, dropping what overflows (training).
+    ``with_aux`` returns (hidden, aux), aux the MoE layers' load-balance
+    and router-z losses summed in layer order ({} when no layer is MoE),
+    as the JAX package's ``forward``; without it the hidden states
+    alone."""
     tokens = batch["tokens"]
     x = L.embed_lookup(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for (kind, _), p in zip(layer_specs(cfg), params["blocks"]):
+    specs = layer_specs(cfg)
+    aux = ({"load_balance": x.new_zeros((), dtype=torch.float32),
+            "router_z": x.new_zeros((), dtype=torch.float32)}
+           if with_aux and any(m for _, m in specs) else {})
+    for (kind, _), p in zip(specs, params["blocks"]):
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, batch_invariant=False)
         if kind == "attn":
             x = x + A.attention_forward(p["attn"], cfg, h, positions,
@@ -193,18 +218,25 @@ def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
         if kind in XLSTM_KINDS:
             continue
         h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, batch_invariant=False)
-        x = x + ffn(p, cfg, h, batch_invariant=False)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
-                     batch_invariant=False)
+        out, aux_j = ffn_aux(p, cfg, h, False, moe_no_drop, with_aux)
+        if aux_j:
+            aux = {k: aux[k] + aux_j[k] for k in aux}
+        x = x + out
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps,
+                  batch_invariant=False)
+    return (x, aux) if with_aux else x
 
 
-def loss_fn(params: dict, cfg, batch: dict,
-            ce_chunk: int = 512) -> torch.Tensor:
+def loss_fn(params: dict, cfg, batch: dict, ce_chunk: int = 512,
+            with_aux: bool = False, moe_no_drop: bool = True):
     """Mean next-token cross-entropy: hidden position i predicts token
     i + 1. The sequence is cut into chunks of ``ce_chunk`` positions, so the
     (B, S, V) logits are never whole (peak (B, ce_chunk, V)); the padded
-    vocab is masked."""
-    hidden = forward(params, cfg, batch)
+    vocab is masked. With ``with_aux`` the MoE auxiliary losses are added
+    to it and it returns (loss, aux), as the JAX package's ``loss_fn``;
+    ``moe_no_drop`` as in ``forward``."""
+    out = forward(params, cfg, batch, with_aux, moe_no_drop)
+    hidden, aux = out if with_aux else (out, {})
     tokens = batch["tokens"]
     b, st = tokens.shape
     h, targets = hidden[:, :st - 1], tokens[:, 1:]
@@ -216,7 +248,12 @@ def loss_fn(params: dict, cfg, batch: dict,
         gold = torch.gather(lg, -1,
                             targets[:, c0:c0 + ce_chunk, None].long())
         total = total + (torch.logsumexp(lg, -1) - gold[..., 0]).sum()
-    return total / (b * n_tok)
+    loss = total / (b * n_tok)
+    if not with_aux:
+        return loss
+    for v in aux.values():
+        loss = loss + v
+    return loss, aux
 
 
 # ------------------------------------------------------------------ decode

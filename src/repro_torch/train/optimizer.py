@@ -82,13 +82,29 @@ def _global_norm(grads: Any) -> torch.Tensor:
                           for g in tree.leaves(grads)))
 
 
+def _decayed(params: Any) -> Any:
+    """A tree of bools shaped like ``params``: the leaves of two or more
+    dimensions in the JAX package's layout, where each ``blocks`` list
+    stacks its layers along a new axis 0. A layer's 1-D leaves (norm gains,
+    the router bias, Mamba's ``d_skip`` and ``conv_b``, the xLSTM gate
+    biases) are 2-D there, and decay."""
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked or k == "blocks")
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, stacked) for v in node)
+        return node.ndim + stacked >= 2
+    return walk(params, False)
+
+
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
                  ) -> Tuple[Any, dict]:
     """One AdamW step -> (new params, new state); the inputs are not
     modified. The gradients are clipped to a global norm of
     ``cfg.grad_clip``; weight decay applies to params of two or more
-    dimensions; the new param is computed in f32 and cast back to the
-    param's dtype."""
+    dimensions in the reference's stacked layout (``_decayed``); the new
+    param is computed in f32 and cast back to the param's dtype."""
     step = state["step"] + 1
     gnorm = _global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
@@ -97,7 +113,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
     bc2 = 1 - cfg.b2 ** step.float()
     int8 = cfg.state_dtype == "int8"
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, decay):
         g = g.float() * clip
         if int8:
             mf = _decode(m["q"], m["s"], p.shape)
@@ -107,7 +123,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
         mf = cfg.b1 * mf + (1 - cfg.b1) * g
         vf = cfg.b2 * vf + (1 - cfg.b2) * g.square()
         upd_val = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        if p.ndim >= 2:
+        if decay:
             upd_val = upd_val + cfg.weight_decay * p.float()
         new_p = (p.float() - cfg.lr * upd_val).to(p.dtype)
         if int8:
@@ -116,6 +132,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
             return new_p, {"q": mq, "s": ms}, {"q": vq, "s": vs}
         return new_p, mf, vf
 
-    out = tree.map_(upd, params, grads, state["m"], state["v"])
+    out = tree.map_(upd, params, grads, state["m"], state["v"],
+                    _decayed(params))
     part = lambda i: tree.map_(lambda _, o: o[i], params, out)
     return part(0), {"step": step, "m": part(1), "v": part(2)}

@@ -13,34 +13,28 @@ from repro_torch.models import lm
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig,
-                    num_microbatches: int = 1) -> Callable:
+def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
+                    moe_no_drop: bool = True) -> Callable:
     """``train_step(params, opt_state, batch)`` -> (new params, new state,
-    ``{"loss": 0-d f32 tensor}``): the gradient of ``lm.loss_fn`` by
-    autograd, then ``adamw_update``. With ``num_microbatches`` > 1 the batch
-    is cut into that many equal microbatches along axis 0; their gradients
-    are summed in f32 and divided by the count, as is their loss.
-
-    An MoE, hybrid or xLSTM config is refused: the JAX package trains MoE
-    with the capacity factor's drops and the load-balance and router-z
-    losses, none of which is ported, and training without them would be
-    another training; the hybrid family (jamba) has MoE layers, and its
-    training is that same slice; training the xLSTM family is a slice of
-    its own (its loss's gradient runs today only in the HQP Fisher
-    pass)."""
-    if (cfg.moe is not None and cfg.moe.n_experts) or lm.is_recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (capacity-factor drops, load-balance "
-            f"and router-z auxiliary losses), hybrid training (jamba's "
-            f"MoE and Mamba layers) and xLSTM training (mLSTM and sLSTM "
-            f"blocks) are not ported yet; the port compresses and serves "
-            f"MoE, hybrid and xLSTM models but trains dense ones only")
-    grad_fn = value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b))
+    metrics): the gradient of ``lm.loss_fn(with_aux=True)`` by autograd,
+    then ``adamw_update``. ``metrics`` holds ``"loss"`` (0-d f32, the
+    auxiliary losses included) and, for a config with MoE layers,
+    ``"aux/load_balance"`` and ``"aux/router_z"``, as the JAX package's.
+    ``moe_no_drop`` is its ``ctx.moe_no_drop``, True by default as there
+    (the experts at inference capacity); the launcher trains with False,
+    the capacity factor's drops. With ``num_microbatches`` > 1 the batch is
+    cut into that many equal microbatches along axis 0; their gradients
+    are summed in f32 and divided by the count, as is their loss, and the
+    aux is the last microbatch's."""
+    grad_fn = value_and_grad(
+        lambda p, b: lm.loss_fn(p, cfg, b, with_aux=True,
+                                moe_no_drop=moe_no_drop),
+        has_aux=True)
 
     def train_step(params, opt_state, batch):
         n = num_microbatches
         if n == 1:
-            loss, grads = grad_fn(params, batch)
+            (loss, aux), grads = grad_fn(params, batch)
         else:
             rows = batch["tokens"].shape[0]
             if rows % n:
@@ -52,13 +46,15 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss = 0.0
             for i in range(n):
-                lv, g = grad_fn(params, {k: t[i] for k, t in mbs.items()})
+                (lv, aux), g = grad_fn(params,
+                                       {k: t[i] for k, t in mbs.items()})
                 grads = tree.map_(torch.add, grads, g)
                 loss = loss + lv
             grads = tree.map_(lambda g: g / n, grads)
             loss = loss / n
         new_params, new_opt = adamw_update(params, grads, opt_state, opt_cfg)
-        return new_params, new_opt, {"loss": loss}
+        return new_params, new_opt, {"loss": loss, **{
+            f"aux/{k}": v for k, v in aux.items()}}
 
     return train_step
 

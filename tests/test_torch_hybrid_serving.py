@@ -9,9 +9,9 @@ or stopped mid-dispatch at EOS), written only at a dispatch's end, and a
 faulted dispatch leaves the survivors' state where their positions say.
 Fault C8: the reference engine's prefix cache admits a slot past a shared
 head whose recurrent state it does not hold, and its output leaves serial
-decode; the port keeps no prefix cache for a recurrent pattern. And the
-surfaces that refuse the family: speculative decoding (it rolls caches
-back by position) and training (not ported)."""
+decode; the port keeps no prefix cache for a recurrent pattern. And
+speculative decoding, which refuses the family (it rolls caches back by
+position), and a train step, which takes it."""
 import dataclasses
 
 import numpy as np
@@ -35,7 +35,7 @@ from repro_torch.serving import state_pool as sp  # noqa: E402
 from repro_torch.serving.faults import inject_decode_fault  # noqa: E402
 from repro_torch.serving.sampling import SamplingConfig  # noqa: E402
 from repro_torch.serving.scheduler import DECODE, Action, Scheduler  # noqa: E402,E501
-from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402,E501
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -388,14 +388,26 @@ def test_speculative_decoding_refuses_the_hybrid(setup):
 
 @pytest.mark.parametrize("moe", [True, False], ids=["jamba", "dense-hybrid"])
 def test_training_refuses_the_hybrid(moe):
-    """Training the hybrid family is the MoE training slice's (jamba has
-    MoE layers), not ported: ``make_train_step`` refuses it by name, a
-    hybrid pattern without MoE layers too."""
+    """Training the hybrid family is ported (the name is this test's from
+    when ``make_train_step`` refused it): a step of jamba's smoke config,
+    and of its pattern with the MoE layers made dense, at the launcher's
+    drops, is finite and moves the weights; jamba reports the auxiliary
+    losses of its MoE layer, the dense pattern none."""
     cfg = configs.get_smoke_config(ARCH)
     if not moe:
         cfg = dataclasses.replace(cfg, moe=None)
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        make_train_step(cfg, AdamWConfig())
+    ocfg = AdamWConfig(lr=1e-3)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 17)))
+    new, _, m = make_train_step(cfg, ocfg, moe_no_drop=False)(
+        params, adamw_init(params, ocfg), {"tokens": tokens})
+    assert sorted(m) == (["aux/load_balance", "aux/router_z", "loss"]
+                         if moe else ["loss"])
+    assert all(np.isfinite(float(v)) for v in m.values())
+    a = new["blocks"][0]["mamba"]["in_proj"]["w"]
+    assert torch.isfinite(a.float()).all()
+    assert not torch.equal(a, params["blocks"][0]["mamba"]["in_proj"]["w"])
 
 
 @pytest.mark.parametrize("page_size", [None, "16"], ids=["contiguous",

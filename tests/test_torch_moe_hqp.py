@@ -3,7 +3,7 @@ the phi3.5-moe and arctic smoke configs, same weights: its names, sizes and
 members, its Fisher sensitivities and global ranking, its masks (a masked
 expert's router bias -1e9), fault C7 and its repair, an artifact of the
 port's own launcher (Fisher, Algorithm 1, compaction, PTQ) loaded and
-served by the JAX package, and the training launchers' refusal of an MoE
+served by the JAX package, and the training launchers taking an MoE
 config. Tolerances: ``_torch_moe_common``."""
 import dataclasses
 
@@ -24,13 +24,13 @@ from repro.core import pruning as jpr  # noqa: E402
 from repro.core import sensitivity as jsens  # noqa: E402
 from repro.launch import checkpoint as jckpt  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, tree  # noqa: E402
 from repro_torch.core import pruning as pr  # noqa: E402
 from repro_torch.core import sensitivity as sens  # noqa: E402
 from repro_torch.launch import checkpoint as ckpt  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402,E501
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -196,14 +196,42 @@ def test_port_artifact_loads_into_the_reference(base, tmp_path):
     assert_greedy(tl[:, 0].numpy()[:, :cfg.vocab_size], a)
 
 
-@pytest.mark.parametrize("launcher", [
-    lambda arch: train.main(["--arch", arch, "--smoke", "--device", "cpu"]),
-    lambda arch: make_train_step(configs.get_smoke_config(arch),
-                                 AdamWConfig())],
-    ids=["train.main", "make_train_step"])
-def test_training_launchers_refuse_moe(launcher):
-    """MoE training (capacity drops, the auxiliary losses) is not ported:
-    the train launcher, and ``make_train_step``, through which it and the
-    quickstart train, refuse an MoE config by name."""
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        launcher("phi3.5-moe-42b-a6.6b")
+def _launch_main(arch):
+    """Two steps of the train launcher on the smoke config -> its stdout's
+    step lines are checked by the caller; returns the params."""
+    return train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--steps", "2", "--batch", "2", "--seq", "16",
+                       "--eval-every", "0"])
+
+
+def _one_step(arch):
+    """One step of ``make_train_step`` at the launcher's drops -> the
+    metrics."""
+    cfg = configs.get_smoke_config(arch)
+    ocfg = AdamWConfig(lr=1e-3)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 17)))
+    return make_train_step(cfg, ocfg, moe_no_drop=False)(
+        params, adamw_init(params, ocfg), {"tokens": tokens})[2]
+
+
+@pytest.mark.parametrize("launcher", ["train.main", "make_train_step"])
+def test_training_launchers_refuse_moe(launcher, capsys):
+    """MoE training is ported (capacity-factor drops, the load-balance and
+    router-z losses; the name is this test's from when the launchers
+    refused it): the train launcher, and ``make_train_step``, through which
+    it and the quickstart train, take an MoE config, take finite steps and
+    report the auxiliary losses."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    if launcher == "train.main":
+        params = _launch_main(arch)
+        assert all(torch.isfinite(t.float()).all()
+                   for t in tree.leaves(params))
+        out = capsys.readouterr().out
+        assert "aux/load_balance=" in out and "aux/router_z=" in out
+        assert "[train] done" in out
+        return
+    m = _one_step(arch)
+    assert sorted(m) == ["aux/load_balance", "aux/router_z", "loss"]
+    assert all(np.isfinite(float(v)) for v in m.values())

@@ -4,8 +4,8 @@ artifact of the smoke model: a pool with no KV entry at all, engine ==
 serial decode bit for bit with staggered arrivals and a prefill chunk of
 5 (greedy and sampled, contiguous and paged), survivors of a faulted
 dispatch == serial decode, the paged engine running an empty arena as the
-JAX package's does, the surfaces that refuse the family (speculative
-decoding, training), and the launcher."""
+JAX package's does, speculative decoding, which refuses the family, a
+train step, which takes it, and the launcher."""
 import numpy as np
 import pytest
 
@@ -27,7 +27,7 @@ from repro_torch.serving import state_pool as sp  # noqa: E402
 from repro_torch.serving.faults import inject_decode_fault  # noqa: E402
 from repro_torch.serving.sampling import SamplingConfig  # noqa: E402
 from repro_torch.serving.scheduler import DECODE, Action, Scheduler  # noqa: E402,E501
-from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402,E501
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
@@ -196,10 +196,24 @@ def test_speculative_decoding_refuses_the_family(setup):
 
 
 def test_training_refuses_the_family():
-    """Training the xLSTM family is not ported: ``make_train_step`` names
-    it."""
-    with pytest.raises(NotImplementedError, match="xLSTM training"):
-        make_train_step(configs.get_smoke_config(ARCH), AdamWConfig())
+    """Training the xLSTM family is ported (the name is this test's from
+    when ``make_train_step`` refused it): a step of the smoke config is
+    finite, reports the loss alone (no MoE layer) and moves the mLSTM and
+    sLSTM weights."""
+    cfg = configs.get_smoke_config(ARCH)
+    ocfg = AdamWConfig(lr=1e-3)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 17)))
+    new, _, m = make_train_step(cfg, ocfg, moe_no_drop=False)(
+        params, adamw_init(params, ocfg), {"tokens": tokens})
+    assert sorted(m) == ["loss"] and np.isfinite(float(m["loss"]))
+    for i, kind in enumerate(cfg.pattern):
+        w = new["blocks"][i][kind]["up" if kind == "slstm" else "in_proj"]
+        w0 = params["blocks"][i][kind]["up" if kind == "slstm" else
+                                       "in_proj"]
+        assert torch.isfinite(w["w"].float()).all()
+        assert not torch.equal(w["w"], w0["w"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--page-size", "16"],
