@@ -57,7 +57,14 @@ paged (an empty KV arena: no layer attends), sampled and profiled, and
 compressed at full depth (Fisher, Algorithm 1 with the mLSTM head family;
 masked == compacted, also with one head cut from every mLSTM layer), that
 cut model's artifact saved, loaded and served, each against serial
-decode.
+decode; then the MoE, hybrid and xLSTM families trained at full width;
+last, the frontend configs at their published depth and width:
+phi-3-vision-4.2b (576 patch embeddings, hd 96) compressed by the
+launcher and musicgen-medium (256 frame embeddings) trained 10 steps, each
+served in lockstep from seeded random embeddings (each request alone ==
+its row, chunked prefill == whole), with B1 timed at the frontend
+linear's products beside ``torch._int_mm``; the kernel phases hold B3-B7's
+hd-96 instances too.
 
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each main serve load
@@ -316,6 +323,37 @@ PHI_TRAIN_FLASH = (FAMILY_BATCH, FAMILY_SEQ, 32, 8, 128)
 # tests/_torch_train_common.py)
 FAMILY_AUX_RTOL, FAMILY_MOE_OFF, FAMILY_XLSTM_OFF = 2e-2, 5e-2, 2e-3
 FAMILY_LEAF_REL, FAMILY_LEAF_FLOOR = 5e-2, 1e-4
+# The frontend phase: phi-3-vision-4.2b and musicgen-medium at their
+# published depth and width, each prepending its frontend's embeddings
+# (576 patches, 256 frames) to the tokens. phi-3-vision: seeded bf16
+# init, then the launcher's build_artifact with FRONT_PRUNE_STEPS
+# conditional step (its Fisher pass and evals on B7 at hd 96); musicgen:
+# FAMILY_STEPS AdamW steps (f32 moments, lr FRONT_LR) on FAMILY_BATCH rows
+# of its frames and FAMILY_SEQ tokens, then INT8 PTQ. Each INT8 model
+# serves FRONT_REQUESTS requests in one lockstep batch (INT8 KV, seeded
+# random embeddings, FRONT_PROMPT-token prompts, FRONT_NEW new tokens, the
+# arch's FRONT_MAX_SEQ), held row for row against batch-1 runs, and its
+# prefill of the embeddings and the first FRONT_CHUNK tokens, then the
+# rest, against the whole prefill; the launcher's ``serve.main`` runs the
+# arch (bf16, one request of FRONT_MAIN_PROMPT tokens, FRONT_MAIN_NEW new).
+FRONT_ARCHS = ("phi-3-vision-4.2b", "musicgen-medium")
+FRONT_PRUNE_STEPS, FRONT_LR = 1, 3e-4
+FRONT_REQUESTS, FRONT_PROMPT, FRONT_NEW, FRONT_CHUNK = 4, 32, 16, 16
+FRONT_MAX_SEQ = {FRONT_ARCHS[0]: 640, FRONT_ARCHS[1]: 512}
+FRONT_MAIN_PROMPT, FRONT_MAIN_NEW = 8, 4
+# B3-B7's hd-96 instances at phi-3-vision's heads (Hq, Hkv, hd), G 1: B3
+# and B5 against an HD96_W window, B4 and B6 at HD96_PREFILL (queries,
+# start) against it, B7 at the Fisher pass's shape (the calibration batch's
+# 2 rows of 576 patches and 32 tokens)
+PHI_HEADS = (32, 32, 96)
+HD96_W = 640
+HD96_PREFILL = ((576 + CALIB_S, 0), (SERVE_CHUNK, 600))
+HD96_FLASH = (CALIB_B, 576 + CALIB_S) + PHI_HEADS
+# B1 at the frontend linear's products (M, K, N): phi-3-vision's
+# FRONT_REQUESTS requests of 576 patches, its calibration batch's 2 rows,
+# musicgen's FRONT_REQUESTS requests of 256 frames
+FRONT_GEMMS = ((FRONT_REQUESTS * 576, 3072, 3072), (CALIB_B * 576, 3072, 3072),
+               (FRONT_REQUESTS * 256, 1536, 1536))
 # B1's checked shapes: M, then (K, N): the model's four (wk/wv, wq/wo,
 # gate/up, down), then a per-layer cut's ragged d_ff 3,035 and 7 kv heads
 GEMM_M = (1, 4, 13, 16, 17, 64)
@@ -672,18 +710,19 @@ def _rotating(fns):
     return lambda: fns[next(it) % len(fns)]()
 
 
-def _decode_times(dev, w, rotate_bytes=0, page_size=None):
-    """B3 (or B5, through pages of ``page_size``) at q (4, 16, 64), every
-    slot at w - 1 against a w-position window: device ms of the kernel and
-    of its plain version with INT8 and with bf16 KV, SDPA's on the bf16 KV
-    (paged: on the gathered window, the gather not timed), and the bounds.
-    With ``rotate_bytes``, each call takes the next of as many KV sets as
-    hold that many bytes, so that a launch reads its KV from device memory
-    and not from the 50 MB L2."""
+def _decode_times(dev, w, rotate_bytes=0, page_size=None,
+                  heads=(16, 8, 64)):
+    """B3 (or B5, through pages of ``page_size``) at q (4, Hq, hd) of
+    ``heads`` (Hq, Hkv, hd), every slot at w - 1 against a w-position
+    window: device ms of the kernel and of its plain version with INT8 and
+    with bf16 KV, SDPA's on the bf16 KV (paged: on the gathered window,
+    the gather not timed), and the bounds. With ``rotate_bytes``, each call
+    takes the next of as many KV sets as hold that many bytes, so that a
+    launch reads its KV from device memory and not from the 50 MB L2."""
     import torch
     from repro_torch.kernels import decode_attention as kd, ref
     from repro_torch.kernels.kv_layout import page_count, window_pages
-    b, hq, hkv, hd = SERVE_SLOTS, 16, 8, 64
+    b, (hq, hkv, hd) = SERVE_SLOTS, heads
     q = torch.randn(b, hq, hd, device=dev).to(torch.bfloat16)
     start = torch.full((b,), w - 1, dtype=torch.int32, device=dev)
     out = {}
@@ -699,7 +738,8 @@ def _decode_times(dev, w, rotate_bytes=0, page_size=None):
                                                                     start))
             else:
                 arena, table = _paged_case(dev, page_size, quantized,
-                                           [w - 1] * b, max_seq=w)
+                                           [w - 1] * b, hkv=hkv, hd=hd,
+                                           max_seq=w)
                 idx = window_pages(table, page_size, w).contiguous()
                 kern.append(lambda a=arena, i=idx: kd.paged_decode_attention(
                     q, *a, start, i))
@@ -813,16 +853,16 @@ def _prefill_bound(sq, st, w, quantized, n_table=0, hq=16, hkv=8, hd=64):
                  "int8" if quantized else "bf16")
 
 
-def _prefill_times(dev, sq, st, w, page_size=None):
-    """B4 (or B6, through pages of ``page_size``) at q (1, sq, 16, 64) from
-    position st against a w-position window: device ms of the kernel and of
-    its plain version with INT8 and with bf16 KV, SDPA's on the bf16 KV
-    (paged: on the gathered window, the gather not timed), and the
-    bounds."""
+def _prefill_times(dev, sq, st, w, page_size=None, heads=(16, 8, 64)):
+    """B4 (or B6, through pages of ``page_size``) at q (1, sq, Hq, hd) of
+    ``heads`` (Hq, Hkv, hd) from position st against a w-position window:
+    device ms of the kernel and of its plain version with INT8 and with
+    bf16 KV, SDPA's on the bf16 KV (paged: on the gathered window, the
+    gather not timed), and the bounds."""
     import torch
     from repro_torch.kernels import prefill_attention as kp, ref
     from repro_torch.kernels.kv_layout import window_pages
-    hq, hkv, hd = 16, 8, 64
+    hq, hkv, hd = heads
     q = torch.randn(1, sq, hq, hd, device=dev).to(torch.bfloat16)
     start = torch.full((1,), st, dtype=torch.int32, device=dev)
     out = {}
@@ -834,7 +874,8 @@ def _prefill_times(dev, sq, st, w, page_size=None):
             plain = lambda: ref.cached_attention_ref(q, *kv, start)
         else:
             arena, table = _paged_case(dev, page_size, quantized,
-                                       [st + sq - 1], max_seq=max(w, 256))
+                                       [st + sq - 1], hkv=hkv, hd=hd,
+                                       max_seq=max(w, 256))
             idx = window_pages(table, page_size, w).contiguous()
             kv = _gathered(arena, idx)
             n_table = idx.numel()
@@ -1179,6 +1220,136 @@ def phase_flash(dev, report):
                                      train_shapes=train)
 
 
+def phase_hd96(dev, report):
+    """B3-B7's hd-96 instances at phi-3-vision's heads (PHI_HEADS, G 1)
+    against their plain versions, at the limits in force (the elementwise
+    tolerance, every output row within ATTN_ROW_REL): B3 and B5 against an
+    HD96_W window, slots at 0, around the first segment boundary, at W - 1
+    and past W, B5 through pages of SERVE_PAGE equal to B3 on the gathered
+    window; B4 and B6 at HD96_PREFILL, B6 equal to B4 on the gathered
+    window, and B4's chunks equal to its whole prefill; B7 at HD96_FLASH,
+    its log-sum-exp and backward too; INT8 and bf16 KV. Each timed from
+    CUDA-graph replays beside its bound and, where one call computes the
+    same function (bf16 KV; B7), SDPA's (``_decode_times``,
+    ``_prefill_times``); into each kernel's ``hd96``."""
+    import torch
+    from repro_torch.kernels import (decode_attention as kd,
+                                     flash_attention as kf,
+                                     prefill_attention as kp, ref)
+    from repro_torch.kernels.kv_layout import window_pages
+    hq, hkv, hd = PHI_HEADS
+    w, ps = HD96_W, SERVE_PAGE
+    errs = {n: [0.0, 0.0] for n in ("decode_attention", "prefill_attention",
+                                    "paged_decode_attention",
+                                    "paged_prefill_attention")}
+    for quantized in (True, False):
+        starts = _decode_starts(w, kd.SEG)
+        k, v, ks, vs = _kv(dev, len(starts), w, hkv, hd, quantized)
+        q = torch.randn(len(starts), hq, hd, device=dev).to(torch.bfloat16)
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        what = f"decode hd 96 Hq={hq} Hkv={hkv} W={w} int8={quantized}"
+        _attn_check(kd.decode_attention(q, k, v, ks, vs, start),
+                    ref.decode_attention_ref(q, k, v, ks, vs, start), what,
+                    errs["decode_attention"])
+        arena, table = _paged_case(dev, ps, quantized, starts, hkv=hkv, hd=hd,
+                                   max_seq=w + kd.SEG)
+        idx = window_pages(table, ps, w).contiguous()
+        out = kd.paged_decode_attention(q, *arena, start, idx)
+        _attn_check(out, ref.paged_decode_attention_ref(q, *arena, start,
+                                                         idx),
+                    "paged " + what, errs["paged_decode_attention"])
+        _equal(out, kd.decode_attention(q, *_gathered(arena, idx), start),
+               "paged " + what + " vs B3")
+        for sq, st in HD96_PREFILL:
+            starts = [st, 0]
+            k, v, ks, vs = _kv(dev, 2, w, hkv, hd, quantized)
+            q = torch.randn(2, sq, hq, hd, device=dev).to(torch.bfloat16)
+            start = torch.tensor(starts, dtype=torch.int32, device=dev)
+            what = (f"prefill hd 96 Hq={hq} Hkv={hkv} Sq={sq} start={st} "
+                    f"W={w} int8={quantized}")
+            _attn_check(kp.prefill_attention(q, k, v, ks, vs, start),
+                        ref.cached_attention_ref(q, k, v, ks, vs, start),
+                        what, errs["prefill_attention"])
+            arena, table = _paged_case(dev, ps, quantized,
+                                       [x + sq - 1 for x in starts], hkv=hkv,
+                                       hd=hd, max_seq=w)
+            idx = window_pages(table, ps, w).contiguous()
+            out = kp.paged_prefill_attention(q, *arena, start, idx)
+            _attn_check(out, ref.paged_prefill_attention_ref(
+                q, *arena, start, idx), "paged " + what,
+                errs["paged_prefill_attention"])
+            _equal(out, kp.prefill_attention(q, *_gathered(arena, idx),
+                                             start),
+                   "paged " + what + " vs B4")
+            if st:
+                continue
+            # chunks at absolute tiles == the whole prefill (slot 1, from 0)
+            one = [None if t is None else t[1:] for t in (k, v, ks, vs)]
+            whole = kp.prefill_attention(q[1:], *one, start[1:])
+            for lo, hi in ((0, 16), (16, 304), (304, sq)):
+                part = kp.prefill_attention(
+                    q[1:, lo:hi].contiguous(), *one,
+                    torch.full((1,), lo, dtype=torch.int32, device=dev))
+                _equal(part, whole[:, lo:hi],
+                       f"{what}: chunk [{lo}, {hi}) vs whole prefill")
+    kv_label = f"KV ({SERVE_SLOTS}, {w}, {hkv}, {hd})"
+    times = {
+        "decode_attention": {
+            f"q ({SERVE_SLOTS}, {hq}, {hd}) at {w - 1} vs {kv_label}":
+            _decode_times(dev, w, heads=PHI_HEADS)},
+        "paged_decode_attention": {
+            f"q ({SERVE_SLOTS}, {hq}, {hd}) at {w - 1} vs window {w}":
+            _decode_times(dev, w, page_size=ps, heads=PHI_HEADS)},
+        "prefill_attention": {
+            f"q (1, {sq}, {hq}, {hd}) at {st} vs KV (1, {w}, {hkv}, {hd})":
+            _prefill_times(dev, sq, st, w, heads=PHI_HEADS)
+            for sq, st in HD96_PREFILL},
+        "paged_prefill_attention": {
+            f"q (1, {sq}, {hq}, {hd}) at {st} vs window {w}":
+            _prefill_times(dev, sq, st, w, ps, heads=PHI_HEADS)
+            for sq, st in HD96_PREFILL}}
+    for name, e in errs.items():
+        report[name]["hd96"] = dict(max_abs_err=e[0], max_row_rel=e[1],
+                                    shapes=times[name])
+        for shape, t in times[name].items():
+            for kv_name, o in t.items():
+                print(f"[kernel] {name} hd 96 at {shape}, {kv_name} KV: "
+                      + _times(o))
+        print(f"[kernel] {name} hd 96: max |err| {e[0]:.3g}, worst row "
+              f"{e[1]:.4g} (limit {ATTN_ROW_REL})")
+    # B7
+    b, s, hq, hkv, hd = HD96_FLASH
+    what = f"flash hd 96 B={b} S={s} Hq={hq} Hkv={hkv}"
+    q, k, v = _flash_case(dev, b, s, hq, hkv, hd)
+    out, lse = kf.flash_attention_fwd(q, k, v)
+    want, want_lse = ref.flash_attention_lse_ref(q, k, v)
+    err, rel = _attn_err(out, want, what), _attn_rows(out, want, what)
+    d = (lse - want_lse).abs().max().item()
+    if not d <= LSE_ATOL:
+        fail(f"{what}: max |lse - plain| = {d:.4g} over {LSE_ATOL}")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    d_out = torch.randn_like(out)
+    got = torch.autograd.grad(kf.flash_attention(*leaves), leaves, d_out)
+    plain = torch.autograd.grad(ref.flash_attention_ref(*leaves), leaves,
+                                d_out)
+    for name, g, wt in zip("qkv", got, plain):
+        e = (g.float() - wt.float()).abs().max().item()
+        top = wt.float().abs().max().item()
+        if not (torch.isfinite(g.float()).all() and e <= GRAD_FRAC * top):
+            fail(f"{what}: d{name} max |kernel - plain| {e:.4g} over "
+                 f"{GRAD_FRAC} x {top:.4g}")
+    b_ms, by = _flash_bound(b, s, hq, hkv, hd)
+    t = dict(bound_ms=b_ms, bound_by=by, max_abs_err=err, max_row_rel=rel,
+             **timed(lambda: kf.flash_attention_fwd(q, k, v),
+                     lambda: ref.flash_attention_lse_ref(q, k, v),
+                     _sdpa_causal(q, k, v), calls=10))
+    shape = f"q ({b}, {s}, {hq}, {hd}) vs k/v ({b}, {s}, {hkv}, {hd}) bf16"
+    report["flash_attention"]["hd96"] = dict(t, shape=shape)
+    print(f"[kernel] flash_attention hd 96 at {shape}: " + _times(t)
+          + f", max |err| {err:.3g}, worst row {rel:.4g}, lse and backward "
+          f"within their limits")
+
+
 # ------------------------------------------------------------------ serving
 def phase_small_e2e(dev):
     """The smoke model on the card against the same model on the CPU (the
@@ -1252,23 +1423,24 @@ def _n_linears(params) -> int:
                for v in _int8_linears(params))
 
 
-def _b1_model_shapes(dev, trees, what, tag, card) -> None:
+def _b1_model_shapes(dev, trees, what, tag, card, ms=GEMM_M) -> None:
     """B1 and its serving form (``_b1_case``) at every (K, N) of the INT8
-    linears of ``trees`` (an expert's (K, N) once), at every M of GEMM_M:
-    the shapes a served model gives B1 (a decode step's rows, a prefill
-    chunk's, a verify's SERVE_SLOTS x (SPEC_K + 1)) and one past 16-row
-    tiles. The split-K workspace must be zero again after them."""
+    linears of ``trees`` (an expert's (K, N) once), at every M of ``ms``:
+    by default GEMM_M, the rows the engine gives B1 (a decode step's, a
+    prefill chunk's, a verify's SERVE_SLOTS x (SPEC_K + 1)) and one past
+    16-row tiles; a caller whose path gives other M passes them. The
+    split-K workspace must be zero again after them."""
     shapes = sorted({tuple(v.w_q.shape[-2:]) for t in trees
                      for v in _int8_linears(t)})
     splits = set()
-    for m in GEMM_M:
+    for m in ms:
         for k, n in shapes:
             splits.update(p.split for p in _b1_case(dev, m, k, n)[2:])
     _, ws_left = _scratch(dev)
     if ws_left:
         fail(f"{what}: split-K workspace not reset ({ws_left})")
     print(f"[{tag}] int8_matmul and int8_matmul_quant bit-identical to their "
-          f"plain versions at {what}'s (K, N) {shapes} x M {list(GEMM_M)}, "
+          f"plain versions at {what}'s (K, N) {shapes} x M {list(ms)}, "
           f"split-K factors {sorted(splits)}  [{card}]")
 
 
@@ -4519,8 +4691,9 @@ def _train_family(arch, n_layers, state_dtype, flash_per_step, lr, dev,
     dropped in each MoE layer on the last batch. ``gate=False`` reports
     the learning gates' figures and non-finite values without failing on
     them, ``replay=False`` skips the replay, ``moe_weights`` replaces
-    fields of ``cfg.moe`` (the aux losses' weights). Returns the launches
-    of the FAMILY_STEPS steps."""
+    fields of ``cfg.moe`` (the aux losses' weights). A config with a
+    frontend gets seeded random embeddings before each row. Returns the
+    launches of the FAMILY_STEPS steps and the trained params."""
     import torch
     from repro_torch import configs, tree
     from repro_torch.data.synthetic import SyntheticTokens
@@ -4542,6 +4715,12 @@ def _train_family(arch, n_layers, state_dtype, flash_per_step, lr, dev,
     batches = [{"tokens": torch.as_tensor(next(it)["tokens"],
                                           dtype=torch.long, device=dev)}
                for _ in range(FAMILY_STEPS)]
+    if cfg.n_frontend:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for batch in batches:
+            batch["embeds"] = torch.randn(
+                (FAMILY_BATCH, cfg.n_frontend, cfg.d_model), generator=gen,
+                device=dev).to(torch.bfloat16)
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
@@ -4634,7 +4813,7 @@ def _train_family(arch, n_layers, state_dtype, flash_per_step, lr, dev,
                 lm.forward(p, cfg, batches[-1], moe_no_drop=False)
         finally:
             M.dispatch_plan = plan
-    del p, o
+    del o
     tokens = FAMILY_BATCH * FAMILY_SEQ
     steady = sum(ms[1:]) / (len(ms) - 1)
     layers = (f"{cfg.n_layers} of {full.n_layers} layers"
@@ -4642,8 +4821,10 @@ def _train_family(arch, n_layers, state_dtype, flash_per_step, lr, dev,
     print(f"[train-family] {cfg.name} published width, {layers} "
           f"({', '.join(sorted(set(cfg.pattern)))}), {n_params / 1e9:.3f} B "
           f"params, AdamW {state_dtype} moments, lr {lr}, "
-          f"{FAMILY_STEPS} steps of {FAMILY_BATCH} x {FAMILY_SEQ} tokens "
-          f"with the capacity factor's drops: init {init_s:.2f} s, first "
+          f"{FAMILY_STEPS} steps of {FAMILY_BATCH} x {FAMILY_SEQ} tokens"
+          + (f" after {cfg.n_frontend} random frontend embeddings"
+             if cfg.n_frontend else "")
+          + f" with the capacity factor's drops: init {init_s:.2f} s, first "
           f"step {ms[0]:.1f} ms, then {steady:.2f} ms a step "
           f"(synchronised), {1e3 * tokens / steady:.0f} tokens/s, peak "
           f"device memory {peak / 2**30:.2f} GiB; loss "
@@ -4665,7 +4846,7 @@ def _train_family(arch, n_layers, state_dtype, flash_per_step, lr, dev,
               f"replayed from params and moments copied to host memory "
               f"before them, in {resume_s:.1f} s with the copy back: equal "
               f"to the uninterrupted run bit for bit  [{card}]")
-    return launches
+    return launches, p
 
 
 def phase_train_families(dev, kernels, report, card):
@@ -4711,7 +4892,7 @@ def phase_train_families(dev, kernels, report, card):
     for arch, n_layers, state_dtype, flash, lr in FAMILY_TRAIN:
         t0 = time.monotonic()
         launches[arch] = _train_family(arch, n_layers, state_dtype, flash,
-                                       lr, dev, kernels, card)
+                                       lr, dev, kernels, card)[0]
         _free()
         stages[arch] = time.monotonic() - t0
     t0 = time.monotonic()
@@ -4728,10 +4909,300 @@ def phase_train_families(dev, kernels, report, card):
             for name in kernels}
 
 
+# ---------------------------------------------------------------- frontends
+def _b1_frontend(dev, report, card):
+    """B1 at the frontend linear's products (FRONT_GEMMS), bit for bit
+    against its plain version, its serving form too (``_b1_case``); then
+    device ms of B1 on int8 x beside its plain version and its bound, and
+    beside ``torch._int_mm`` with the scale epilogue (the one library call
+    that computes it, for M > 16), and of the serving form (bf16 x) beside
+    its bound; into each kernel's ``frontend_shapes``. The weights (9.4 MB
+    and 2.4 MB) stay in the 50 MB L2 across the timed launches."""
+    import torch
+    from repro_torch.kernels import int8_matmul as km, ref
+    gen = lambda *shape: torch.randint(-127, 128, shape, device=dev,
+                                       dtype=torch.int8)
+    for m, k, n in FRONT_GEMMS:
+        _b1_case(dev, m, k, n)
+        xq, wq = gen(m, k), gen(k, n)
+        xs = torch.rand(m, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, device=dev) * 0.05 + 1e-3
+        x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+
+        def library():
+            acc = torch._int_mm(xq, wq)
+            return (acc.float() * xs[:, None] * ws[None]).to(torch.bfloat16)
+        want = ref.int8_matmul_ref(xq, wq, xs, ws)
+        got = library()
+        torch.cuda.synchronize()
+        d = ((got.float() - want.float()).abs()
+             / want.float().abs().clamp_min(1e-30)).max().item()
+        if not d <= 2 ** -7:           # one bf16 ulp: the epilogue's order
+            fail(f"torch._int_mm at ({m}, {k}) x ({k}, {n}) is {d:.3g} off "
+                 f"B1's plain version")
+        label = f"({m}, {k}) x ({k}, {n})"
+        b_ms, by = _gemm_bound(m, k, n)
+        t = dict(bound_ms=b_ms, bound_by=by,
+                 **timed(lambda: km.int8_matmul(xq, wq, xs, ws),
+                         lambda: ref.int8_matmul_ref(xq, wq, xs, ws),
+                         library, calls=10),
+                 library="torch._int_mm + scale epilogue")
+        report["int8_matmul"].setdefault("frontend_shapes", {})[label] = t
+        b_q, by_q = _gemm_bound(m, k, n, x_bytes=2)
+        tq = dict(ms=device_ms(lambda: km.int8_matmul_quant(x, wq, ws),
+                               calls=10), bound_ms=b_q, bound_by=by_q)
+        report["int8_matmul_quant"].setdefault("frontend_shapes", {})[
+            label] = tq
+        print(f"[frontend] B1 at {label} ({km.gemm_plan(m, n, k)}): "
+              + _times(t) + f"; {t['ms'] / b_ms:.1f}x its bound, "
+              f"{t['ms'] / t['library_ms']:.2f}x torch._int_mm; serving "
+              f"form (bf16 x) {tq['ms']:.5f} ms, bound {b_q:.6f} ms "
+              f"({by_q})  [{card}]")
+
+
+def _front_rows(cfg) -> tuple:
+    """GEMM_M and every M that ``_front_serve`` gives B1: the frontend
+    linear's B·n_fr, a prefill's B·(n_fr + FRONT_PROMPT), the chunked
+    prefill's B·(n_fr + FRONT_CHUNK) and B·(FRONT_PROMPT - FRONT_CHUNK), a
+    decode step's B, for B 1 (a request alone) and FRONT_REQUESTS."""
+    n_fr = cfg.n_frontend
+    return tuple(sorted(set(GEMM_M) | {
+        b * r for b in (1, FRONT_REQUESTS)
+        for r in (1, n_fr, n_fr + FRONT_PROMPT, n_fr + FRONT_CHUNK,
+                  FRONT_PROMPT - FRONT_CHUNK)}))
+
+
+def _front_chunked(params, cfg, dev, prompts, emb, max_seq):
+    """The last-position logits of a prefill of the embeddings ``emb`` and
+    the first FRONT_CHUNK tokens of ``prompts``, then of the rest, INT8
+    KV."""
+    from repro_torch.models import lm
+    state = lm.init_decode_state(cfg, prompts.shape[0], max_seq,
+                                 params=params, quantized_kv=True, device=dev)
+    _, state = lm.decode_step(params, cfg, state, prompts[:, :FRONT_CHUNK],
+                              route="prefill", embeds=emb)
+    logits, _ = lm.decode_step(params, cfg, state, prompts[:, FRONT_CHUNK:],
+                               route="prefill")
+    return logits[:, -1]
+
+
+def _front_serve(params, cfg, dev, kernels, card, label):
+    """An INT8 frontend model's lockstep serving on the card, through the
+    launcher's ``serve.lockstep``: FRONT_REQUESTS requests, each seeded
+    random embeddings and a FRONT_PROMPT-token prompt, FRONT_NEW greedy
+    tokens, INT8 KV. Gates: each request run alone gives its row of the
+    batch bit for bit; the batch's launches are B1 (serving form) once for
+    the frontend and once a linear a position step, B4 once a layer, B3
+    once a layer a decode step, nothing else; the prefill of the
+    embeddings and the first FRONT_CHUNK tokens, then the rest, gives the
+    whole prefill's last logits bit for bit; finite logits, tokens in the
+    vocabulary; the engine refuses the config. Returns the batch's
+    launches."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
+    max_seq, n_fr = FRONT_MAX_SEQ[cfg.name], cfg.n_frontend
+    gen = torch.Generator(device=dev).manual_seed(21)
+    emb = torch.randn((FRONT_REQUESTS, n_fr, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (FRONT_REQUESTS, FRONT_PROMPT),
+                            generator=torch.Generator().manual_seed(22)
+                            ).to(dev)
+
+    def run(rows):
+        return serve.lockstep(params, cfg, prompts[rows], FRONT_NEW,
+                              max_seq, True, dev, embeds=emb[rows])
+    alone = [run(slice(i, i + 1)).tokens for i in range(FRONT_REQUESTS)]
+    for kern in kernels.values():
+        kern.launches = 0
+    batch = run(slice(None))
+    launches = {n: k.launches for n, k in kernels.items()}
+    lin, layers = _n_linears(params), cfg.n_layers
+    want = {n: 0 for n in kernels}
+    want.update(int8_matmul_quant=1 + lin * FRONT_NEW,
+                prefill_attention=layers,
+                decode_attention=layers * (FRONT_NEW - 1))
+    if launches != want:
+        fail(f"{cfg.name} lockstep: launches {launches}, expected {want}")
+    toks, first = batch.tokens, batch.first_logits
+    if not (torch.isfinite(first).all() and 0 <= toks.min()
+            and toks.max() < cfg.vocab_size):
+        fail(f"{cfg.name} lockstep: non-finite logits or tokens {toks}")
+    for i, row in enumerate(alone):
+        if not (row[0] == toks[i]).all():
+            fail(f"{cfg.name} lockstep: request {i} alone gives "
+                 f"{row[0].tolist()}, in the batch {toks[i].tolist()}")
+    _equal(_front_chunked(params, cfg, dev, prompts, emb, max_seq), first,
+           f"{cfg.name}: prefill of the embeddings and {FRONT_CHUNK} tokens, "
+           f"then {FRONT_PROMPT - FRONT_CHUNK}, vs the whole prefill (last "
+           f"logits)")
+    try:
+        Engine(params, cfg, device=dev)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        fail(f"{cfg.name}: the engine took a frontend config")
+    print(f"[frontend] {cfg.name} {label}, lockstep, INT8 KV: "
+          f"{FRONT_REQUESTS} requests of {n_fr} random embeddings + "
+          f"{FRONT_PROMPT} tokens, {FRONT_NEW} new, max_seq {max_seq}: "
+          f"prefill {1e3 * batch.prefill_s:.1f} ms "
+          f"({FRONT_REQUESTS * (n_fr + FRONT_PROMPT)} positions), decode "
+          f"{FRONT_REQUESTS * (FRONT_NEW - 1) / batch.decode_s:.1f} tok/s "
+          f"(eager, synchronised), KV {batch.kv_bytes} B; launches "
+          f"{json.dumps({n: c for n, c in launches.items() if c})}; each "
+          f"request alone == its row, bit for bit; chunked prefill == "
+          f"whole; the engine refuses: {refusal!r}  [{card}]")
+    return launches
+
+
+def _front_main(cfg, card):
+    """The launcher's ``serve.main`` on the arch's published config (bf16,
+    zero embeddings, FRONT_MAIN_PROMPT tokens, FRONT_MAIN_NEW new): it
+    returns one row of tokens in the vocabulary."""
+    from repro_torch.launch import serve
+    t0 = time.monotonic()
+    out = serve.main(["--arch", cfg.name, "--batch", "1", "--prompt-len",
+                      str(FRONT_MAIN_PROMPT), "--tokens",
+                      str(FRONT_MAIN_NEW), "--max-seq",
+                      str(FRONT_MAX_SEQ[cfg.name])])
+    if out.shape != (1, FRONT_MAIN_NEW) or not (
+            0 <= out.min() and out.max() < cfg.vocab_size):
+        fail(f"serve.main --arch {cfg.name}: returned {out}")
+    print(f"[frontend] serve.main --arch {cfg.name} (bf16, lockstep, 1 "
+          f"request): {out[0].tolist()} in {time.monotonic() - t0:.1f} s  "
+          f"[{card}]")
+    _free()
+
+
+def phase_frontends(dev, kernels, report, card):
+    """The frontend configs on the card, at their published depth and
+    width:
+
+    1. B1 at the frontend linear's products (``_b1_frontend``);
+    2. phi-3-vision-4.2b: seeded bf16 init, the launcher's
+       ``build_artifact`` (the Fisher pass and FRONT_PRUNE_STEPS + 1
+       evaluations on the train route, B7 at hd 96 once a layer a forward,
+       no other kernel; compaction, PTQ, the frontend linear INT8 and in no
+       pruning family), B1 at its (K, N) and every M the lockstep gives
+       it (``_front_rows``); the artifact served
+       (``_front_serve``), then ``serve.main`` (``_front_main``);
+    3. musicgen-medium: FAMILY_STEPS AdamW steps (``_train_family``: the
+       first batch's CE falling by FAMILY_FALL, finite losses and params,
+       B7 once a layer a step), INT8 PTQ of the trained params, B1 at its
+       (K, N) and the lockstep's M, served and ``serve.main`` likewise.
+    Returns {kernel: {arch: {stage: launches}}}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compress import QuantizedLinear
+    from repro_torch.compress.quantize import quantize_lm_params
+    from repro_torch.launch.serve import build_artifact
+    from repro_torch.models import lm
+    t_phase = time.monotonic()
+    stages, out = {}, {n: {} for n in kernels}
+
+    def stage(name):
+        stages[name] = time.monotonic() - t_phase - sum(stages.values())
+    _b1_frontend(dev, report, card)
+    stage("b1")
+
+    cfg = configs.get_config(FRONT_ARCHS[0])
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[frontend] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded to {lm.padded_vocab(cfg)}, {cfg.n_frontend} "
+          f"{cfg.frontend.kind} through a ({cfg.d_model}, {cfg.d_model}) "
+          f"frontend linear; published depth and width; "
+          f"{_n_params(params) / 1e9:.3f} B params "
+          f"({cfg.param_count() / 1e9:.3f} B by the config's count, which "
+          f"leaves out the frontend "
+          f"linear); seeded bf16 init {time.monotonic() - t0:.2f} s  "
+          f"[{card}]")
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    art = build_artifact(params, cfg, FRONT_PRUNE_STEPS, log=print)
+    wall = time.monotonic() - t0
+    hqp = {n: k.launches for n, k in kernels.items()}
+    m, sec = art.manifest, art.seconds
+    n_forward = 1 + len(sec["evals"])
+    print(m.summary())
+    print(f"[frontend] {cfg.name} HQP (batch ({CALIB_B}, {cfg.n_frontend} + "
+          f"{CALIB_S})): {wall:.2f} s in all; Fisher {sec['fisher']:.3f} s, "
+          f"evals {', '.join(f'{t:.3f}' for t in sec['evals'])}, compact "
+          f"{sec['compact']:.3f}, PTQ {sec['ptq']:.3f}; θ "
+          f"{m.theta:.4f}, flash launches {hqp['flash_attention']} over "
+          f"{n_forward} forwards; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB  [{card}]")
+    want = {n: 0 for n in kernels}
+    want["flash_attention"] = cfg.n_layers * n_forward
+    if hqp != want:
+        fail(f"{cfg.name} compress: launches {hqp}, expected {want}")
+    if not (m.pruned and isinstance(art.params["frontend"], QuantizedLinear)
+            and not any("frontend" in f for f in m.theta_by_family)):
+        fail(f"{cfg.name} compress: pruned {m.pruned}, families "
+             f"{sorted(m.theta_by_family)}, frontend "
+             f"{type(art.params['frontend']).__name__}")
+    int8 = art.params
+    del art, params
+    _free()
+    stage(f"{cfg.name} hqp")
+    _b1_model_shapes(dev, (int8,), f"{cfg.name}'s artifact", "frontend",
+                     card, ms=_front_rows(cfg))
+    serve_launches = _front_serve(int8, cfg, dev, kernels, card,
+                                  f"HQP artifact (θ={m.theta:.1%})")
+    del int8
+    _free()
+    _front_main(cfg, card)
+    for n in kernels:
+        out[n][cfg.name] = {"compress": hqp[n], "lockstep": serve_launches[n]}
+    stage(f"{cfg.name} serve")
+
+    cfg = configs.get_config(FRONT_ARCHS[1])
+    train, trained = _train_family(cfg.name, None, "f32", cfg.n_layers,
+                                   FRONT_LR, dev, kernels, card, replay=False)
+    stage(f"{cfg.name} train")
+    int8 = quantize_lm_params(trained)
+    del trained
+    _free()
+    _b1_model_shapes(dev, (int8,), f"{cfg.name}'s INT8 PTQ", "frontend",
+                     card, ms=_front_rows(cfg))
+    serve_launches = _front_serve(int8, cfg, dev, kernels, card,
+                                  f"trained {FAMILY_STEPS} steps, INT8 PTQ")
+    del int8
+    _free()
+    _front_main(cfg, card)
+    for n in kernels:
+        out[n][cfg.name] = {"train": train[n], "lockstep": serve_launches[n]}
+    stage(f"{cfg.name} serve")
+    print(f"[frontend] phase seconds {time.monotonic() - t_phase:.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f")  [{card}]")
+    return out
+
+
 def _rec_bytes(pool) -> int:
     from repro_torch.serving import state_pool as sp
     return sum(t.numel() * t.element_size() for e in pool["caches"]
                if not sp.is_kv_entry(e) for t in e.values())
+
+
+def _six_digits(o):
+    """``o`` with every float to six significant digits (far below the
+    timings' run-to-run spread), so that the kernels line stays compact:
+    a reader that keeps only the last 24,000 bytes of the output still
+    gets it whole."""
+    if isinstance(o, float):
+        return float(f"{o:.6g}")
+    if isinstance(o, dict):
+        return {k: _six_digits(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_six_digits(v) for v in o]
+    return o
 
 
 def main() -> int:
@@ -4794,7 +5265,7 @@ def main() -> int:
     report = {}
     for phase in (phase_quantize, phase_int8_matmul, phase_decode,
                   phase_prefill, phase_paged_decode, phase_paged_prefill,
-                  phase_flash):
+                  phase_flash, phase_hd96):
         phase(dev, report)
         lap(phase.__name__)
     for name, r in report.items():
@@ -5000,6 +5471,10 @@ def main() -> int:
     # training of the MoE, hybrid and xLSTM families at full width
     family_launches = phase_train_families(dev, kernels, report, card)
     lap("train_families")
+    # the frontend configs: phi-3-vision compressed, musicgen trained, both
+    # served in lockstep from their prepended embeddings
+    frontend_launches = phase_frontends(dev, kernels, report, card)
+    lap("phase_frontends")
     print(f"[time] {sum(laps.values()):.1f} s in all, by part: "
           + json.dumps({k: round(v, 1) for k, v in laps.items()})
           + f"  [{card}]")
@@ -5033,7 +5508,8 @@ def main() -> int:
             **{k: r[k] for k in ("max_row_rel", "bf16_kv", "long_s",
                                  "train_shapes", "b2_b1_ms", "shapes",
                                  "verify_shape", "moe_shapes",
-                                 "hybrid_shapes", "xlstm_shapes")
+                                 "hybrid_shapes", "xlstm_shapes", "hd96",
+                                 "frontend_shapes")
                if k in r},
             **({"train_launches": train_launches}
                if name == "flash_attention" else {}),
@@ -5041,9 +5517,12 @@ def main() -> int:
             "hybrid_launches": hybrid_launches[name],
             "xlstm_launches": xlstm_launches[name],
             "family_train_launches": family_launches[name],
+            "frontend_launches": frontend_launches[name],
             "dense_arch_launches": {a: c[name]
                                     for a, c in arch_launches.items()}})
-    print(json.dumps({"kernels": entries}))
+    line = json.dumps({"kernels": _six_digits(entries)})
+    print(f"[kernels] the kernels line below is {len(line)} bytes")
+    print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,23 @@
-"""Architecture registry: ``--arch <id>`` resolution. It holds the LMs
-the port serves so far (the dense GQA family, the MoE family, the hybrid
-family and the xLSTM family) and the paper's two CNNs."""
+"""Architecture registry: ``--arch <id>`` resolution. It holds the JAX
+package's ten LMs (the dense GQA family, the MoE family, the hybrid
+family, the xLSTM family and the two frontend configs) and the paper's two
+CNNs."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
 from repro_torch.configs import cnn
-from repro_torch.configs.base import (CNNConfig, ModelConfig, MoEConfig,
-                                      SSMConfig, XLSTMConfig)
+from repro_torch.configs.base import (CNNConfig, FrontendConfig,
+                                      ModelConfig, MoEConfig, SSMConfig,
+                                      XLSTMConfig)
 
 ARCH_MODULES: Dict[str, str] = {
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "arctic-480b": "arctic_480b",
     "jamba-1.5-large-398b": "jamba_1_5_large",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "musicgen-medium": "musicgen_medium",
     "stablelm-1.6b": "stablelm_1_6b",
     "command-r-35b": "command_r_35b",
     "qwen3-0.6b": "qwen3_0_6b",
@@ -40,5 +44,5 @@ def get_cnn_config(arch: str) -> CNNConfig:
     return cnn.config(arch)
 
 
-__all__ = ["CNNConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+__all__ = ["CNNConfig", "FrontendConfig", "ModelConfig", "MoEConfig", "SSMConfig",
            "XLSTMConfig", "get_config", "get_smoke_config", "get_cnn_config"]

@@ -38,9 +38,20 @@ class XLSTMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """A modality frontend's stub, as the JAX package's: the caller passes
+    precomputed embeddings (``batch["embeds"]``, (B, n_embeds, d_model)),
+    which a (d_model, d_model) linear maps before they are prepended to
+    the token stream."""
+    kind: str = "none"          # none | clip_patches | encodec_frames
+    n_embeds: int = 0           # patches / frames prepended to the tokens
+    embed_dim: int = 0          # equals d_model
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid | ssm
+    family: str                 # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,6 +71,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
+    frontend: FrontendConfig = FrontendConfig()
     attn_chunk_kv: int = 1024   # KV chunk of the train route's CPU flash
     subquadratic: bool = False  # True for ssm/hybrid: long_500k is runnable
     max_seq_len: int = 32_768
@@ -76,6 +88,12 @@ class ModelConfig:
             return self.block_pattern
         return ("attn",) * self.n_layers
 
+    @property
+    def n_frontend(self) -> int:
+        """Positions the frontend prepends to the token stream (0 without
+        one)."""
+        return self.frontend.n_embeds if self.frontend.kind != "none" else 0
+
     def is_moe_layer(self, idx: int) -> bool:
         m = self.moe
         if m is None or m.n_experts == 0:
@@ -85,7 +103,8 @@ class ModelConfig:
     def param_count(self, active_only: bool = False) -> int:
         """The JAX package's parameter count (its roofline's N), formula
         for formula: an estimate from the config, not a count of a tree's
-        leaves (the xLSTM terms are approximate there too)."""
+        leaves (the xLSTM terms are approximate there too, and the
+        frontend linear is not counted)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for i, kind in enumerate(self.pattern):

@@ -70,10 +70,13 @@
 //     live segment gets the same bits whichever way it goes. No second
 //     launch: the host sets the pace of a decode step, and a combine kernel
 //     would add one launch a layer.
-//   * Templated on hd in {16, 32, 64, 128} (64 the repo's qwen3-0.6b, 128
-//     the published one's, 16 the smoke config's) and G <= 16, one m16
-//     tile. This narrows the earlier contract (any hd <= 128, G <= 8): the
-//     wrapper refuses anything else.
+//   * Templated on hd in {16, 32, 64, 96, 128} (64 the repo's qwen3-0.6b,
+//     128 the published one's, 96 phi-3-vision's, 16 the smoke config's)
+//     and G <= 16, one m16 tile. This narrows the earlier contract (any hd
+//     <= 128, G <= 8): the wrapper refuses anything else. At hd 96 a 16-dim
+//     chunk is one of six k16 steps and INT8 V's dims go in three groups of
+//     four n-tiles (v_dim); rows pad to 112 bytes (INT8) and 208 (bf16),
+//     both on distinct banks for 8 neighbouring positions.
 // Bits: a tile or segment wholly past the limit is skipped, the positions
 //   past it in a live tile are zeros masked to -1e30 (p == 0 exactly), the
 //   64-position tiles and the segments sit at absolute positions, the warps
@@ -542,6 +545,7 @@ cudaError_t launch_hd(int hd, dim3 grid, const void* q, const void* k,
     case 16: return launch_one<T, 16, Addr>(grid, q, k, v, k_s, v_s, start, out, ws, W, Hkv, G, a, scale, s);
     case 32: return launch_one<T, 32, Addr>(grid, q, k, v, k_s, v_s, start, out, ws, W, Hkv, G, a, scale, s);
     case 64: return launch_one<T, 64, Addr>(grid, q, k, v, k_s, v_s, start, out, ws, W, Hkv, G, a, scale, s);
+    case 96: return launch_one<T, 96, Addr>(grid, q, k, v, k_s, v_s, start, out, ws, W, Hkv, G, a, scale, s);
     case 128: return launch_one<T, 128, Addr>(grid, q, k, v, k_s, v_s, start, out, ws, W, Hkv, G, a, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -589,8 +593,8 @@ extern "C" const char* error_string(int code) {
 // multiple of 16 bytes); k_s, v_s (B, W, Hkv) f32 with the last two dims
 // contiguous and batch stride s_bstride (ignored unless quantized); start
 // (B,) int32 -> out (B, Hq, hd) bf16. ws: the split-KV workspace (see
-// launch). Needs hd in {16, 32, 64, 128} and G <= 16. A slot at start[b] >=
-// W sees the whole window, as in the plain version.
+// launch). Needs hd in {16, 32, 64, 96, 128} and G <= 16. A slot at
+// start[b] >= W sees the whole window, as in the plain version.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* k_s, const void* v_s,
                                 const void* start, void* out, void* ws,

@@ -36,16 +36,18 @@
 //     read (the Pallas kernel's block skip), and only tiles that cross the
 //     block's first query apply the causal mask. q, k and v are read
 //     through their strides (no transposes); the output is contiguous.
-//   * Templated on hd in {16, 64, 128}: 64 is the repo's qwen3-0.6b, 128 the
-//     published one's, 16 the smoke config's. Register budget at hd 128:
-//     64 f32 of O, 32 of S, 32 words of Q a thread.
+//   * Templated on hd in {16, 64, 96, 128}: 64 is the repo's qwen3-0.6b,
+//     128 the published one's, 96 phi-3-vision's (six k16 steps, twelve
+//     n8 tiles; 208-byte rows), 16 the smoke config's. Register budget at
+//     hd 128: 64 f32 of O, 32 of S, 32 words of Q a thread.
 // Staging: B7's. Scores (q . k) in f32 from the bf16 operands, times
 //   hd^-0.5 in f32 after the product; the mask value -1e30; m and l in f32
 //   with expf; l sums the unrounded p, PV takes p rounded to bf16,
 //   accumulated in f32; out = acc / max(l, 1e-30) rounded to bf16; lse =
 //   m + log l. The jnp train route of the JAX package instead scales q in
 //   f32 and rounds it to bf16 before the product (models/attention.py); for
-//   hd = 64 the scale is 2^-3, so both give the same scores.
+//   hd = 64 the scale is 2^-3, so both give the same scores (at hd 96 and
+//   128 they differ by that rounding).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -293,7 +295,7 @@ extern "C" const char* error_string(int code) {
 // multiples of 8 (q_sb, q_ss, q_sh for q's batch, position and head axes;
 // likewise k_* and v_*); Hq = G * Hkv.
 // -> out (B, S, Hq, hd) bf16 contiguous, lse (B, Hq, S) f32 contiguous.
-// Needs hd in {16, 64, 128}, G <= 64 and at most 65535 tiles of 64 / G
+// Needs hd in {16, 64, 96, 128}, G <= 64 and at most 65535 tiles of 64 / G
 // queries.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse, int B, int S, int Hkv,
@@ -321,6 +323,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   switch (hd) {
     case 16: e = launch<16>(grid, qp, kp, vp, op, lp, S, Hkv, G, qs, ks, vs, scale, st); break;
     case 64: e = launch<64>(grid, qp, kp, vp, op, lp, S, Hkv, G, qs, ks, vs, scale, st); break;
+    case 96: e = launch<96>(grid, qp, kp, vp, op, lp, S, Hkv, G, qs, ks, vs, scale, st); break;
     case 128: e = launch<128>(grid, qp, kp, vp, op, lp, S, Hkv, G, qs, ks, vs, scale, st); break;
     default: e = cudaErrorInvalidValue;
   }

@@ -66,9 +66,11 @@
 //     column) does not depend on the other rows of its tile. So a row's
 //     output depends only on its absolute position: chunked prefill gives
 //     the same bits as whole-prompt prefill, row for row.
-//   * Templated on hd in {16, 32, 64, 128}: 64 is the repo's qwen3-0.6b, 128
-//     the published one's, 16 the smoke config's. This narrows the earlier
-//     contract (any hd <= 128): another hd is refused.
+//   * Templated on hd in {16, 32, 64, 96, 128}: 64 is the repo's
+//     qwen3-0.6b, 128 the published one's, 96 phi-3-vision's, 16 the smoke
+//     config's. This narrows the earlier contract (any hd <= 128): another
+//     hd is refused. At hd 96 the INT8 stage's 96-byte rows widen in six
+//     16-value steps into the same 208-byte bf16 rows as the bf16 ring.
 //   * No split-KV: at the serve chunk the window is one or two tiles.
 // Layouts: one body templated on an address policy (attn_tile.cuh;
 //   contiguous: b * kv_bstride + pos * Hkv * hd; paged: (table[b, pos /
@@ -412,6 +414,7 @@ cudaError_t launch_hd(int hd, dim3 grid, int warps, const void* q,
     case 16: return launch_one<T, 16, Addr>(grid, warps, q, k, v, k_s, v_s, start, out, Sq, W, Hkv, G, a, scale, s);
     case 32: return launch_one<T, 32, Addr>(grid, warps, q, k, v, k_s, v_s, start, out, Sq, W, Hkv, G, a, scale, s);
     case 64: return launch_one<T, 64, Addr>(grid, warps, q, k, v, k_s, v_s, start, out, Sq, W, Hkv, G, a, scale, s);
+    case 96: return launch_one<T, 96, Addr>(grid, warps, q, k, v, k_s, v_s, start, out, Sq, W, Hkv, G, a, scale, s);
     case 128: return launch_one<T, 128, Addr>(grid, warps, q, k, v, k_s, v_s, start, out, Sq, W, Hkv, G, a, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -457,9 +460,9 @@ extern "C" const char* error_string(int code) {
 // contiguous, 16-byte aligned, and batch stride kv_bstride elements (a
 // multiple of 16 bytes); k_s, v_s (B, W, Hkv) f32 with the last two dims
 // contiguous and batch stride s_bstride (ignored unless quantized); start
-// (B,) int32 -> out (B, Sq, Hq, hd) bf16. Needs hd in {16, 32, 64, 128} and
-// G <= 16 * warps. A query at start[b] + i >= W sees the whole window, as
-// in the plain version.
+// (B,) int32 -> out (B, Sq, Hq, hd) bf16. Needs hd in {16, 32, 64, 96,
+// 128} and G <= 16 * warps. A query at start[b] + i >= W sees the whole
+// window, as in the plain version.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  const void* k_s, const void* v_s,
                                  const void* start, void* out, int B, int Sq,

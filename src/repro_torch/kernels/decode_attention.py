@@ -38,8 +38,9 @@ PAGED_KERNEL = build.Kernel("decode_attention", "paged_decode_attention",
 # plan whose segment count or workspace do not match its own.
 SEG, BKV = 256, 64
 G_MAX = 16
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instances: 16 the smoke config,
-                                # 64 the repo's qwen3-0.6b, 128 the published
+HEAD_DIMS = (16, 32, 64, 96, 128)   # the kernel's instances: 16 the smoke
+                                    # config, 64 the repo's qwen3-0.6b, 96
+                                    # phi-3-vision, 128 the published qwen3
 TICKETS = 8192
 # 4-byte elements of the first workspace: the tickets and the records of 4
 # slots of qwen3-0.6b (8 kv heads, G 2, hd 64) over its 40,960 positions

@@ -26,7 +26,8 @@ KERNEL = build.Kernel("flash_attention", "flash_attention",
                       + [ctypes.c_longlong] * 9 + [ctypes.c_float])
 
 G_MAX = 64                  # query heads per kv head: a block's 64 rows
-HEAD_DIMS = (16, 64, 128)   # the kernel's instances (smoke, repo, Qwen3)
+HEAD_DIMS = (16, 64, 96, 128)   # the kernel's instances (smoke, repo,
+                                # phi-3-vision, Qwen3)
 BACKWARD_BLOCK_Q = 512      # query rows per block of the backward
 ROWS = 64                   # a block's rows, as in csrc/flash_attention.cu
 

@@ -50,6 +50,7 @@ the run, ``--profile-dir`` a ``torch.profiler`` Chrome trace of it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import time
@@ -83,9 +84,12 @@ def synth_requests(cfg, n: int, prompt_len: int, max_new_tokens: int,
 
 def _calib_batch(cfg, batch: int, seq: int, device, seed: int = 17) -> dict:
     rng = np.random.RandomState(seed)
-    return {"tokens": torch.as_tensor(
+    b = {"tokens": torch.as_tensor(
         rng.randint(0, cfg.vocab_size, (batch, seq)), dtype=torch.long,
         device=device)}
+    if cfg.n_frontend:
+        b["embeds"] = lm.frontend_embeds(cfg, batch, device)
+    return b
 
 
 def build_artifact(params, cfg, prune_steps: int,
@@ -352,41 +356,80 @@ def run_engine(params, cfg, args, quantized_kv: bool, device, log=print,
     return results, stats
 
 
-def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print,
-                 sampling=None):
-    """One batch of equal-length prompts: prefill, then decode, greedy or
-    drawn with the engine's key rule (the token's position)."""
+@dataclasses.dataclass
+class Lockstep:
+    """What ``lockstep`` returns: the tokens (B, n_new) on the host, the
+    prefill's last-position logits (B, V), the prefill's and the decode
+    steps' seconds (synchronised) and the KV cache's bytes."""
+    tokens: np.ndarray
+    first_logits: torch.Tensor
+    prefill_s: float
+    decode_s: float
+    kv_bytes: int
+
+
+def lockstep(params, cfg, prompts: torch.Tensor, n_new: int, max_seq: int,
+             quantized_kv: bool, device, embeds=None,
+             sampling=None) -> Lockstep:
+    """One batch of equal-length ``prompts`` (B, S): a prefill, of
+    ``embeds`` (B, n_fr, d) before the prompt when the config has a
+    frontend, then ``n_new`` - 1 decode steps, greedy or drawn with the
+    engine's key rule (the token's position in the text: a frontend's
+    positions do not count)."""
     scfg = sampling or smp.GREEDY
     base = smp.base_key(scfg, device)
+    cuda = torch.device(device).type == "cuda"
 
     def pick(logits, pos: int) -> torch.Tensor:
         at = torch.full((logits.shape[0],), pos, device=device)
         return smp.sample_batch(logits[:, -1], scfg, base, at)[:, None]
 
-    state = lm.init_decode_state(cfg, args.batch, args.max_seq,
+    def clock() -> float:
+        if cuda:
+            torch.cuda.synchronize(device)
+        return time.monotonic()
+
+    state = lm.init_decode_state(cfg, prompts.shape[0], max_seq,
                                  params=params, quantized_kv=quantized_kv,
                                  device=device)
-    rng = np.random.RandomState(0)
-    prompts = torch.as_tensor(rng.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)), device=device)
+    t0 = clock()
     logits, state = lm.decode_step(params, cfg, state, prompts,
-                                   route="prefill")
-    pos = args.prompt_len
+                                   route="prefill", embeds=embeds)
+    t1 = clock()
+    first = logits[:, -1].clone()
+    pos = prompts.shape[1]
     tok = pick(logits, pos)
     outputs = [tok]
-    t0 = time.monotonic()
-    for _ in range(args.tokens - 1):
+    for _ in range(n_new - 1):
         logits, state = lm.decode_step(params, cfg, state, tok,
                                        route="decode")
         pos += 1
         tok = pick(logits, pos)
         outputs.append(tok)
     out = torch.cat(outputs, dim=1).cpu().numpy()
-    t_decode = time.monotonic() - t0
+    kv = sum(t.numel() * t.element_size()
+             for t in tree.leaves(state["caches"]))
+    return Lockstep(out, first, t1 - t0, clock() - t1, kv)
+
+
+def run_lockstep(params, cfg, args, quantized_kv: bool, device, log=print,
+                 sampling=None):
+    """The launcher's lockstep batch (``lockstep``): ``args.batch``
+    prompts of ``args.prompt_len`` tokens from ``RandomState(0)``, after
+    the launcher's zero embeddings when the config has a frontend, as the
+    JAX package's launcher does. Returns the tokens."""
+    rng = np.random.RandomState(0)
+    prompts = torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)), device=device)
+    embeds = (lm.frontend_embeds(cfg, args.batch, device)
+              if cfg.n_frontend else None)
+    run = lockstep(params, cfg, prompts, args.tokens, args.max_seq,
+                   quantized_kv, device, embeds=embeds, sampling=sampling)
     log(f"[serve] decode {args.tokens - 1} steps on {device}: "
-        f"{args.batch * (args.tokens - 1) / max(t_decode, 1e-9):.1f} tok/s")
-    log(f"[serve] sample continuation (req 0): {out[0][:16]}")
-    return out
+        f"{args.batch * (args.tokens - 1) / max(run.decode_s, 1e-9):.1f} "
+        f"tok/s")
+    log(f"[serve] sample continuation (req 0): {run.tokens[0][:16]}")
+    return run.tokens
 
 
 def main(argv=None):
@@ -509,9 +552,17 @@ def main(argv=None):
         if not (args.hqp or args.load_artifact):
             ap.error("--spec-k needs a drafter: pass --hqp (build one) or "
                      "--load-artifact")
-    device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    # the lockstep batch writes its frontend positions, its prompt and
+    # every new token but the last, which is never fed back
+    need = cfg.n_frontend + args.prompt_len + args.tokens - 1
+    if not args.engine and need > args.max_seq:
+        ap.error(f"the lockstep batch needs --max-seq >= {need} "
+                 f"({cfg.n_frontend} frontend positions + --prompt-len "
+                 f"{args.prompt_len} + --tokens {args.tokens} - 1), got "
+                 f"{args.max_seq}")
+    device = resolve_device(args.device)
     sampling = smp.SamplingConfig(temperature=args.temperature,
                                   top_k=args.top_k, seed=args.seed)
     params, quantized_kv, manifest, parent = acquire_params(args, cfg,

@@ -4,7 +4,9 @@ ported).
 
 Trains ``--arch`` (``--smoke``: its reduced config; dense, MoE, hybrid or
 xLSTM, the experts at the capacity factor's drops with the auxiliary
-losses) on a synthetic Markov corpus with AdamW (``--state-dtype int8``:
+losses; a frontend config, phi-3-vision or musicgen, with zero
+embeddings before each row, as the JAX package's launcher) on a synthetic
+Markov corpus with AdamW (``--state-dtype int8``:
 INT8 moments), ``--microbatches`` of gradient accumulation, a checkpoint
 every ``--ckpt-every`` steps into ``--ckpt-dir``, from which a restart
 resumes; SIGTERM writes a last checkpoint and exits with 143.
@@ -87,6 +89,9 @@ def main(argv=None):
             batch = {"tokens": torch.as_tensor(next(it)["tokens"],
                                                dtype=torch.long,
                                                device=device)}
+            if cfg.n_frontend:
+                batch["embeds"] = lm.frontend_embeds(cfg, args.batch,
+                                                        device)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if step % 10 == 0 or step == args.steps - 1:
                 aux = "".join(f" {k}={float(v):.4g}"
@@ -96,8 +101,12 @@ def main(argv=None):
                       f"({(time.time() - t0):.1f}s)", flush=True)
             if args.eval_every and (step + 1) % args.eval_every == 0:
                 vb = next(val.batches(args.batch))
-                acc = float(eval_fn(params, {"tokens": torch.as_tensor(
-                    vb["tokens"], dtype=torch.long, device=device)}))
+                evb = {"tokens": torch.as_tensor(vb["tokens"],
+                                                 dtype=torch.long,
+                                                 device=device)}
+                if cfg.n_frontend:
+                    evb["embeds"] = batch["embeds"]
+                acc = float(eval_fn(params, evb))
                 print(f"[train] step {step} next-token-acc={acc:.4f}")
             if args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
                                   or stop["flag"]):

@@ -5,10 +5,12 @@ residual MLP beside them); the hybrid family (jamba), whose ``mamba``
 layers put ``models/ssm.py``'s mixer in place of attention, each followed
 by an MLP or the experts; and the xLSTM family, whose ``mlstm`` and
 ``slstm`` blocks (``models/xlstm.py``) are a norm and the block alone, with
-no FFN.
+no FFN. A config with a frontend (phi-3-vision, musicgen) prepends the
+frontend linear's map of precomputed embeddings to the token stream.
 
 Params are plain dicts: ``{"embed": {"table"}, "blocks": [per-layer dict],
-"final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied). The
+"final_norm": {"g"}}`` (plus ``"unembed"`` when embeddings are untied, and
+``"frontend": {"w"}`` for a config with a frontend). The
 JAX package stacks the layers of each position of the pattern's period and
 scans them; here ``blocks`` is a list in layer order and the forward pass
 is a Python loop over it (``weights`` converts).
@@ -29,7 +31,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.compress.quantize import quantize_lm_params
+from repro_torch.compress.quantize import (quantize_linear,
+                                           quantize_lm_params)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -110,18 +113,27 @@ def init_params(cfg, seed: int = 0, device=None,
     ``quantized`` each layer goes through ``quantize_lm_params`` as soon as
     it is drawn, before the next one is: the INT8 model of a config whose
     bf16 layers do not fit the card together, the same bits as
-    ``quantize_lm_params(init_params(cfg, seed))``."""
+    ``quantize_lm_params(init_params(cfg, seed))``.
+
+    A config with a frontend gets a top-level (d_model, d_model)
+    ``frontend`` linear, as the JAX package's, drawn after every other
+    leaf: the rest of the tree is the one the config without a frontend
+    draws, bit for bit."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     v_pad = padded_vocab(cfg)
     params: Dict[str, Any] = {"embed": L.embed_init(gen, v_pad, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(gen, v_pad, cfg.d_model)
-    params["blocks"] = []
+    blocks = []
     for kind, is_moe in layer_specs(cfg):
         blk = _block_init(gen, cfg, kind, is_moe)
-        params["blocks"].append(quantize_lm_params(blk) if quantized
-                                else blk)
+        blocks.append(quantize_lm_params(blk) if quantized else blk)
+    if cfg.n_frontend:
+        # the reference's key order: the frontend before the blocks
+        fr = L.linear_init(gen, cfg.d_model, cfg.d_model)
+        params["frontend"] = quantize_linear(fr) if quantized else fr
+    params["blocks"] = blocks
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     return params
 
@@ -184,13 +196,36 @@ def _recurrent(kind: str):
 
 
 # ------------------------------------------------------------------ train
+def embed_inputs(params: dict, cfg, tokens: torch.Tensor,
+                 embeds: Optional[torch.Tensor] = None,
+                 batch_invariant: bool = True) -> torch.Tensor:
+    """The model's input sequence (B, n + S, d) bf16: the token embeddings
+    of ``tokens`` (B, S), after the ``frontend`` linear's map of
+    ``embeds`` (B, n, d) when the config has a frontend and ``embeds`` is
+    given (n = 0 otherwise), as the JAX package prepends them."""
+    x = L.embed_lookup(params["embed"], tokens)
+    if embeds is None or not cfg.n_frontend:
+        return x
+    fr = L.dense(embeds.to(L.COMPUTE_DTYPE), params["frontend"],
+                 batch_invariant)
+    return torch.cat([fr, x], dim=1)
+
+
+def frontend_embeds(cfg, batch: int, device) -> torch.Tensor:
+    """The launchers' stand-in for a frontend's precomputed embeddings, as
+    the JAX package's: zeros (batch, n_fr, d_model) bf16."""
+    return torch.zeros((batch, cfg.n_frontend, cfg.d_model),
+                       dtype=torch.bfloat16, device=device)
+
+
 def forward(params: dict, cfg, batch: dict, with_aux: bool = False,
             moe_no_drop: bool = True):
-    """Final hidden states (B, S, d) of ``batch["tokens"]`` (B, S) on the
-    train route: every attention layer attends its own fresh K/V causally,
-    every Mamba, mLSTM or sLSTM layer runs its recurrence from zero state
-    (the mLSTM in its chunkwise form: ``xlstm.mlstm_forward``). The ported
-    families have no frontend.
+    """Final hidden states (B, n_fr + S, d) of ``batch["tokens"]`` (B, S)
+    on the train route: every attention layer attends its own fresh K/V
+    causally, every Mamba, mLSTM or sLSTM layer runs its recurrence from
+    zero state (the mLSTM in its chunkwise form: ``xlstm.mlstm_forward``).
+    A config with a frontend takes ``batch["embeds"]`` (B, n_fr, d), whose
+    map by the ``frontend`` linear the tokens follow (``embed_inputs``).
 
     ``moe_no_drop`` is the reference's ``ctx.moe_no_drop``: True (the
     Fisher pass, the evaluations) runs the experts at inference capacity,
@@ -199,8 +234,9 @@ def forward(params: dict, cfg, batch: dict, with_aux: bool = False,
     and router-z losses summed in layer order ({} when no layer is MoE),
     as the JAX package's ``forward``; without it the hidden states
     alone."""
-    tokens = batch["tokens"]
-    x = L.embed_lookup(params["embed"], tokens)
+    x = embed_inputs(params, cfg, batch["tokens"],
+                     batch["embeds"] if cfg.n_frontend else None,
+                     batch_invariant=False)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     specs = layer_specs(cfg)
@@ -229,8 +265,10 @@ def forward(params: dict, cfg, batch: dict, with_aux: bool = False,
 
 def loss_fn(params: dict, cfg, batch: dict, ce_chunk: int = 512,
             with_aux: bool = False, moe_no_drop: bool = True):
-    """Mean next-token cross-entropy: hidden position i predicts token
-    i + 1. The sequence is cut into chunks of ``ce_chunk`` positions, so the
+    """Mean next-token cross-entropy over the text positions: hidden
+    position n_fr + i predicts token i + 1 (n_fr the frontend's
+    positions, 0 without one). The sequence is cut into chunks of
+    ``ce_chunk`` positions, so the
     (B, S, V) logits are never whole (peak (B, ce_chunk, V)); the padded
     vocab is masked. With ``with_aux`` the MoE auxiliary losses are added
     to it and it returns (loss, aux), as the JAX package's ``loss_fn``;
@@ -239,7 +277,8 @@ def loss_fn(params: dict, cfg, batch: dict, ce_chunk: int = 512,
     hidden, aux = out if with_aux else (out, {})
     tokens = batch["tokens"]
     b, st = tokens.shape
-    h, targets = hidden[:, :st - 1], tokens[:, 1:]
+    n_fr = cfg.n_frontend
+    h, targets = hidden[:, n_fr:n_fr + st - 1], tokens[:, 1:]
     n_tok = h.shape[1]
     total = hidden.new_zeros((), dtype=torch.float32)
     for c0 in range(0, n_tok, ce_chunk):
@@ -305,13 +344,19 @@ def init_decode_state(cfg, batch: int, max_seq: int,
 
 
 def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
-                window: Optional[int] = None, route: Optional[str] = None
+                window: Optional[int] = None, route: Optional[str] = None,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens (B, S_new) at positions ``state["pos"]`` onward (an int, or a
     (B,) tensor of per-row positions). Writes the new K/V into the caches in
     place and returns (logits (B, 1, V_pad) f32 of the LAST position, the
     state with ``pos`` advanced by S_new, each recurrent layer's new state
     in place of its old one, which is not written).
+
+    ``embeds`` (B, n, d), for a config with a frontend, are the frontend's
+    precomputed embeddings, mapped and prepended to the tokens (a prefill
+    call): they take positions ``pos`` .. ``pos + n - 1`` and ``pos``
+    advances by n + S_new, as in the JAX package.
 
     Only the last position's logits are computed: every caller (engine
     prefill and decode, serial decode) reads only those, and the unembed is
@@ -323,7 +368,8 @@ def decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
     per-row page table. The table is an input only and the returned state
     never carries it: the engine redirects rows to the trash page between
     dispatches, which a pass-through would undo."""
-    x, new = _cached_layers(params, cfg, state, tokens, window, route)
+    x, new = _cached_layers(params, cfg, state, tokens, window, route,
+                            embeds)
     x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x), new
 
@@ -349,12 +395,14 @@ def verify_step(params: dict, cfg, state: dict, tokens: torch.Tensor,
 
 
 def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
-                   window: Optional[int], route: Optional[str]
+                   window: Optional[int], route: Optional[str],
+                   embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, dict]:
     """The layers of ``decode_step`` / ``verify_step``: hidden states (B,
-    S_new, d) before the final norm, and the advanced state (the KV caches
-    written in place, new recurrent states)."""
-    x = L.embed_lookup(params["embed"], tokens)
+    n + S_new, d) before the final norm (n the ``embeds`` prepended, if
+    any), and the advanced state (the KV caches written in place, new
+    recurrent states)."""
+    x = embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     cur: Union[int, torch.Tensor] = state["pos"]
     pages = state.get("pages")

@@ -218,6 +218,10 @@ class Engine:
     an empty arena, as the JAX package's engine does: its slots take
     pages and tables, and every layer's state is recurrent.
 
+    A config with a frontend (phi-3-vision, musicgen) is refused with
+    ``NotImplementedError``, as by the JAX package's engine: its requests
+    would need per-slot embeddings.
+
     ``clock`` is the monotonic clock behind every timestamp the engine
     takes: request times, ``last_step`` and the tracer's spans. A
     ``serving.Service`` points it at its own clock, so one fake clock
@@ -234,6 +238,12 @@ class Engine:
                  spec_cycles: int = 1, draft_manifest=None,
                  draft_quantized_kv: bool = True,
                  clock=telemetry.default_clock):
+        if cfg.n_frontend:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves token-only archs; a "
+                f"frontend config's requests need per-slot embeddings, "
+                f"which the JAX package's engine refuses too (serve it "
+                f"through the lockstep loop)")
         self.device = resolve_device(device)
         if lm.params_device(params) != self.device:
             raise ValueError(f"params lie on {lm.params_device(params)}, "

@@ -25,7 +25,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
     the capacity factor's drops. With ``num_microbatches`` > 1 the batch is
     cut into that many equal microbatches along axis 0; their gradients
     are summed in f32 and divided by the count, as is their loss, and the
-    aux is the last microbatch's."""
+    aux is the last microbatch's. Every entry of ``batch`` (``tokens``,
+    and a frontend's ``embeds``) is cut by rows alike."""
     grad_fn = value_and_grad(
         lambda p, b: lm.loss_fn(p, cfg, b, with_aux=True,
                                 moe_no_drop=moe_no_drop),
@@ -62,12 +63,16 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
 def make_eval_step(cfg) -> Callable:
     """``eval_step(params, batch)`` -> next-token top-1 accuracy over
     ``batch["tokens"]`` (B, S), a 0-d f32 tensor on the params' device (the
-    Δ accuracy metric of the LM track)."""
+    Δ accuracy metric of the LM track). A config with a frontend takes
+    ``batch["embeds"]`` too, and its positions predict no token."""
+    n_fr = cfg.n_frontend
+
     @torch.no_grad()
     def eval_step(params: dict, batch: dict) -> torch.Tensor:
         tokens = batch["tokens"]
         hidden = lm.forward(params, cfg, batch)
-        logits = lm.logits_fn(params, cfg, hidden[:, :tokens.shape[1] - 1],
+        logits = lm.logits_fn(params, cfg,
+                              hidden[:, n_fr:n_fr + tokens.shape[1] - 1],
                               batch_invariant=False)
         pred = logits.argmax(-1)
         return (pred == tokens[:, 1:]).float().mean()

@@ -157,6 +157,19 @@ def bf16_ulp(x: np.ndarray) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ checks
+def batches(family: dict):
+    """The family's batch for the reference and for the port: its
+    ``tokens``, and its ``embeds`` (a frontend config's) when it has
+    them."""
+    jb = {"tokens": jnp.asarray(family["tokens"], jnp.int32)}
+    tb = {"tokens": torch.as_tensor(family["tokens"])}
+    if "embeds" in family:
+        jb["embeds"] = jnp.asarray(family["embeds"], jnp.bfloat16)
+        tb["embeds"] = torch.from_numpy(family["embeds"].copy()).to(
+            torch.bfloat16)
+    return jb, tb
+
+
 def check_loss(family: dict, no_drop: bool) -> None:
     """``lm.loss_fn(with_aux=True)`` and its gradient against the JAX
     package's on the family's smoke config: the loss (the auxiliary losses
@@ -164,16 +177,16 @@ def check_loss(family: dict, no_drop: bool) -> None:
     experts), the gradient of every leaf."""
     from repro_torch.core.sensitivity import value_and_grad
     from repro_torch.models import lm
-    jcfg, cfg, toks = family["jcfg"], family["cfg"], family["tokens"]
+    jcfg, cfg = family["jcfg"], family["cfg"]
     jctx = ctx(no_drop)
+    jb, tb = batches(family)
     (jl, jaux), jg = jax.jit(jax.value_and_grad(
-        lambda p, t: jlm.loss_fn(p, jcfg, {"tokens": t}, jctx,
-                                 with_aux=True), has_aux=True))(
-        family["jp"], jnp.asarray(toks, jnp.int32))
+        lambda p, b: jlm.loss_fn(p, jcfg, b, jctx, with_aux=True),
+        has_aux=True))(family["jp"], jb)
     (tl, taux), tg = value_and_grad(
         lambda p, b: lm.loss_fn(p, cfg, b, with_aux=True,
                                 moe_no_drop=no_drop), has_aux=True)(
-        family["tp"], {"tokens": torch.as_tensor(toks)})
+        family["tp"], tb)
     assert tl.dtype == torch.float32 and tl.ndim == 0
     np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
     assert sorted(taux) == sorted(jaux)
@@ -220,10 +233,10 @@ def check_step(family: dict, microbatches: int, lr: float = 1e-3) -> None:
     ocfg, jocfg = opt.AdamWConfig(lr=lr), jopt.AdamWConfig(lr=lr)
     step = make_train_step(cfg, ocfg, microbatches, moe_no_drop=False)
     jstep = jax.jit(jmake_train_step(jcfg, ctx(False), jocfg, microbatches))
-    tp, ts, m = step(family["tp"], opt.adamw_init(family["tp"], ocfg),
-                     {"tokens": torch.as_tensor(family["tokens"])})
+    jb, tb = batches(family)
+    tp, ts, m = step(family["tp"], opt.adamw_init(family["tp"], ocfg), tb)
     jp, js, jm = jstep(family["jp"], jopt.adamw_init(family["jp"], jocfg),
-                       {"tokens": jnp.asarray(family["tokens"], jnp.int32)})
+                       jb)
     assert sorted(m) == sorted(jm)
     assert ("aux/load_balance" in m) == has_experts(cfg)
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),

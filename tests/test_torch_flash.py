@@ -77,10 +77,11 @@ def test_plain_flash_vs_oracle_and_pallas(bh, s, hd, bq, bk):
                                **PALLAS)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
 def test_plain_flash_bf16_gqa_vs_oracle(hd):
     """The plain version at the card's GQA shapes, bf16, hd 64 (the repo's
-    qwen3-0.6b) and 128 (the published one's): against the JAX oracle on
+    qwen3-0.6b), 96 (phi-3-vision's) and 128 (the published qwen3's):
+    against the JAX oracle on
     the heads repeated, both in f32 from the same bf16 values, then rounded
     to bf16 (one bf16 ulp)."""
     (qj, qt), (kj, kt), (vj, vt) = _qkv(hd, 2, 40, 8, 4, hd, "bf16")

@@ -64,6 +64,7 @@ def test_port_imports_without_jax():
         "    granite_3_8b, phi35_moe_42b, stablelm_1_6b)\n"
         "import repro_torch.models.ssm, repro_torch.configs.jamba_1_5_large\n"
         "import repro_torch.models.xlstm, repro_torch.configs.xlstm_1_3b\n"
+        "from repro_torch.configs import phi_3_vision_4_2b, musicgen_medium\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

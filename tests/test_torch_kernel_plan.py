@@ -11,10 +11,13 @@ memory within a Hopper block's 232,448 bytes, copy and load widths that
 divide the row pitch, split-KV segments at absolute positions, and
 workspaces that the model's shapes never outgrow, made once per device;
 and a library rebuilt when a header it includes changes."""
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
@@ -122,7 +125,8 @@ def test_gemm_plan_x_width_and_long_k():
 
 @pytest.mark.parametrize("b,s,hq,hkv", [(2, 32, 16, 8), (1, 2048, 16, 8),
                                         (1, 1000, 16, 8), (2, 256, 8, 8),
-                                        (2, 67, 6, 2), (1, 5, 24, 1)])
+                                        (2, 67, 6, 2), (1, 5, 24, 1),
+                                        (2, 608, 32, 32)])
 def test_flash_plan_covers_every_row(b, s, hq, hkv):
     plan = kf.flash_plan(b, s, hq, hkv)
     g = hq // hkv
@@ -301,7 +305,8 @@ def test_decode_segment_reads_a_slice_of_the_table(page_size):
                                           (4, 4096, 8, 2, 64),
                                           (6, 4096, 4, 3, 64),
                                           (6, 1024, 1, 16, 64),
-                                          (2, 40960, 8, 2, 128)])
+                                          (2, 40960, 8, 2, 128),
+                                          (4, 640, 32, 1, 96)])
 def test_decode_workspace_covers_every_record(b, w, hkv, g, hd):
     """One segment needs no workspace; more need the tickets and a record
     of B · Hkv · segments · (G·hd + 2G) f32, each padded to 16 bytes. The
@@ -334,3 +339,33 @@ def test_ptxas_summary_reads_each_kernel():
         "ptxas info    : Used 30 registers, used 1 barriers",
     ])
     assert build.ptxas_summary(log) == [(gemm, 56, 8, 4), (quant, 30, 0, 0)]
+
+
+def _cuda_head_dims(source: str, pattern: str) -> set:
+    text = (build.CSRC / source).read_text()
+    return {int(hd) for hd in re.findall(pattern, text)}
+
+
+def test_head_dims_are_the_cuda_instances():
+    """Each wrapper's HEAD_DIMS are exactly the hd instances its CUDA
+    source switches on, so a wrapper never passes a width the kernel
+    refuses at launch."""
+    one = r"case (\d+): return launch_one<"
+    assert _cuda_head_dims("decode_attention.cu", one) == set(kd.HEAD_DIMS)
+    assert _cuda_head_dims("prefill_attention.cu", one) == set(kd.HEAD_DIMS)
+    assert _cuda_head_dims("flash_attention.cu",
+                           r"case (\d+): e = launch<") == set(kf.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("arch", sorted(configs.ARCH_MODULES))
+def test_every_published_head_dim_has_an_instance(arch):
+    """Every config of the registry that attends, at its published width,
+    has a head dim that B3-B6 and B7 take (phi-3-vision's 96 among
+    them), and its query heads a kv head within each kernel's G
+    limit."""
+    cfg = configs.get_config(arch)
+    if "attn" not in cfg.pattern:
+        return
+    hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    assert hd in kd.HEAD_DIMS and hd in kf.HEAD_DIMS
+    assert g <= kd.G_MAX and g <= kp.G_MAX and g <= kf.G_MAX

@@ -245,11 +245,12 @@ def test_prefill_attention_vs_oracle_and_pallas(quantized, sq, starts,
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("hq,hkv,hd", [(4, 4, 64), (6, 2, 16), (8, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,hd", [(4, 4, 64), (6, 2, 16), (8, 2, 128),
+                                       (4, 4, 96)])
 def test_prefill_attention_heads_and_widths_vs_oracle(quantized, hq, hkv,
                                                       hd):
     """The plain prefill at the other head groupings (G = 1, 3, 4) and
-    widths (hd 16, 64, 128) that the card holds its kernel to."""
+    widths (hd 16, 64, 96, 128) that the card holds its kernel to."""
     sq = 7
     cj, ct = _cache(hq * 100 + hd, 48, quantized, hkv, hd)
     qj, qt = _bf16(np.random.RandomState(hd).randn(B, sq, hq, hd))
@@ -283,6 +284,7 @@ def test_decode_attention_vs_oracle_and_pallas(quantized, starts, window):
 @pytest.mark.parametrize("hq,hkv,hd,w,starts,bk", [
     (16, 8, 64, 64, (63, 17, 0), 32),         # the serve grouping: G 2, hd 64
     (4, 2, 32, 320, (255, 256, 257), 64),     # around a 256-position boundary
+    (2, 2, 96, 320, (255, 256, 257), 64),     # phi-3-vision's G 1, hd 96
 ])
 def test_decode_attention_serve_grouping_and_segment_boundary(
         quantized, hq, hkv, hd, w, starts, bk):
