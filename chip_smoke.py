@@ -95,6 +95,7 @@ import json
 import math
 import os
 import pathlib
+import signal
 import shutil
 import signal
 import subprocess
@@ -207,6 +208,14 @@ SERVICE_QUEUE, SERVICE_FAULT_AT = 4, 3
 SERVICE_LONG, SERVICE_DEADLINE_S = 240, 0.05
 SERVICE_SAT_NEW, SERVICE_SUBPROCESS_S = 96, 300
 HANG_S = 1140               # the script's own limit, inside the 1200 s a run has
+# the cost model (roofline/cost.py): no step can beat its own lower bound, so
+# a measured time under the bound by more than this share means the count is
+# wrong; the dry-run phase's archs (one per family), run in a subprocess on
+# the meta device beside the card's phases
+ROOFLINE_SHARE_MAX = 1.05
+DRYRUN_ARCHS = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b",
+                "xlstm-1.3b")
+DRYRUN_VARIANTS = ("baseline", "hqp")
 # the paper's experiment (phase_cnn): the JAX package's CLI sizes (steps,
 # train / val / calib images, Δ_ax) at the published widths; a short
 # training run and a batch for the card == CPU and masked == compacted
@@ -1968,6 +1977,12 @@ def phase_train(cfg, dev, kernels, card):
         fail(f"resume from step {resume_at}: {len(bad)} leaves of params "
              f"and moments differ from the uninterrupted run's (first "
              f"{bad[:5]})")
+    roofline_check(
+        f"{cfg.name} train step, batch {qs.BATCH} x {qs.SEQ}, AdamW f32 "
+        f"moments (measured: the mean synchronised step)",
+        lambda where: step(*(((params, opt, batches[0]) if where == "cuda"
+                              else _meta((params, opt, batches[0]))))),
+        1e3 * sec["train"] / TRAIN_STEPS, card)
     del opt, batches
     train_s = sec["train"]
     tokens_per_step = qs.BATCH * qs.SEQ
@@ -2149,6 +2164,188 @@ def _graph_delta(eng, before) -> dict:
 
 
 LAYOUTS = (("contiguous", None), ("paged", SERVE_PAGE))
+
+
+def _meta(tree):
+    """``tree``'s tensors as meta tensors of their shapes and dtypes (a
+    ``QuantizedLinear``'s too): the same work, counted without values."""
+    import torch
+    from repro_torch.compress.qtypes import QuantizedLinear
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(_meta(tree.w_q), _meta(tree.scale), tree.bits)
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_meta(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def roofline_check(what, run, measured_ms, card, tag="[roofline]"):
+    """Count ``run(device)``'s work (``roofline/cost.py``) on the card and on
+    the meta device: the two counts must be equal (flops, INT8 flops,
+    bytes). Print the count, its lower bound on CHIP, the measured ms and
+    their share; fail if the share passes ROOFLINE_SHARE_MAX."""
+    import torch
+    from repro_torch.roofline import cost
+    counts = {}
+    for where in ("cuda", "meta"):
+        t0 = time.monotonic()
+        with cost.record() as c:
+            run(where)
+            if where == "cuda":
+                torch.cuda.synchronize()
+        counts[where] = (c, time.monotonic() - t0)
+    c, m = counts["cuda"][0], counts["meta"][0]
+    if c.counts() != m.counts():
+        fail(f"{what}: the card's count {c.counts()} differs from the meta "
+             f"device's {m.counts()}")
+    terms = cost.roofline_terms(c, CHIP)
+    bound_ms = terms["step_time_lower_bound_s"] * 1e3
+    share = bound_ms / measured_ms
+    print(f"{tag} {what}: flops {c.flops} (INT8 {c.int8_dot_flops}), bytes "
+          f"{c.bytes}, {sum(c.ops.values())} ops counted; lower bound "
+          f"{bound_ms:.5f} ms on {CHIP.name} ({terms['dominant']}; compute "
+          f"{terms['t_compute'] * 1e3:.5f}, memory "
+          f"{terms['t_memory'] * 1e3:.5f} ms), measured {measured_ms:.5f} "
+          f"ms, share {share:.4f}; card count == meta count (counted in "
+          f"{counts['cuda'][1]:.2f} s and {counts['meta'][1]:.2f} s)  "
+          f"[{card}]")
+    if share > ROOFLINE_SHARE_MAX:
+        fail(f"{what}: the measured {measured_ms:.5f} ms beats the lower "
+             f"bound {bound_ms:.5f} ms (share {share:.3f} > "
+             f"{ROOFLINE_SHARE_MAX}): the count is wrong")
+    return {"flops": c.flops, "int8_dot_flops": c.int8_dot_flops,
+            "bytes": c.bytes, "bound_ms": bound_ms,
+            "measured_ms": measured_ms, "share": share}
+
+
+def _serve_state(params, cfg, where, rows, pos, quantized_kv=True):
+    """A decode state of ``rows`` slots at position ``pos`` on ``where``,
+    sized from ``params``, as the engine's pool."""
+    from repro_torch.models import lm
+    st = lm.init_decode_state(cfg, rows, SERVE_MAX_SEQ, params,
+                              per_slot_pos=True, quantized_kv=quantized_kv,
+                              device=where)
+    st["pos"].fill_(pos)
+    return st
+
+
+def roofline_serving(params, cfg, decode_ms, chunk_ms, card, tag):
+    """The counted work of the profiled steady decode step (SERVE_SLOTS
+    slots past SERVE_PROMPT, INT8 KV) and of the timed prefill chunk (the
+    second SERVE_CHUNK of one slot), each at the smallest window the
+    profile's engine gave them, on the card and on the meta device."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    sched = Scheduler(SchedulerConfig(prefill_chunk=SERVE_CHUNK,
+                                      decode_steps=SERVE_STEPS))
+    meta = _meta(params)
+
+    def decode(where):
+        p = params if where == "cuda" else meta
+        st = _serve_state(p, cfg, where, SERVE_SLOTS, SERVE_PROMPT)
+        tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=where)
+        lm.decode_step(p, cfg, st, tok, route="decode",
+                       window=sched.visible_window(
+                           SERVE_PROMPT + SERVE_STEPS, SERVE_MAX_SEQ))
+
+    def chunk(where):
+        p = params if where == "cuda" else meta
+        st = _serve_state(p, cfg, where, 1, SERVE_CHUNK)
+        tok = torch.zeros((1, SERVE_CHUNK), dtype=torch.long, device=where)
+        lm.decode_step(p, cfg, st, tok, route="prefill",
+                       window=sched.visible_window(2 * SERVE_CHUNK,
+                                                   SERVE_MAX_SEQ))
+    return {"decode_step": roofline_check(
+                f"{cfg.name} INT8 decode step, {SERVE_SLOTS} slots at "
+                f"{SERVE_PROMPT}, INT8 KV (eager; measured: the replayed "
+                f"step)", decode, decode_ms, card, tag),
+            "prefill_chunk": roofline_check(
+                f"{cfg.name} INT8 prefill chunk, {SERVE_CHUNK} queries at "
+                f"{SERVE_CHUNK}, INT8 KV (eager; measured: the replayed "
+                f"chunk's host ms)", chunk, chunk_ms, card, tag)}
+
+
+def dryrun_start():
+    """The dry-run phase, started in a subprocess on the meta device (CPU
+    only: it launches nothing on the card): DRYRUN_ARCHS at every shape,
+    baseline and hqp, on the 1x1 plan of this card. Returns the process;
+    ``dryrun_finish`` reads it."""
+    code = (
+        "import sys, json, time, torch\n"
+        "t0 = time.monotonic()\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.configs import LM_SHAPES\n"
+        f"for arch in {list(DRYRUN_ARCHS)!r}:\n"
+        "    for shape in LM_SHAPES:\n"
+        f"        for variant in {list(DRYRUN_VARIANTS)!r}:\n"
+        "            rec = dryrun.run_cell(arch, shape.name, '1x1', variant,\n"
+        "                                  device='cuda', save=True)\n"
+        "            print('RECORD ' + json.dumps(rec, default=str),\n"
+        "                  flush=True)\n"
+        "print(f'ELAPSED {time.monotonic() - t0:.1f}', flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    # files, not pipes: nothing reads the output until the phase ends
+    out = open(ROOT / "build" / "dryrun_stdout.txt", "w+")
+    err = open(ROOT / "build" / "dryrun_stderr.txt", "w+")
+    def child():
+        _die_with_parent()
+        os.nice(19)         # the card's phases' host work goes first
+
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=out, stderr=err, text=True,
+                            preexec_fn=child)
+
+
+def dryrun_finish(proc, card):
+    """Wait for the dry-run subprocess; a line per cell with its dominant
+    term and ``fits_one_card``; fail if a cell errored or the process
+    did."""
+    t0 = time.monotonic()
+    try:
+        proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("dry run: the subprocess did not finish in 300 s")
+    out = (ROOT / "build" / "dryrun_stdout.txt").read_text()
+    err = (ROOT / "build" / "dryrun_stderr.txt").read_text()
+    if proc.returncode:
+        fail(f"dry run: the subprocess exited {proc.returncode}: "
+             f"{err[-2000:]}")
+    recs = [json.loads(line[len("RECORD "):]) for line in out.splitlines()
+            if line.startswith("RECORD ")]
+    want = len(DRYRUN_ARCHS) * 4 * len(DRYRUN_VARIANTS)
+    if len(recs) != want:
+        fail(f"dry run: {len(recs)} records of {want}")
+    for r in recs:
+        if r["status"] == "error":
+            fail(f"dry run {r['cell']}: {r['error']}")
+        if r["status"] == "skipped":
+            print(f"[dryrun] {r['cell']}: skipped ({r['reason']})")
+            continue
+        rf, mem = r["roofline"], r["memory"]
+        print(f"[dryrun] {r['cell']}: dominant {rf['dominant']}, lower "
+              f"bound {rf['step_time_lower_bound_s']:.6g} s (compute "
+              f"{rf['t_compute']:.6g}, memory {rf['t_memory']:.6g}), flops "
+              f"{rf['hlo_flops_per_device']} (INT8 "
+              f"{rf['hlo_int8_flops_per_device']}), model flops "
+              f"{rf['model_flops']}, arguments {mem['argument_bytes']} B + "
+              f"peak live {mem['temp_bytes']} B, fits_one_card "
+              f"{mem['fits_one_card']} (on {CHIP.name}, {CHIP.hbm_bytes:.0f} "
+              f"B), traced in {r['trace_s']} s  [{card}]")
+    took = [line.split()[1] for line in out.splitlines()
+            if line.startswith("ELAPSED ")]
+    print(f"[dryrun] {len(recs)} cells "
+          f"({sum(r['status'] == 'ok' for r in recs)} traced) in a "
+          f"subprocess on the meta device: {took[0] if took else '?'} s "
+          f"of its own beside the card's phases, "
+          f"{time.monotonic() - t0:.1f} s waited for  [{card}]")
 
 
 def phase_profile(params, cfg, dev, kernels, prompt_len=SERVE_PROMPT,
@@ -4411,6 +4608,20 @@ def phase_xlstm(dev, kernels, report, card):
         print(f"[xlstm] profile: steady decode, {cfg.name}, "
               f"{SERVE_SLOTS} slots, {layout}, replayed CUDA graphs: "
               f"{json.dumps(prof)}  [{card}]")
+    meta = _meta(params)
+
+    def decode(where):
+        p = params if where == "cuda" else meta
+        st = _serve_state(p, cfg, where, SERVE_SLOTS, XLSTM_PROMPT)
+        lm.decode_step(p, cfg, st, torch.zeros((SERVE_SLOTS, 1),
+                                               dtype=torch.long,
+                                               device=where),
+                       window=SERVE_MAX_SEQ, route="decode")
+    roofline_check(f"{cfg.name} INT8 decode step, {cfg.n_layers} layers, "
+                   f"{SERVE_SLOTS} slots at {XLSTM_PROMPT} (eager; measured: "
+                   f"the replayed paged step)", decode,
+                   prof["decode_step_ms"], card)
+    del meta
     by = _range_attribution(params, cfg, dev, kernels, {
         "mlstm (no B1)": (xlstm, "mlstm_forward", cfg.pattern.count("mlstm")),
         "slstm (no B1)": (xlstm, "slstm_forward", cfg.pattern.count("slstm")),
@@ -5262,6 +5473,7 @@ def main() -> int:
                "paged_prefill_attention": prefill_attention.PAGED_KERNEL,
                "flash_attention": flash_attention.KERNEL}
     lap("build")
+    dryrun = dryrun_start()
     report = {}
     for phase in (phase_quantize, phase_int8_matmul, phase_decode,
                   phase_prefill, phase_paged_decode, phase_paged_prefill,
@@ -5440,17 +5652,23 @@ def main() -> int:
               f"{tot['eager_dispatches']} eager dispatches; largest graph "
               f"pool of one engine {tot['pool_bytes_max']} B  [{card}]")
 
-    for layout, prof in phase_profile(params, cfg, dev, kernels).items():
+    decode_profs = phase_profile(params, cfg, dev, kernels)
+    for layout, prof in decode_profs.items():
         print(f"[profile] steady decode, INT8 KV, {SERVE_SLOTS} slots, "
               f"{layout}, replayed CUDA graphs (eager first use beside): "
               f"{json.dumps(prof)}  [{card}]")
-    for layout, prof in phase_profile_prefill(params, cfg, dev,
-                                              kernels).items():
+    chunk_profs = phase_profile_prefill(params, cfg, dev, kernels)
+    for layout, prof in chunk_profs.items():
         print(f"[profile] prefill chunk, {SERVE_CHUNK} queries at positions "
               f"{2 * SERVE_CHUNK}-{PREFILL_PROFILE_PROMPT - 1}, INT8 KV, "
               f"{layout}, replayed CUDA graphs (eager first use beside): "
               f"{json.dumps(prof)}  [{card}]")
     lap("profile")
+    roofline_serving(params, cfg,
+                     decode_profs["contiguous"]["decode_step_ms"],
+                     chunk_profs["contiguous"]["chunk_host_ms"], card,
+                     "[roofline]")
+    lap("roofline_serving")
 
     # the paper's experiment: the CNNs run no Pallas kernel of the
     # reference, so no kernel of the port (cuDNN's convs and cuBLAS)
@@ -5475,6 +5693,8 @@ def main() -> int:
     # served in lockstep from their prepended embeddings
     frontend_launches = phase_frontends(dev, kernels, report, card)
     lap("phase_frontends")
+    dryrun_finish(dryrun, card)
+    lap("dryrun_wait")
     print(f"[time] {sum(laps.values()):.1f} s in all, by part: "
           + json.dumps({k: round(v, 1) for k, v in laps.items()})
           + f"  [{card}]")

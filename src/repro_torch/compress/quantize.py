@@ -81,7 +81,8 @@ def quantize_linear(p: Any, bits: int = 8) -> QuantizedLinear:
     w_q = torch.empty(w3.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty((w3.shape[0], w.shape[-1]), dtype=torch.float32,
                         device=w.device)
-    for i in range(w3.shape[0]):
+    # a meta tensor (the dry run) has no values: shapes and dtypes only
+    for i in range(w3.shape[0] if w.device.type != "meta" else 0):
         q, s = symmetric_quantize(w3[i], bits, dims=(0,))
         w_q[i], scale[i] = q, s[0]
     return QuantizedLinear(w_q=w_q.reshape(w.shape),

@@ -5,12 +5,13 @@ CNNs."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.configs import cnn
-from repro_torch.configs.base import (CNNConfig, FrontendConfig,
-                                      ModelConfig, MoEConfig, SSMConfig,
-                                      XLSTMConfig)
+from repro_torch.configs.base import (LM_SHAPES, CNNConfig, FrontendConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, XLSTMConfig, get_shape,
+                                      shape_applicable)
 
 ARCH_MODULES: Dict[str, str] = {
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
@@ -32,6 +33,10 @@ def _module(arch: str):
     return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
 
 
+def list_archs() -> List[str]:
+    return list(ARCH_MODULES)
+
+
 def get_config(arch: str) -> ModelConfig:
     return _module(arch).config()
 
@@ -44,5 +49,7 @@ def get_cnn_config(arch: str) -> CNNConfig:
     return cnn.config(arch)
 
 
-__all__ = ["CNNConfig", "FrontendConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-           "XLSTMConfig", "get_config", "get_smoke_config", "get_cnn_config"]
+__all__ = ["CNNConfig", "FrontendConfig", "LM_SHAPES", "ModelConfig",
+           "MoEConfig", "SSMConfig", "ShapeConfig", "XLSTMConfig",
+           "get_cnn_config", "get_config", "get_shape", "get_smoke_config",
+           "list_archs", "shape_applicable"]

@@ -148,6 +148,43 @@ class ModelConfig:
         return int(total)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# the dry run's cells, as the JAX package's
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; known: "
+                   f"{[s.name for s in LM_SHAPES]}")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) cell is runnable. long_500k needs sub-quadratic."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: O(S^2) at 524k — skipped "
+                       "per brief")
+    return True, ""
+
+
 # ---- CNN configs (the paper's own experiment) ----
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:

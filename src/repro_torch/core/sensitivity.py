@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.roofline import cost
 
 Member = Tuple[Tuple, int, int, int]     # (path, axis, block, offset)
 
@@ -48,6 +49,19 @@ def fisher_diag(grad_fn: Callable[[Any, Any], Any], params: Any,
     return tree.map_(lambda t: t / n, acc), n
 
 
+def _grad(value: torch.Tensor, live: List[torch.Tensor]) -> tuple:
+    """``torch.autograd.grad(value, live)``. On the meta device (the dry
+    run) a pass runs some of its layers for all of them
+    (``lm.layer_order``), so a leaf may be unused: its gradient is zeros,
+    made uncounted."""
+    if live[0].device.type != "meta":
+        return torch.autograd.grad(value, live)
+    grads = torch.autograd.grad(value, live, allow_unused=True)
+    with cost.suspended():
+        return tuple(torch.zeros_like(t) if g is None else g
+                     for g, t in zip(grads, live))
+
+
 def value_and_grad(loss: Callable[[Any, Any], Any], has_aux: bool = False
                    ) -> Callable[[Any, Any], Tuple[Any, Any]]:
     """``fn(params, batch)`` -> (the scalar ``loss(params, batch)``
@@ -64,7 +78,7 @@ def value_and_grad(loss: Callable[[Any, Any], Any], has_aux: bool = False
         with torch.enable_grad():
             out = loss(tree.map_(lambda _: next(it), params), batch)
             value = out[0] if has_aux else out
-            grads = torch.autograd.grad(value, live)
+            grads = _grad(value, live)
         it = iter(grads)
         grads = tree.map_(lambda _: next(it), params)
         if has_aux:

@@ -217,10 +217,11 @@ class Workspaces:
 
 # ------------------------------------------------------------ wrapper checks
 def runs_plain(t) -> bool:
-    """Dispatch by device: True for a CPU tensor (the plain version runs),
-    False for a CUDA tensor (the kernel launches). Any other device raises:
-    there is no quiet fallback."""
-    if t.device.type == "cpu":
+    """Dispatch by device: True for a CPU tensor (the plain version runs)
+    and for a meta tensor (the plain version, shapes only: the dry run's
+    count of work), False for a CUDA tensor (the kernel launches). Any
+    other device raises: there is no quiet fallback."""
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":
         return False

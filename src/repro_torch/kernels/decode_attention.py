@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import cost
 
 KERNEL = build.Kernel("decode_attention", "decode_attention",
                       [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
@@ -155,6 +156,26 @@ def _workspace(name: str, q: torch.Tensor, plan: DecodePlan) -> Tuple:
     return ws.data_ptr(), ws.numel()
 
 
+def attend_count(out, q, k, v, k_s, v_s, start, pages=None):
+    """The count of an attend of q (B, [Sq,] Hq, hd) over the window it is
+    handed: W positions of a (B, W, Hkv, hd) window, or n_blk * page_size
+    of a paged arena through a (B, n_blk) table. QK and PV, 2·W·hd flops
+    each a query row, in bf16 (INT8 K/V is dequantized before its
+    products); bytes: q, the window's K/V (and scales), start, the table
+    and the output once."""
+    kv = [t for t in (k, v, k_s, v_s) if t is not None]
+    if pages is None:
+        w, kv_bytes = k.shape[1], cost.nbytes(kv)
+    else:
+        w = pages.shape[1] * k.shape[1]
+        kv_bytes = sum(t[0, 0].numel() * t.element_size() * q.shape[0] * w
+                       for t in kv)
+    rows = q.numel() // q.shape[-1]
+    return (4 * rows * w * q.shape[-1], 0,
+            kv_bytes + cost.nbytes(q, start, pages, out))
+
+
+@cost.boundary(attend_count)
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
                      start: torch.Tensor) -> torch.Tensor:
@@ -227,6 +248,7 @@ def paged_kv_args(name: str, q_heads: int, k: torch.Tensor, v: torch.Tensor,
             (b, n_blk, ps, hkv, q_heads // hkv, hd), int(quantized))
 
 
+@cost.boundary(attend_count)
 def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k_s: Optional[torch.Tensor],
                            v_s: Optional[torch.Tensor], start: torch.Tensor,

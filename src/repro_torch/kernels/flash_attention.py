@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import cost
 
 KERNEL = build.Kernel("flash_attention", "flash_attention",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -144,6 +145,22 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         return flash_attention_backward(*ctx.saved_tensors, d_out)
+
+
+def flash_counts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """(flops, INT8 flops, bytes) of causal attention over q (B, S, Hq,
+    hd) and k, v (B, S, Hkv, hd), forward then backward, counted over the
+    whole S x S score matrix as the JAX package's train route computes it:
+    the forward's QK and PV, 4·B·S·S·Hq·hd, reading q, k, v and writing
+    the output; the backward's four products (dQ, dK from dS; dP, dV from
+    dO), twice the forward's, reading q, k, v, the output and its
+    gradient and writing dq, dk, dv."""
+    b, s, hq, hd = q.shape
+    fwd = 4 * b * s * k.shape[1] * hq * hd
+    io = cost.nbytes(q, k, v)
+    return ((fwd, 0, io + cost.nbytes(q)),
+            (2 * fwd, 0, 2 * io + 2 * cost.nbytes(q)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import cost
 
 KERNEL = build.Kernel("int8_matmul", "int8_matmul",
                       [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
@@ -139,6 +140,13 @@ def _check_weights(name: str, w_q: torch.Tensor, w_scale: torch.Tensor,
     return n
 
 
+def _count(out, x, w_q, *rest, **kw):
+    """2·M·K·N INT8, and every operand and result once."""
+    return 0, 2 * x.shape[0] * w_q.shape[0] * w_q.shape[1], cost.nbytes(
+        x, w_q, rest, tuple(kw.values()), out)
+
+
+@cost.boundary(_count)
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """x_q (M, K) int8, w_q (K, N) int8, x_scale (M,) f32, w_scale (N,) f32
@@ -169,6 +177,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
+@cost.boundary(_count)
 def int8_matmul_quant(x: torch.Tensor, w_q: torch.Tensor,
                       w_scale: torch.Tensor,
                       out_q: Optional[torch.Tensor] = None,

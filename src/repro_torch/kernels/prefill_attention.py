@@ -14,8 +14,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.decode_attention import (check_launch, kv_args,
+from repro_torch.kernels.decode_attention import (attend_count,
+                                                  check_launch, kv_args,
                                                   paged_kv_args)
+from repro_torch.roofline import cost
 
 KERNEL = build.Kernel("prefill_attention", "prefill_attention",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -49,6 +51,7 @@ def prefill_plan(b: int, sq: int, hkv: int, g: int) -> PrefillPlan:
     return PrefillPlan(warps=warps, grid=(hkv, -(-sq // bq), b))
 
 
+@cost.boundary(attend_count)
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_s: Optional[torch.Tensor], v_s: Optional[torch.Tensor],
                       start: torch.Tensor) -> torch.Tensor:
@@ -78,6 +81,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@cost.boundary(attend_count)
 def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, k_s: Optional[torch.Tensor],
                             v_s: Optional[torch.Tensor], start: torch.Tensor,

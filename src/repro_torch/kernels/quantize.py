@@ -8,11 +8,17 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline import cost
 
 KERNEL = build.Kernel("quantize_rowwise", "quantize_rowwise",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
 
 
+def _count(out, x):
+    return 0, 0, cost.nbytes(x, out)
+
+
+@cost.boundary(_count)
 def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, K) -> ((M, K) int8, (M,) f32 scales). A CPU tensor takes the
     plain version; a CUDA tensor must be contiguous bf16."""

@@ -12,9 +12,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_counts
 from repro_torch.kernels.kv_layout import paged_element_index, scatter_flat
 from repro_torch.kernels.ref import NEG_INF, ieee_div
 from repro_torch.models import layers as L
+from repro_torch.roofline import cost
 
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 ROUTES = (TRAIN, PREFILL, DECODE)
@@ -194,8 +196,12 @@ def attention_forward(p: dict, cfg, x: torch.Tensor,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = (ops.flash_attention(q, k, v) if q.is_cuda
-             else flash_attention(q, k, v, chunk_kv=cfg.attn_chunk_kv))
+        o = cost.differentiable(
+            "flash_attention",
+            lambda q, k, v: (ops.flash_attention(q, k, v) if q.is_cuda
+                             else flash_attention(q, k, v,
+                                                  chunk_kv=cfg.attn_chunk_kv)),
+            (q, k, v), *flash_counts(q, k, v))
     else:
         update_kv_cache(cache, k, v, cur_len, pages)
         r = route or (DECODE if s == 1 else PREFILL)

@@ -28,6 +28,7 @@ import torch
 from repro_torch.compress.qtypes import (QuantizedLinear, linear_kernel,
                                          out_features)
 from repro_torch.kernels import ops
+from repro_torch.roofline import cost
 
 # re-exported for model code that types against the layers namespace
 __all__ = ["QuantizedLinear", "linear_kernel", "out_features"]
@@ -75,8 +76,9 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
 def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) in the dtype of the inputs, one row at a time, so
     each row's bits are those of a one-row product whatever the batch."""
-    x2 = x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
-    out = torch.cat([x2[i:i + 1] @ w for i in range(x2.shape[0])])
+    n = math.prod(x.shape[:-1])
+    x2 = x.reshape(n, x.shape[-1])
+    out = cost.catted([x2[i:i + 1] @ w for i in cost.loop(n, x2)], n)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 

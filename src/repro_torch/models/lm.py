@@ -38,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
+from repro_torch.roofline import cost
 
 VOCAB_PAD = 256
 
@@ -76,6 +77,21 @@ def pattern_period(cfg) -> int:
     """The least period of ``layer_specs``: the JAX package stacks layer
     ``g·period + j`` at ``blocks[j][g]``."""
     return least_period(layer_specs(cfg))
+
+
+def layer_order(cfg, n: int, like: torch.Tensor):
+    """The indices 0..n-1 of the layers a pass runs, in order, grouped by
+    the pattern's period (the JAX package scans these groups). On the meta
+    device (``cost.loop``) the groups between the first and the last run
+    once and count for all of them, as the scan's body counts its trip
+    count: the dry run's layers of one period position share their
+    shapes."""
+    period = pattern_period(cfg)
+    if n % period:
+        yield from range(n)
+        return
+    for g in cost.loop(n // period, like):
+        yield from range(g * period, (g + 1) * period)
 
 
 def is_recurrent(cfg) -> bool:
@@ -243,7 +259,8 @@ def forward(params: dict, cfg, batch: dict, with_aux: bool = False,
     aux = ({"load_balance": x.new_zeros((), dtype=torch.float32),
             "router_z": x.new_zeros((), dtype=torch.float32)}
            if with_aux and any(m for _, m in specs) else {})
-    for (kind, _), p in zip(specs, params["blocks"]):
+    for i in layer_order(cfg, min(len(specs), len(params["blocks"])), x):
+        kind, p = specs[i][0], params["blocks"][i]
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, batch_invariant=False)
         if kind == "attn":
             x = x + A.attention_forward(p["attn"], cfg, h, positions,
@@ -409,9 +426,11 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
     steps = torch.arange(s, device=x.device)
     positions = (cur[:, None] + steps[None, :] if isinstance(cur, torch.Tensor)
                  else (cur + steps)[None, :].expand(b, s))
-    caches = []
-    for kind, p, cache in zip(cfg.pattern, params["blocks"],
-                              state["caches"]):
+    caches = list(state["caches"])
+    n = min(len(cfg.pattern), len(params["blocks"]), len(caches))
+    del caches[n:]
+    for i in layer_order(cfg, n, x):
+        kind, p, cache = cfg.pattern[i], params["blocks"][i], caches[i]
         h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
         if kind == "attn":
             x = x + A.attention_forward(p["attn"], cfg, h, positions, cache,
@@ -419,7 +438,7 @@ def _cached_layers(params: dict, cfg, state: dict, tokens: torch.Tensor,
         else:
             out, cache = _recurrent(kind)(p[kind], cfg, h, cache)
             x = x + out
-        caches.append(cache)
+        caches[i] = cache
         if kind not in XLSTM_KINDS:
             x = x + ffn(p, cfg, L.rmsnorm(x, p["norm2"], cfg.norm_eps), True)
     return x, {"caches": caches, "pos": cur + s}

@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import COMPUTE_DTYPE, QuantizedLinear
+from repro_torch.roofline import cost
 
 EXPERT_KEYS = ("gate", "up", "down")
 
@@ -184,8 +185,9 @@ def expert_ffn(xb: torch.Tensor, p: dict,
                batch_invariant: bool = True) -> torch.Tensor:
     """The expert SwiGLU over the dispatch buffer xb (E, C, d) -> (E, C, d)
     bf16: each expert runs ``layers.mlp`` on its own row block e."""
-    return torch.stack([L.mlp(xb[e], _expert(p, e), batch_invariant)
-                        for e in range(xb.shape[0])])
+    n = xb.shape[0]
+    return cost.catted([L.mlp(xb[e], _expert(p, e), batch_invariant)
+                        for e in cost.loop(n, xb)], n, stack=True)
 
 
 # ------------------------------------------------------------------ forward

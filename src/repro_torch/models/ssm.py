@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.roofline import cost
 
 
 def dt_rank(cfg) -> int:
@@ -111,12 +112,12 @@ def scan(h: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
     (d_in, n) = -exp(a_log). Returns (y (B, S, d_in) f32 before the skip,
     the last h)."""
     ys = []
-    for t in range(dt.shape[1]):
+    for t in cost.loop(dt.shape[1], dt):
         dt_t = dt[:, t, :, None]
         h = (torch.exp(dt_t * a) * h
              + dt_t * b[:, t, None, :] * x[:, t, :, None])
         ys.append(L.sum_last(h * c[:, t, None, :], batch_invariant)[..., 0])
-    return torch.stack(ys, 1), h
+    return cost.catted(ys, dt.shape[1], 1, stack=True), h
 
 
 def mamba_forward(p: dict, cfg, x: torch.Tensor,

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.roofline import cost
 
 NEG = -1e30
 
@@ -65,9 +66,10 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor,
     row of the leading axes, so a row's bits are those of a one-row call."""
     if not batch_invariant:
         return torch.einsum("...hd,hde->...he", x, w)
-    rows = x.reshape(math.prod(x.shape[:-2]), *x.shape[-2:])
-    out = [torch.matmul(r[:, None, :], w)[None, :, 0] for r in rows]
-    out = out[0] if len(out) == 1 else torch.cat(out)
+    n = math.prod(x.shape[:-2])
+    rows = x.reshape(n, *x.shape[-2:])
+    out = cost.catted([torch.matmul(rows[i][:, None, :], w)[None, :, 0]
+                       for i in cost.loop(n, rows)], n)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -160,8 +162,9 @@ def _mlstm_chunk(q, k, v, i_pre, log_f, carry):
 def _rows_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (B, H, m, k) @ b (B, H, k, n) -> (B, H, m, n), a batch row at a
     time (a batched product's algorithm may follow the batch count)."""
-    out = [torch.matmul(a[i:i + 1], b[i:i + 1]) for i in range(a.shape[0])]
-    return out[0] if len(out) == 1 else torch.cat(out)
+    n = a.shape[0]
+    return cost.catted([torch.matmul(a[i:i + 1], b[i:i + 1])
+                        for i in cost.loop(n, a)], n)
 
 
 def mlstm_steps(q, k, v, i_pre, log_f, state: dict):
@@ -180,7 +183,7 @@ def mlstm_steps(q, k, v, i_pre, log_f, state: dict):
     q, k, v = q.float(), k.float(), v.float()
     qk = L.row_sum(q * k)[..., 0]                           # (B, S, H)
     ys = []
-    for t in range(q.shape[1]):
+    for t in cost.loop(q.shape[1], q):
         qt, kt, vt = q[:, t], k[:, t], v[:, t]
         it, ft = i_pre[:, t], log_f[:, t]
         m_inter = m + ft
@@ -200,7 +203,8 @@ def mlstm_steps(q, k, v, i_pre, log_f, state: dict):
                              vt[..., None, :])
         n = n * e[..., None] + kw
         m = m_t
-    return torch.stack(ys, 1), {"C": cmat, "n": n, "m": m}
+    return (cost.catted(ys, q.shape[1], 1, stack=True),
+            {"C": cmat, "n": n, "m": m})
 
 
 def mlstm_forward(p: dict, cfg, x: torch.Tensor,
@@ -233,13 +237,14 @@ def mlstm_forward(p: dict, cfg, x: torch.Tensor,
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B,H,S,hd)
         ih, fh = i_pre.transpose(1, 2), log_f.transpose(1, 2)
         ys = []
-        for c0 in range(0, seq, cfg.xlstm.chunk):
-            sl = slice(c0, c0 + cfg.xlstm.chunk)
+        n_chunks = -(-seq // cfg.xlstm.chunk)
+        for c in cost.loop(n_chunks, x):
+            sl = slice(c * cfg.xlstm.chunk, (c + 1) * cfg.xlstm.chunk)
             y_c, carry = _mlstm_chunk(qh[:, :, sl], kh[:, :, sl],
                                       vh[:, :, sl], ih[..., sl],
                                       fh[..., sl], carry)
             ys.append(y_c)
-        y = torch.cat(ys, 2).transpose(1, 2)                  # (B,S,H,hd)
+        y = cost.catted(ys, n_chunks, 2).transpose(1, 2)      # (B,S,H,hd)
     # per-head norm: keeps the masked-prune model equal to the compacted
     var = L.sum_last(y * y, bi) / hd
     y = (y * torch.rsqrt(var + cfg.norm_eps)).reshape(b_sz, seq, d_in)
@@ -290,7 +295,7 @@ def slstm_steps(p: dict, gates: torch.Tensor, state: dict, n_heads: int,
     hd = d // n_heads
     r_all = torch.cat([p[f"r{x}"] for x in GATES], -1)      # (H, hd, 4hd)
     hs = []
-    for t in range(gates.shape[1]):
+    for t in cost.loop(gates.shape[1], gates):
         g = gates[:, t]
         rec = head_matmul(h.reshape(b_sz, n_heads, hd), r_all,
                           batch_invariant)
@@ -308,7 +313,8 @@ def slstm_steps(p: dict, gates: torch.Tensor, state: dict, n_heads: int,
         h = o * c / torch.clamp_min(n, 1.0)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, 1), {"h": h, "c": c, "n": n, "m": m}
+    return (cost.catted(hs, gates.shape[1], 1, stack=True),
+            {"h": h, "c": c, "n": n, "m": m})
 
 
 def slstm_forward(p: dict, cfg, x: torch.Tensor,

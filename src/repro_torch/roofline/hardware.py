@@ -10,6 +10,7 @@ class Chip:
     peak_int8: float        # OP/s
     hbm_bw: float           # B/s
     hbm_bytes: float
+    nvlink_bw: float        # B/s, one direction
 
 
 H100_SXM = Chip(
@@ -18,4 +19,5 @@ H100_SXM = Chip(
     peak_int8=1978.9e12,
     hbm_bw=3.35e12,
     hbm_bytes=80e9,
+    nvlink_bw=450e9,
 )

@@ -18,6 +18,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.roofline import cost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +133,10 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
             return new_p, {"q": mq, "s": ms}, {"q": vq, "s": vs}
         return new_p, mf, vf
 
+    if tree.leaves(params)[0].device.type == "meta":
+        # the dry run: layers of one shape update alike
+        upd = cost.repeats(upd, lambda p, g, m, v, decay: (
+            tuple(p.shape), p.dtype, decay))
     out = tree.map_(upd, params, grads, state["m"], state["v"],
                     _decayed(params))
     part = lambda i: tree.map_(lambda _, o: o[i], params, out)

@@ -20,6 +20,8 @@ Tolerances:
     autodiff also carries bf16 p and q through the scan, so each gradient
     is held within 2 % of its largest magnitude.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -178,6 +180,12 @@ def test_autograd_flows_through_the_plain_version():
 
 
 def test_flash_wrapper_refuses_other_devices():
+    # a meta tensor takes the plain version, shapes only (the dry run)
     q = torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16, device="meta")
+    out = ops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
+    # a device that is not the CPU, the card or meta has no kernel
+    other = types.SimpleNamespace(device=torch.device("xpu"),
+                                  shape=(1, 4, 2, 8))
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.flash_attention(q, q, q)
+        ops.flash_attention(other, other, other)

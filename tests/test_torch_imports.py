@@ -65,6 +65,10 @@ def test_port_imports_without_jax():
         "import repro_torch.models.ssm, repro_torch.configs.jamba_1_5_large\n"
         "import repro_torch.models.xlstm, repro_torch.configs.xlstm_1_3b\n"
         "from repro_torch.configs import phi_3_vision_4_2b, musicgen_medium\n"
+        "import repro_torch.sharding, repro_torch.sharding.ctx\n"
+        "import repro_torch.sharding.rules, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.elastic, repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline.cost\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

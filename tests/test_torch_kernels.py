@@ -20,6 +20,8 @@ Tolerances:
   * attention vs the Pallas kernels (online softmax, p kept in f32): the
     repo's own tolerance for them, rtol 3e-2 and atol 3e-2.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -404,6 +406,12 @@ def test_paged_prefill_wrapper_launches_any_table_length(quantized,
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    # a meta tensor takes the plain version, shapes only (the dry run)
     x = torch.zeros(2, 4, dtype=torch.bfloat16, device="meta")
+    q, s = quantize_rowwise(x)
+    assert q.device.type == s.device.type == "meta"
+    assert q.shape == (2, 4) and q.dtype == torch.int8 and s.shape == (2,)
+    # a device that is not the CPU, the card or meta has no kernel
+    other = types.SimpleNamespace(device=torch.device("xpu"), shape=(2, 4))
     with pytest.raises(RuntimeError, match="no kernel"):
-        quantize_rowwise(x)
+        quantize_rowwise(other)
