@@ -66,6 +66,13 @@ its row, chunked prefill == whole), with B1 timed at the frontend
 linear's products beside ``torch._int_mm``; the kernel phases hold B3-B7's
 hd-96 instances too.
 
+Before the serving phases, both static-analysis planes run on the card
+(``phase_static``): the dispatch plane's declared hot paths of smoke-size
+engines traced eagerly and under CUDA-graph capture, each captured graph's
+memcpy and memset nodes held under a KV leaf's bytes, the retrace
+workloads, and the AST lint of the serving modules and CI scripts; any
+violation fails the run.
+
 The engine runs each decode dispatch and prefill chunk as a CUDA graph,
 captured at a key's second use and replayed after; each main serve load
 runs SERVE_RUNS times on one engine (a variant of one VARIANT_RUNS), and
@@ -114,12 +121,13 @@ SERVE_RUNS = 3              # runs of each serve load on one engine: the
 # long prompts; the speculative and the families' paged loads, the trained
 # pair): one, which already captures and replays every key it meets twice
 VARIANT_RUNS = 1
-SHARED_HEAD, SHARED_N = 64, 6   # shared-prompt load: head tokens, requests
+SHARED_HEAD, SHARED_N = 64, 4   # shared-prompt load: head tokens, requests
 # long-prompt load: one prompt that decodes across the first split-KV
 # segment boundary (256), one past it, at a larger max_seq
 LONG_PROMPTS, LONG_NEW, LONG_MAX_SEQ = (250, 300), 16, 512
 PAGE_SIZES = (16, 32, 48, 256)  # paged kernel checks
-PROFILE_TICKS = 10          # decode dispatches timed in the profile phase
+PROFILE_TICKS = 5           # decode dispatches timed in the profile phase
+PROFILE_TOP = 8             # kernels by device ms printed of a profile
 PREFILL_PROFILE_PROMPT = 4 * SERVE_CHUNK   # prompt of the prefill profile
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10   # device timing: calls a graph, replays
 
@@ -236,6 +244,9 @@ CNN_PROFILE_TOP = 6
 # 64) at these per-slot starts; B3 against B4 at Sq = 1 at these starts
 # (one 64-position tile, two, and two split-KV segments)
 SPEC_REQUESTS, SPEC_K, SPEC_CYCLES = SERVE_SLOTS + 1, 4, 1
+# of those, the requests held to the decode-route serial decode too (C6's
+# report), and the requests of the sampled plain-engine loads
+SPEC_ROUTE_REQUESTS, SPEC_SAMPLED_REQUESTS = 2, 3
 SPEC_SAMPLING = dict(temperature=0.8, top_k=50, seed=7)
 COW_PROMPT = 64
 SPEC_VERIFY_STARTS = (37, 60, 100, 201)
@@ -291,8 +302,8 @@ HYBRID_REQUESTS, HYBRID_NEW, HYBRID_RUNS = 4, 16, 3
 # x 2 (up, down). XLSTM_STATE_REL bounds the smoke model's mLSTM state C,
 # card against CPU, over its largest magnitude.
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_B1, XLSTM_REQUESTS, XLSTM_NEW, XLSTM_RUNS = 96, 4, 16, 3
-XLSTM_PROMPT, XLSTM_ONE_RUN = SERVE_CHUNK, 2
+XLSTM_B1, XLSTM_REQUESTS, XLSTM_NEW, XLSTM_RUNS = 96, 4, 8, 3
+XLSTM_PROMPT, XLSTM_ONE_RUN = SERVE_CHUNK, 1
 XLSTM_STATE_REL = 3e-2
 # The family training phase: each family at its published width, trained
 # FAMILY_STEPS AdamW steps with the capacity factor's drops (the train
@@ -316,7 +327,7 @@ XLSTM_STATE_REL = 3e-2
 FAMILY_TRAIN = ((MOE_ARCH, MOE_LAYERS, "int8", MOE_LAYERS, 3e-4),
                 (HYBRID_ARCH, HYBRID_HQP_LAYERS, "f32", 0, 3e-4),
                 (XLSTM_ARCH, None, "f32", 0, 3e-3))
-FAMILY_STEPS, FAMILY_RESUME, FAMILY_BATCH, FAMILY_SEQ = 10, 3, 8, 64
+FAMILY_STEPS, FAMILY_RESUME, FAMILY_BATCH, FAMILY_SEQ = 10, 1, 8, 64
 FAMILY_FALL = 5e-2
 # B7 at phi3.5-moe's train shape (the batch above, 32 heads of 128, 8 kv)
 PHI_TRAIN_FLASH = (FAMILY_BATCH, FAMILY_SEQ, 32, 8, 128)
@@ -1411,6 +1422,33 @@ def phase_small_e2e(dev):
     return err, h_err, loss_dev, loss_cpu
 
 
+def phase_static(dev, card):
+    """Both static-analysis planes on the card: the dispatch plane over the
+    KV matrix and the speculative cell at smoke size (every declared hot
+    path traced eagerly and under capture, each captured graph's dump
+    read for arena-sized memcpy and memset nodes, the retrace workloads),
+    then the AST lint of the port's serving modules and CI scripts. A
+    ``[static]`` line per plane; any violation fails the run."""
+    import torch
+    from repro_torch.analysis import astlint, dispatch_checks, render
+    t0 = time.monotonic()
+    lines = []
+    found = dispatch_checks.run_dispatch_plane(device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    t_dispatch = time.monotonic() - t0
+    for line in lines:
+        print(f"[static] {line}  [{card}]")
+    print(f"[static] dispatch plane: {len(found)} violations in "
+          f"{t_dispatch:.1f} s  [{card}]")
+    t1 = time.monotonic()
+    lint = astlint.lint_tree(ROOT)
+    print(f"[static] ast plane: {len(lint)} violations over "
+          f"{len(astlint.default_targets(ROOT))} files in "
+          f"{time.monotonic() - t1:.1f} s")
+    if found or lint:
+        fail("static checks:\n" + render(found + lint))
+
+
 GRAPH_STATS = ("graphs_captured", "graph_replays", "eager_dispatches",
                "capture_s")
 
@@ -2349,7 +2387,7 @@ def dryrun_finish(proc, card):
 
 
 def phase_profile(params, cfg, dev, kernels, prompt_len=SERVE_PROMPT,
-                  layouts=LAYOUTS, prof_ticks=2):
+                  layouts=LAYOUTS, prof_ticks=1):
     """Where a steady decode dispatch's time goes, contiguous against paged
     (pages of SERVE_PAGE; ``layouts``): SERVE_SLOTS requests of
     ``prompt_len`` tokens, all decoding, INT8 KV, one engine per layout on
@@ -2456,8 +2494,8 @@ def phase_profile(params, cfg, dev, kernels, prompt_len=SERVE_PROMPT,
 def _profiled(run, kernels):
     """``run`` under torch.profiler: the host wall ms around it, the number
     of device kernels and their device ms summed by group (each port
-    kernel a group, 0 where it did not run). Prints the profiler's
-    table."""
+    kernel a group, 0 where it did not run). Prints the PROFILE_TOP
+    kernels by device ms."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2465,14 +2503,17 @@ def _profiled(run, kernels):
         t0 = time.monotonic()
         run()
         wall_ms = (time.monotonic() - t0) * 1e3
-    groups, n_kernels = dict.fromkeys(kernels, 0.0), 0
+    groups, n_kernels, by_name = dict.fromkeys(kernels, 0.0), 0, {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms = evt.time_range.elapsed_us() / 1e3
             g = _group(evt.name, kernels)
-            groups[g] = groups.get(g, 0.0) + evt.time_range.elapsed_us() / 1e3
+            groups[g] = groups.get(g, 0.0) + ms
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
             n_kernels += 1
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=15))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    print("[profile] top device kernels (ms in the profiled run): "
+          + "; ".join(f"{n[:70]} {ms:.4f}" for n, ms in top))
     return dict(wall_ms=wall_ms, n_kernels=n_kernels, groups=groups)
 
 
@@ -2767,15 +2808,17 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
       KV, k SPEC_K, SPEC_CYCLES cycle a dispatch; every output equals
       serial decode of the verifier whose one-token steps take the prefill
       route, bit for bit (the verify pass is B4/B6).
-      Against the decode-route serial decode (B3's steps) the requests that
-      differ are printed with the step and the verifier's top-two gap
-      there, which must stay within SPEC_TIE_GAP;
+      Against the decode-route serial decode (B3's steps) of the first
+      SPEC_ROUTE_REQUESTS requests, those that differ are printed with the
+      step and the verifier's top-two gap there, which must stay within
+      SPEC_TIE_GAP;
     - copy-on-write: ``cow_load``, paged, one run: at least one page
       copied, engine == oracle, the allocator consistent and no page left
       once the prefix cache is cleared;
     - sampling (SPEC_SAMPLING): the plain engine on ``drafter`` equals
-      sampled serial decode, contiguous and paged, one run each; a sampled
-      speculative run repeated on one engine (tick arrivals, so both runs
+      sampled serial decode on the first SPEC_SAMPLED_REQUESTS requests,
+      contiguous and paged, one run each; a sampled
+      speculative run of those requests repeated on one engine (tick arrivals, so both runs
       schedule alike) gives the same tokens, whose first equals sampled
       serial decode's;
     - the trained pair: ``trained`` (the trained bf16 params, their HQP
@@ -2803,7 +2846,8 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
 
     t0 = time.monotonic()
     oracle = [serial(verifier, r, "prefill") for r in reqs]
-    decode_route = [serial(verifier, r, "decode") for r in reqs]
+    decode_route = [serial(verifier, r, "decode")
+                    for r in reqs[:SPEC_ROUTE_REQUESTS]]
     serial_s = time.monotonic() - t0
     differ = []
     for i, (a, b) in enumerate(zip(oracle, decode_route)):
@@ -2818,10 +2862,11 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
                      f"{SPEC_TIE_GAP}")
     print(f"[spec] oracle: serial decode of the bf16 verifier with its "
           f"one-token steps on the prefill route (B4); the decode-route "
-          f"serial decode (B3) differs on {len(differ)} of {len(reqs)} "
-          f"requests" + "".join(f"; request {i} from step {t}, top-two gap "
+          f"serial decode (B3) differs on {len(differ)} of "
+          f"{len(decode_route)} requests" + "".join(f"; request {i} from step {t}, top-two gap "
                                 f"{g:.4g}" for i, t, g in differ)
-          + f" (limit {SPEC_TIE_GAP}); {2 * len(reqs)} serial decodes in "
+          + f" (limit {SPEC_TIE_GAP}); {len(oracle) + len(decode_route)} "
+          f"serial decodes in "
           f"{serial_s:.2f} s  [{card}]")
 
     for page_size, must, must_not in (
@@ -2858,8 +2903,9 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
     for page_size, must, must_not in (
             (None, DENSE + CONTIGUOUS, PAGED + UNFUSED),
             (SERVE_PAGE, DENSE + PAGED, CONTIGUOUS + UNFUSED)):
-        runs, eng = serve_once(drafter, cfg, dev, kernels, reqs, must,
-                               must_not, arrivals_s=arrivals, runs=1,
+        n = SPEC_SAMPLED_REQUESTS
+        runs, eng = serve_once(drafter, cfg, dev, kernels, reqs[:n], must,
+                               must_not, arrivals_s=arrivals[:n], runs=1,
                                sampling=scfg, quantized_kv=True,
                                page_size=page_size)
         r = runs[0]
@@ -2873,17 +2919,18 @@ def phase_spec(cfg, dev, kernels, drafter, trained, report, card):
               f"eager, launches "
               f"{ {n: c for n, c in r['launches'].items() if c} }  [{card}]")
         del eng
-    spec_ticks = [2 * i for i in range(len(reqs))]
-    runs, eng = serve_spec(verifier, drafter, cfg, dev, kernels, reqs,
+    sreqs = reqs[:SPEC_SAMPLED_REQUESTS]
+    spec_ticks = [2 * i for i in range(len(sreqs))]
+    runs, eng = serve_spec(verifier, drafter, cfg, dev, kernels, sreqs,
                            DENSE + CONTIGUOUS, PAGED + UNFUSED,
-                           [None] * len(reqs), 2, arrival_ticks=spec_ticks,
+                           [None] * len(sreqs), 2, arrival_ticks=spec_ticks,
                            sampling=scfg)
     if runs[0]["tokens"] != runs[1]["tokens"]:
         fail("sampled speculative serving: the repeated run gave other "
              "tokens")
     # the first token is drawn before serial decode's first step
     first = [serial(verifier, r, "prefill", 1, sampling=scfg)[0]
-             for r in reqs]
+             for r in sreqs]
     if [t[0] for t in runs[0]["tokens"]] != first:
         fail("sampled speculative serving: first tokens differ from sampled "
              "serial decode's")
@@ -3730,7 +3777,7 @@ def phase_moe(dev, kernels, report, card):
        of each layer in the Fisher ranking; on random weights Algorithm 1's
        steps may never reach an expert), masked == compacted, the router
        bias compacted with its columns;
-    3. the artifact saved, loaded twice, each load bit-equal, its stacked
+    3. the artifact saved and loaded, bit-equal, its stacked
        JAX-layout shapes checked;
     4. served on the staggered load, INT8 KV, contiguous and paged (pages
        of SERVE_PAGE), ARCH_RUNS runs each: engine == serial decode, B1
@@ -3828,8 +3875,8 @@ def phase_moe(dev, kernels, report, card):
         save_artifact(str(art_dir), art)
         save_s = time.monotonic() - t0
         t0 = time.monotonic()
-        loads = [load_artifact(str(art_dir), device=dev) for _ in range(2)]
-        load_s = (time.monotonic() - t0) / 2
+        loads = [load_artifact(str(art_dir), device=dev)]
+        load_s = time.monotonic() - t0
     finally:
         size = sum(f.stat().st_size for f in art_dir.rglob("*")
                    if f.is_file()) if art_dir.exists() else 0
@@ -3839,7 +3886,7 @@ def phase_moe(dev, kernels, report, card):
         if bad or loaded.manifest.asdict() != m.asdict():
             fail(f"moe artifact load {i + 1}: leaves {bad[:5]} differ")
     e_art = art.params["blocks"][0]["moe"]["gate"].w_q.shape[0]
-    st = stack_blocks({"blocks": loads[1].params["blocks"]})["blocks"][0]
+    st = stack_blocks({"blocks": loads[0].params["blocks"]})["blocks"][0]
     want = {"gate": (cfg.n_layers, e_art, cfg.d_model, cfg.d_ff),
             "down": (cfg.n_layers, e_art, cfg.d_ff, cfg.d_model)}
     got = {name: tuple(st["moe"][name].w_q.shape) for name in want}
@@ -3851,8 +3898,8 @@ def phase_moe(dev, kernels, report, card):
              f"{want}")
     del loads, st
     print(f"[moe] artifact: {size / 1e9:.3f} GB on disk, saved in "
-          f"{save_s:.2f} s, loaded twice ({load_s:.2f} s each), both loads "
-          f"bit-equal to the artifact in memory; stacked JAX layout: expert "
+          f"{save_s:.2f} s, loaded in {load_s:.2f} s, bit-equal to the "
+          f"artifact in memory; stacked JAX layout: expert "
           f"codes {got['gate']}, scales {(cfg.n_layers, e_art, cfg.d_ff)}  "
           f"[{card}]")
 
@@ -4215,7 +4262,7 @@ def phase_hybrid(dev, kernels, report, card):
        ``ffn`` and ``mamba_cols`` families), masked == compacted; a
        quarter of the Mamba channels cut by hand (Algorithm 1's steps on
        random weights need not reach them), masked == compacted; that cut
-       model's INT8 artifact saved, loaded twice (bit-equal), and served
+       model's INT8 artifact saved, loaded (bit-equal), and served
        contiguous and paged == serial decode, its pool sized from the
        compacted ``conv_w``.
     Returns the launches of the cold runs (B5/B6 from the paged one)."""
@@ -4392,7 +4439,7 @@ def phase_hybrid(dev, kernels, report, card):
         t0 = time.monotonic()
         save_artifact(str(art_dir), cut)
         save_s = time.monotonic() - t0
-        loads = [load_artifact(str(art_dir), device=dev) for _ in range(2)]
+        loads = [load_artifact(str(art_dir), device=dev)]
     finally:
         size = sum(f.stat().st_size for f in art_dir.rglob("*")
                    if f.is_file()) if art_dir.exists() else 0
@@ -4401,10 +4448,10 @@ def phase_hybrid(dev, kernels, report, card):
         bad = _differ(loaded.params, cut.params)
         if bad or loaded.manifest.asdict() != cut.manifest.asdict():
             fail(f"hybrid artifact load {i + 1}: leaves {bad[:5]} differ")
-    served = loads[1].params
+    served = loads[0].params
     del loads
     print(f"[hybrid] the cut model's INT8 artifact: {size / 1e9:.3f} GB on "
-          f"disk, saved in {save_s:.2f} s, loaded twice, both bit-equal  "
+          f"disk, saved in {save_s:.2f} s, loaded bit-equal  "
           f"[{card}]")
     creqs, carr = synth_requests(cfg1, HYBRID_REQUESTS, SERVE_PROMPT,
                                  HYBRID_NEW)
@@ -5513,6 +5560,8 @@ def main() -> int:
           f"{e2e:.4g}; train route max |hidden diff| {h_err:.4g}, loss "
           f"{loss_dev:.6f} (card) vs {loss_cpu:.6f} (CPU)")
     lap("small_e2e")
+    phase_static(dev, card)
+    lap("static")
 
     from repro_torch import configs
     from repro_torch.compress.quantize import quantize_lm_params
@@ -5537,9 +5586,12 @@ def main() -> int:
     main_launches = {}
     kv_bytes = None
     for quantized_kv in (True, False):
+        # the bf16-KV variant: the first SERVE_SLOTS requests, once
+        n = len(reqs) if quantized_kv else SERVE_SLOTS
         runs, eng = serve_once(
-            params, cfg, dev, kernels, reqs, dense + contiguous,
-            paged + unfused, arrivals_s=arrivals, quantized_kv=quantized_kv,
+            params, cfg, dev, kernels, reqs[:n], dense + contiguous,
+            paged + unfused, arrivals_s=arrivals[:n],
+            quantized_kv=quantized_kv,
             runs=SERVE_RUNS if quantized_kv else VARIANT_RUNS)
         if quantized_kv:
             main_launches.update({k: runs[0]["launches"][k]

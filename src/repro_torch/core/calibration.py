@@ -38,6 +38,27 @@ def _kl_div(p: np.ndarray, q: np.ndarray) -> float:
     return float(np.sum(p[mask] * np.log(p[mask] / qm[mask])))
 
 
+def _requantized(h: np.ndarray, n_levels: int) -> np.ndarray:
+    """``h`` cut into ``np.array_split(h, n_levels)``'s chunks, each
+    nonzero bin given its chunk's sum over its nonzero bins: the JAX
+    package's loop over the chunks, a row of a 2-D view per chunk. The
+    first ``len(h) % n_levels`` chunks are one bin longer, so two views
+    cover them; a row's sum is the chunk's ``sum()``, bit for bit."""
+    base, extra = divmod(h.size, n_levels)
+    cut = extra * (base + 1)
+    q = np.zeros(h.size)
+    for lo, hi, width in ((0, cut, base + 1), (cut, h.size, base)):
+        if hi == lo:
+            continue
+        rows = h[lo:hi].reshape(-1, width)
+        pos = rows > 0
+        nz = pos.sum(axis=1)
+        mean = np.divide(rows.sum(axis=1), nz, out=np.zeros(len(rows)),
+                         where=nz > 0)
+        q[lo:hi] = np.where(pos, mean[:, None], 0.0).ravel()
+    return q
+
+
 def kl_threshold(hist: np.ndarray, edges: np.ndarray, bits: int = 8) -> float:
     """TensorRT-style entropy calibration over an |x| histogram.
 
@@ -58,15 +79,7 @@ def kl_threshold(hist: np.ndarray, edges: np.ndarray, bits: int = 8) -> float:
         if p.sum() == 0:
             continue
         # quantize the first i bins down to n_levels and expand back
-        chunks = np.array_split(hist[:i], n_levels)
-        q = np.zeros(i)
-        pos = 0
-        for ch in chunks:
-            nz = (ch > 0).sum()
-            total = ch.sum()
-            if nz > 0:
-                q[pos:pos + len(ch)][ch > 0] = total / nz
-            pos += len(ch)
+        q = _requantized(hist[:i], n_levels)
         p /= p.sum()
         qs = q.sum()
         if qs == 0:

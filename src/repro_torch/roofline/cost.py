@@ -105,6 +105,7 @@ class _State:
     times: int = 1
     tagged: Optional[list] = None
     node_times: Dict = {}
+    observe: Optional[Callable] = None
 
 
 def _tensors(xs) -> Iterator[torch.Tensor]:
@@ -167,6 +168,8 @@ class _Mode(TorchDispatchMode):
             _State.tagged.extend(_tensors((out,)))
         if c is None or _State.suspended:
             return out
+        if _State.observe is not None:
+            _State.observe(func, args, kwargs or {}, out)
         if func.is_view or func in _FREE or func.namespace != "aten":
             return out
         times = _times_now()
@@ -190,19 +193,22 @@ class _Mode(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def record() -> Iterator[Cost]:
+def record(observe: Optional[Callable] = None) -> Iterator[Cost]:
     """Count the work of the block into the ``Cost`` it yields. Recorders
-    do not nest."""
+    do not nest. ``observe(func, args, kwargs, out)``, if given, sees every
+    op the dispatch mode sees outside a kernel's op, views and allocations
+    included: the op trace ``analysis.dispatch_checks`` checks."""
     if _State.cost is not None:
         raise RuntimeError("cost.record: a recorder is already active")
     c = Cost()
     _State.cost, _State.suspended, _State.times = c, 0, 1
     _State.tagged, _State.node_times = None, {}
+    _State.observe = observe
     try:
         with _Mode():
             yield c
     finally:
-        _State.cost, _State.node_times = None, {}
+        _State.cost, _State.node_times, _State.observe = None, {}, None
 
 
 def recording() -> bool:

@@ -105,6 +105,14 @@ class GraphCache:
         self.keys: Dict[str, set] = {kind: set() for kind in bounds}
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
+        # captures keep their graph's nodes for CUDAGraph.debug_dump (the
+        # static checks read them; serving never sets it)
+        self.debug = False
+
+    def graph(self, kind: str, key: Hashable):
+        """The CUDA graph captured for ``(kind, key)``, or None."""
+        entry = self._graphs.get((kind, key))
+        return None if entry is None else entry[0]
 
     def run(self, kind: str, key: Hashable, body: Callable[[], None]
             ) -> None:
@@ -147,7 +155,8 @@ class GraphCache:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = [k.launches for k in build.KERNELS]
-        graph = torch.cuda.CUDAGraph()
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.debug
+                 else torch.cuda.CUDAGraph())
         credits = []
         # no cyclic garbage collection while capturing: a collection could
         # free a dead engine's graphs (a Service and its engine hold each
@@ -158,6 +167,8 @@ class GraphCache:
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 body()
+            if self.debug:
+                graph.instantiate()
         finally:
             if collecting:
                 gc.enable()

@@ -80,6 +80,7 @@ carries the device time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -88,6 +89,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, telemetry
+from repro_torch.analysis.invariants import REGISTRY, declare_invariants
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.kv_layout import page_count
 from repro_torch.models import lm
@@ -354,6 +356,23 @@ class Engine:
             {"decode": n_windows, "prefill": n_prefill} if self.spec is None
             else {"spec": n_windows * self.spec.n_plans(),
                   "spec_prefill": n_prefill}), self.stats)
+        # each dispatch kind's invariants (analysis.dispatch_checks holds
+        # them): the harvest is its one host sync, the pools are written in
+        # place, no KV leaf is widened to f32, and its keys stay within the
+        # cache's bound. Declaring runs nothing per dispatch.
+        kinds = ((("decode", self._decode_steps, ("pool",)),
+                  ("prefill", self._prefill_chunk, ("pool",)))
+                 if self.spec is None else
+                 (("spec", self.spec.dispatch, ("dpool", "vpool")),
+                  ("spec_prefill", self._spec_prefill_chunk,
+                   ("dpool", "vpool"))))
+        self.invariants = {}
+        for kind, body, donated in kinds:
+            declare_invariants(
+                f"engine.{kind}", host_syncs=1, donated=donated,
+                forbid_f32_roundtrip_on=("kv",),
+                max_lowerings=self.graphs.bounds[kind])(body)
+            self.invariants[kind] = REGISTRY[f"engine.{kind}"]
         self.inputs = Inputs(self.device)
         # the dispatches' outputs, made outside any capture: a decode
         # dispatch's (tokens, emitted) per step and slot, a chunk's token,
@@ -673,7 +692,13 @@ class Engine:
         t_d0 = clk()
         chunk = self.inputs.put(("chunk", hi - lo), slot.prompt[None, lo:hi])
         window = self._window(hi)
-        kind = "prefill" if self.spec is None else "spec_prefill"
+        if self.spec is None:
+            kind = "prefill"
+            body = functools.partial(self._prefill_chunk, self.pool)
+        else:
+            kind = "spec_prefill"
+            body = functools.partial(self._spec_prefill_chunk,
+                                     self.draft_pool, self.pool)
         if self.paged:
             # the slot's table row and index in fixed buffers: one graph
             # serves every slot
@@ -682,12 +707,10 @@ class Engine:
                                   self.table[slot.idx:slot.idx + 1, :n_blk])
             idx = self.inputs.put("slot", np.array([slot.idx]))
             self.graphs.run(kind, (hi - lo, window),
-                            lambda: self._prefill_chunk(idx, chunk, window,
-                                                        row))
+                            lambda: body(idx, chunk, window, row))
         else:
             self.graphs.run(kind, (hi - lo, window, slot.idx),
-                            lambda: self._prefill_chunk(slot.idx, chunk,
-                                                        window))
+                            lambda: body(slot.idx, chunk, window))
         t_d1 = clk()
         ph["prefill_dispatch"] = t_d1 - t_d0
         slot.prefill_done = hi
@@ -720,26 +743,42 @@ class Engine:
         self._emit(slot, tok, finished)
         ph["token_fanout"] = clk() - t_s1
 
-    def _prefill_chunk(self, slot, chunk: torch.Tensor, window: int,
+    def _prefill_chunk(self, pool, slot, chunk: torch.Tensor, window: int,
                        pages: Optional[torch.Tensor] = None) -> None:
         """One prefill chunk (1, width) of slot ``slot`` (an int, or a (1,)
         index tensor in paged mode) from the slot's device position, which
-        it advances in place, in the pool and, speculative, in the
-        drafter's pool too (the first token always comes from the
-        verifier). The token of the chunk's last position goes to
-        ``_chunk_token``: greedy, or drawn with the key of the position
-        after the chunk, read from the device."""
+        it advances in ``pool`` in place. The token of the chunk's last
+        position goes to ``_chunk_token``: greedy, or drawn with the key of
+        the position after the chunk, read from the device."""
+        logits, new = self._prefill_pool(self.params, pool, slot, chunk,
+                                         window, pages)
+        self._pick_chunk_token(logits, new)
+
+    def _spec_prefill_chunk(self, dpool, vpool, slot, chunk: torch.Tensor,
+                            window: int,
+                            pages: Optional[torch.Tensor] = None) -> None:
+        """``_prefill_chunk`` of a speculative engine: the chunk goes
+        through the drafter's pool ``dpool`` and the verifier's ``vpool``;
+        the first token always comes from the verifier."""
+        self._prefill_pool(self.spec.draft_params, dpool, slot, chunk,
+                           window, pages)
+        logits, new = self._prefill_pool(self.params, vpool, slot, chunk,
+                                         window, pages)
+        self._pick_chunk_token(logits, new)
+
+    def _prefill_pool(self, params, pool, slot, chunk: torch.Tensor,
+                      window: int, pages: Optional[torch.Tensor]):
+        """The chunk through one model and its pool, whose position and
+        recurrent state it records. Returns (logits, new state)."""
         # route="prefill" for every chunk, the 1-token tail included: the
         # same op serial whole-prompt prefill takes, so the bits agree
-        st = sp.gather_slot(self.pool, slot, pages=pages)
-        logits, new = lm.decode_step(self.params, self.cfg, st, chunk,
+        st = sp.gather_slot(pool, slot, pages=pages)
+        logits, new = lm.decode_step(params, self.cfg, st, chunk,
                                      window=window, route="prefill")
-        if self.spec is not None:
-            dst = sp.gather_slot(self.draft_pool, slot, pages=pages)
-            _, dnew = lm.decode_step(self.spec.draft_params, self.cfg, dst,
-                                     chunk, window=window, route="prefill")
-            sp.scatter_slot(self.draft_pool, slot, dnew)
-        sp.scatter_slot(self.pool, slot, new)
+        sp.scatter_slot(pool, slot, new)
+        return logits, new
+
+    def _pick_chunk_token(self, logits: torch.Tensor, new) -> None:
         if self.sampling.is_greedy:
             self._chunk_token.copy_(smp.greedy(logits[0, -1]))
         else:
@@ -784,8 +823,8 @@ class Engine:
         inputs = self.inputs.put("decode", host)
         table = self._dispatch_table(window, active) if self.paged else None
         self.graphs.run("decode", window,
-                        lambda: self._decode_steps(inputs, k_steps, window,
-                                                   table))
+                        lambda: self._decode_steps(self.pool, inputs, k_steps,
+                                                   window, table))
         t_d1 = clk()
         ph["decode_scan"] = t_d1 - t_d0
         out = self._decode_out.cpu().numpy()
@@ -812,16 +851,15 @@ class Engine:
         self.stats["decode_ticks"] += 1
         self.stats["decode_slot_steps"] += int(emitted.sum())
 
-    def _decode_steps(self, inputs: torch.Tensor, k_steps: int, window: int,
-                      table: Optional[torch.Tensor]) -> None:
+    def _decode_steps(self, pool, inputs: torch.Tensor, k_steps: int,
+                      window: int, table: Optional[torch.Tensor]) -> None:
         """``k_steps`` decode steps over every slot, on the device.
         ``inputs`` (4, B): each live slot's last token, live (0/1), EOS id
         (-1 = none), tokens each slot may still emit; ``table`` the
         dispatch's page table (paged mode). Slots that hit EOS or their
         budget freeze for the remaining steps. Writes (toks (K, B), emitted
         (K, B)) into ``_decode_out``, and the rows' recurrent state into
-        the pool at the end."""
-        pool = self.pool
+        ``pool`` at the end."""
         tok, live, eos, left = (inputs[0][:, None], inputs[1] != 0,
                                 inputs[2], inputs[3])
         extra = {} if table is None else {"pages": table}

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import declare_invariants
 from repro_torch.models import lm
 
 TRASH_PAGE = 0
@@ -114,6 +115,10 @@ def _put(leaf: torch.Tensor, slot: Union[int, torch.Tensor],
         leaf[slot:slot + 1] = value
 
 
+# admission and copy-on-write run eagerly between dispatches, on the host's
+# integers: no graph, so no bound on keys (analysis.dispatch_checks)
+@declare_invariants("engine.reset", host_syncs=1, donated=("pool",),
+                    forbid_f32_roundtrip_on=("kv",))
 def reset_slot(pool: Dict[str, Any], slot: int, pos0: int = 0) -> None:
     """Admission: the slot's recurrent state is zeroed (it advances
     irreversibly) and its position drops to ``pos0`` (0, or the length of
@@ -195,6 +200,8 @@ def select_slots(pool: Dict[str, Any], saved: torch.Tensor,
     pool["pos"].copy_(torch.where(active, pool["pos"], saved))
 
 
+@declare_invariants("engine.copy_page", host_syncs=1, donated=("pool",),
+                    forbid_f32_roundtrip_on=("kv",))
 def copy_page(pool: Dict[str, Any], src: int, dst: int) -> None:
     """Copy-on-write: arena page ``src`` into page ``dst`` in every KV leaf
     of a paged pool, in place."""

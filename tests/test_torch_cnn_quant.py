@@ -70,6 +70,33 @@ def test_thresholds_bit_equal_on_equal_histograms(nets):
     assert calib.kl_threshold(out.hist, out.edges) < 0.5 * out.amax
 
 
+@pytest.mark.parametrize("kind", ["counts", "spike", "weights", "sparse",
+                                  "short"])
+def test_kl_threshold_bit_equal_on_many_histograms(kind):
+    """The port requantizes a candidate's bins a chunk per row of a 2-D
+    view, not a chunk at a time: the same threshold as the reference's
+    loop, bit for bit, on count histograms (a zero spike, sparse ones, few
+    samples) and on float weights, every candidate length taking chunks
+    of one to 17 bins."""
+    rng = np.random.RandomState(len(kind))
+    for trial in range(4):
+        edges = np.linspace(0.0, rng.uniform(0.5, 8.0), calib.N_BINS + 1)
+        if kind in ("counts", "spike", "short"):
+            n = 300 if kind == "short" else 100_000
+            x = np.abs(rng.standard_normal(n) * rng.uniform(0.1, 2.0))
+            hist = np.histogram(x, bins=edges)[0].astype(np.float64)
+            if kind == "spike":
+                hist[0] += 40_000
+        elif kind == "weights":
+            hist = rng.random_sample(calib.N_BINS) ** 3 * 1e5
+            hist[rng.random_sample(calib.N_BINS) < 0.3] = 0.0
+        else:
+            hist = np.zeros(calib.N_BINS)
+            hist[rng.randint(0, calib.N_BINS, 40)] = rng.randint(1, 999, 40)
+        assert (calib.kl_threshold(hist, edges)
+                == jcalib.kl_threshold(hist, edges)), (kind, trial)
+
+
 def test_actq_over_the_model(nets):
     """The taps' names and ranges, their percentile scales, and the logits
     of the fake-quantized forward (``apply`` mode, on the device with no

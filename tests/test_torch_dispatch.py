@@ -253,6 +253,31 @@ def test_graph_cache_runs_eager_then_captures_then_replays(fake_graphs):
     assert stats["graph_pool_bytes"] == 2 * 4096 and stats["capture_s"] >= 0
 
 
+def test_graph_cache_debug_keeps_the_graph(fake_graphs, monkeypatch):
+    """With ``debug`` a capture keeps its graph (``keep_graph=True``, then
+    instantiated) for the static checks' dump, and ``graph(kind, key)``
+    hands it out; without it the graph is made as serving makes it."""
+    class Kept(FakeGraph):
+        def __init__(self, keep_graph=False):
+            super().__init__()
+            self.keep_graph, self.instantiated = keep_graph, False
+
+        def instantiate(self):
+            self.instantiated = True
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Kept)
+    cache = dispatch.GraphCache(CUDA, {"decode": 2}, {})
+    for _ in range(2):
+        cache.run("decode", 16, lambda: None)
+    plain = cache.graph("decode", 16)
+    assert not plain.keep_graph and not plain.instantiated
+    assert cache.graph("decode", 32) is None
+    cache.debug = True
+    for _ in range(2):
+        cache.run("decode", 32, lambda: None)
+    kept = cache.graph("decode", 32)
+    assert kept.keep_graph and kept.instantiated and kept.replays == 1
+
+
 def test_graph_cache_bounds_its_keys(fake_graphs):
     """Each kind holds at most its bound of distinct keys: the bound + 1-th
     raises, on the card and on the CPU; keys already seen still run."""

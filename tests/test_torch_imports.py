@@ -69,6 +69,12 @@ def test_port_imports_without_jax():
         "import repro_torch.sharding.rules, repro_torch.launch.mesh\n"
         "import repro_torch.launch.elastic, repro_torch.launch.dryrun\n"
         "import repro_torch.roofline.cost\n"
+        "import repro_torch.analysis, repro_torch.analysis.astlint\n"
+        "import repro_torch.analysis.dispatch_checks\n"
+        "import repro_torch.scripts.check_static\n"
+        "import repro_torch.scripts.http_smoke\n"
+        "import repro_torch.scripts.chaos_smoke\n"
+        "import repro_torch.scripts.trace_smoke\n"
         "assert 'triton' not in sys.modules\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
